@@ -1,0 +1,97 @@
+"""Hierarchical MIDI model: event-level net + token-level net + shared head.
+
+Counterpart of ``midi_model_tpu/models/midinet.py``:
+
+- an **event** is a row of ``max_token_seq`` token ids; its embedding is the
+  SUM of the row's token embeddings through the event net's table;
+- the event net contextualizes event embeddings;
+- the token net decodes the next row's tokens conditioned on the event
+  hidden state at position 0;
+- one shared ``lm_head`` projects both nets' hidden states to the vocab.
+
+The module is inference-only in this package for now (parameters do not
+require grad); training comes with its own port.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from .config import MIDIModelConfig
+from .llama import DenseCache, LlamaStack
+
+
+class MIDINet(nn.Module):
+    """Parameters are left uninitialized: load them with
+    ``interop.params_from_state_dict`` or fill them with :func:`init_model`."""
+
+    def __init__(self, config: MIDIModelConfig, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        device = torch.device("cpu" if device is None else device)
+        self.config = config
+        self.net = LlamaStack(config.net, dtype, device)
+        self.net_token = LlamaStack(config.net_token, dtype, device)
+        self.lm_head = nn.utils.skip_init(
+            nn.Linear, config.n_embd, config.tokenizer.vocab_size, bias=False,
+            dtype=dtype, device=device)
+        self.requires_grad_(False)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.lm_head.weight.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.lm_head.weight.device
+
+    def embed_events(self, tokens: torch.Tensor) -> torch.Tensor:
+        """[..., T] token-id rows -> [..., D] summed event embeddings (rows
+        gathered, cast to the compute dtype, then summed)."""
+        emb = self.net.embed_tokens(tokens.long())
+        return emb.to(self.dtype).sum(dim=-2)
+
+    def forward(self, x: torch.Tensor, cache: Optional[DenseCache] = None
+                ) -> Tuple[torch.Tensor, Optional[DenseCache]]:
+        """Event net: ``x [B, L, T]`` -> (hidden ``[B, L, D]``, cache)."""
+        return self.net(self.embed_events(x), cache)
+
+    def forward_token(self, hidden_state: Optional[torch.Tensor],
+                      x: Optional[torch.Tensor],
+                      cache: Optional[DenseCache] = None
+                      ) -> Tuple[torch.Tensor, Optional[DenseCache]]:
+        """Token net + lm_head.  hidden_state [B, D] (sequence position 0) or
+        None when continuing from a cache; x [B, T] token ids or None.
+        Returns (logits [B, S, V] f32, cache)."""
+        parts = []
+        if hidden_state is not None:
+            parts.append(hidden_state[:, None, :].to(self.dtype))
+        if x is not None:
+            parts.append(self.net_token.embed_tokens(x.long()).to(self.dtype))
+        seq = torch.cat(parts, dim=1)
+        h, cache = self.net_token(seq, cache)
+        return self.logits(h), cache
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The shared head in f32 (the JAX package's ``lm_head``)."""
+        return self.lm_head(hidden).float()
+
+
+@torch.no_grad()
+def init_model(config: MIDIModelConfig, *, seed: int = 0,
+               dtype=torch.float32, device=None) -> MIDINet:
+    """Random weights made on ``device`` from ``seed``: matrices and
+    embeddings ``N(0, initializer_range)``, norm weights 1."""
+    model = MIDINet(config, dtype=dtype, device=device)
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(seed)
+    std = config.net.initializer_range
+    for name, p in model.named_parameters():
+        if name.endswith("layernorm.weight") or name.endswith("norm.weight"):
+            p.fill_(1.0)
+        else:
+            p.normal_(0.0, std, generator=gen)
+    return model

@@ -1,0 +1,82 @@
+"""The port's plain attention agrees with the JAX package's ``xla_attention``
+under the causal bias and under a cache bias.
+
+Tolerances: f32 atol 1e-5 (summation order only).  bf16: both sides score
+in f32 from the same bf16 values and round the probabilities to bf16 before
+P.V; outputs may still differ where an f32 sum rounds to a neighbouring bf16
+value, so atol 2e-2 (a bf16 step at magnitude 2-4)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from midi_model_tpu.ops.attention import xla_attention
+from midi_model_tpu_torch.ops.attention import (attention_reference,
+                                                causal_attention, causal_bias)
+
+from _torch_helpers import one_torch_thread  # noqa: F401 (autouse; also sets full fp32)
+
+TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+       torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+def _qkv(b, s, h, hkv, dh, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, s, h, dh)).astype(np.float32),
+            rng.normal(size=(b, s, hkv, dh)).astype(np.float32),
+            rng.normal(size=(b, s, hkv, dh)).astype(np.float32))
+
+
+def _jax(x, dtype):
+    return jnp.asarray(x, jnp.float32 if dtype == torch.float32 else jnp.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,hkv,dh", [(2, 37, 4, 4, 16), (1, 130, 8, 2, 32),
+                                          (2, 64, 16, 16, 64)])
+def test_causal_attention_matches_xla(b, s, h, hkv, dh, dtype):
+    q, k, v = _qkv(b, s, h, hkv, dh, seed=s)
+    pos = np.arange(s)
+    bias = np.where(pos[None, :] <= pos[:, None], 0.0, -np.inf).astype(np.float32)
+    ref = xla_attention(_jax(q, dtype), _jax(k, dtype), _jax(v, dtype),
+                        jnp.asarray(bias)[None, None])
+    tq, tk, tv = (torch.from_numpy(x).to(dtype) for x in (q, k, v))
+    ours = causal_attention(tq, tk, tv)
+    assert ours.dtype == dtype and ours.shape == (b, s, h, dh)
+    np.testing.assert_allclose(ours.float().numpy(), np.asarray(ref, np.float32),
+                               **TOL[dtype])
+    np.testing.assert_array_equal(
+        ours.float().numpy(),
+        attention_reference(tq, tk, tv, causal_bias(s, tq.device)).float().numpy())
+
+
+def test_strided_inputs():
+    """q sliced out of a wider tensor (no copy) gives the same result."""
+    rng = np.random.default_rng(0)
+    wide = torch.from_numpy(rng.normal(size=(2, 20, 4, 64)).astype(np.float32))
+    q = wide[..., :32]
+    k = torch.from_numpy(rng.normal(size=(2, 20, 4, 32)).astype(np.float32))
+    assert not q.is_contiguous()
+    np.testing.assert_allclose(causal_attention(q, k, k).numpy(),
+                               causal_attention(q.contiguous(), k, k).numpy(),
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cache_bias_matches_xla(dtype):
+    """A query block at positions 3..4 over an 8-row cache (the token net)."""
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(3, 2, 2, 16)).astype(np.float32)
+    k = rng.normal(size=(3, 8, 2, 16)).astype(np.float32)
+    v = rng.normal(size=(3, 8, 2, 16)).astype(np.float32)
+    pos = np.arange(3, 5)
+    bias = np.where(np.arange(8)[None, :] <= pos[:, None], 0.0,
+                    -np.inf).astype(np.float32)[None, None]
+    ref = xla_attention(_jax(q, dtype), _jax(k, dtype), _jax(v, dtype),
+                        jnp.asarray(bias))
+    ours = attention_reference(*(torch.from_numpy(x).to(dtype) for x in (q, k, v)),
+                               torch.from_numpy(bias))
+    np.testing.assert_allclose(ours.float().numpy(), np.asarray(ref, np.float32),
+                               **TOL[dtype])
