@@ -1,0 +1,104 @@
+// E whole events — token rows AND event-net steps — in ONE launch.
+//
+// Replaces: midi_model_tpu/ops/event_loop.py, _event_loop_kernel (Pallas
+// TPU), its aligned form (merged_decode_events): every slot at the same
+// history length.
+//
+// What it computes (the plain version is
+// midi_model_tpu_torch/ops/event_loop.py, decode_event_block_reference),
+// for events e = 0..E-1: the token row of token_row.cuh from the token
+// net's input (the given hidden at e = 0, the event net's final RMSNorm of
+// the residual after), with event e's noise plane; the event embedding of
+// the sampled row (the sum of its 8 event-net embedding rows, in f32 in
+// step order, rounded once to T), summed by the block that samples the
+// row; then fused_step.cuh's step over all event-net layers at the uniform
+// length len0 + e, appending at that position.  Outputs rows [E, B, T]
+// int32 and, in the residual buffer, the last event's residual before the
+// final norm.
+//
+// What bounds it on an H100: bytes, as its two bodies (token_loop.cu,
+// fused_step.cu): about 408 + 403 MB of weights per event at tv2o-medium in
+// bf16, 0.24 ms at 3.35 TB/s, plus the cached rows.  This first version
+// runs the two bodies' phases unchanged (66 ms per 8-event launch at bs=32
+// and 1000 cached rows, PERF.md); what one launch per E events removes is
+// the host's work between them: the launches, the embedding gather and the
+// per-event geometry tables.
+//
+// Design: one cooperative persistent grid; between events one extra phase
+// writes the token net's next input, T(fnorm * T(x * rsqrt)) of the
+// residual — the plain version's RMSNorm rounding points.
+#include "fused_step.cuh"
+#include "token_row.cuh"
+
+namespace {
+
+template <typename T>
+struct LoopParams {
+  mm::TokenParams<T> tok;
+  mm::StepParams<T> step;
+  const T* fnorm;  // the event net's final norm [D]
+  int n_events;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(mm::kDecThreads, 1) event_loop_kernel(LoopParams<T> p) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);  // staged tiles, work[V], attention scores
+  __shared__ float rs[mm::kMaxBatch];
+  __shared__ float red[mm::kDecWarps];
+  __shared__ mm::ArgmaxScratch<mm::kDecThreads> am;
+  const int B = p.step.B, D = p.step.D;
+  for (int e = 0; e < p.n_events; ++e) {
+    if (e > 0) {  // the token net's input: the final norm of the residual
+      mm::row_scales<T>(p.step.x, B, D, p.step.eps, rs);
+      __syncthreads();
+      for (int i = (blockIdx.x * mm::kDecThreads + threadIdx.x) * 8; i < B * D;
+           i += gridDim.x * mm::kDecThreads * 8) {
+        const int b = i / D;
+        float v[8];
+        mm::norm8<T>(p.step.x, p.fnorm, rs, D, b, i - b * D, v);
+        mm::store8(p.tok.x + i, v);
+      }
+      mm::grid_barrier(p.step.bar);
+    }
+    mm::token_row_body<T>(p.tok, e, xs, rs, red, am);  // writes the embedding to step.x
+    mm::grid_barrier(p.step.bar);
+    mm::fused_step_body<T>(p.step, e, xs, rs);
+    if (e + 1 < p.n_events) mm::grid_barrier(p.step.bar);
+  }
+}
+
+// ptrs: mm::fill_token_params's pointers, then emb_net [V, D] and ev_acc
+// [B, D] f32 scratch, then mm::fill_step_params's (the geometry tables with
+// one row per event; the same barrier pair as the token row's), then the
+// final norm; ints: the token row's, the step's, then n_events; floats: the
+// token row's, then the step's.
+template <typename T>
+int launch(const void* const* ptrs, const int* ints, const float* floats, void* stream) {
+  LoopParams<T> p;
+  bool ok = mm::fill_token_params(p.tok, ptrs, ints, floats);
+  p.tok.emb_net = static_cast<const T*>(*ptrs++);
+  p.tok.ev_acc = static_cast<float*>(const_cast<void*>(*ptrs++));
+  ok = mm::fill_step_params(p.step, ptrs, ints, floats) && ok;
+  p.tok.ev_out = p.step.x;
+  p.fnorm = static_cast<const T*>(*ptrs++);
+  p.n_events = *ints++;
+  if (!ok || p.tok.B != p.step.B || p.tok.D != p.step.D || p.tok.bar != p.step.bar ||
+      p.n_events < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&p};
+  return mm::launch_cooperative(event_loop_kernel<T>, mm::kDecThreads, mm::kGemvSmem, 1 << 20,
+                                args, stream);
+}
+
+}  // namespace
+
+extern "C" int mm_event_loop_f32(const void* const* ptrs, const int* ints, const float* floats,
+                                 void* stream) {
+  return launch<float>(ptrs, ints, floats, stream);
+}
+
+extern "C" int mm_event_loop_bf16(const void* const* ptrs, const int* ints, const float* floats,
+                                  void* stream) {
+  return launch<__nv_bfloat16>(ptrs, ints, floats, stream);
+}

@@ -1,0 +1,54 @@
+// One event-net decode step over ALL layers in ONE launch.
+//
+// Replaces: midi_model_tpu/ops/fused_step.py, _fused_step_kernel (Pallas TPU).
+//
+// What it computes: fused_step.cuh's fused_step_body for one event (the
+// plain version is midi_model_tpu_torch/ops/fused_step.py,
+// fused_decode_step_reference): every layer's norm, q/k/v, RoPE, paged
+// attention with the f32 self-term merge, the append, o-proj and SwiGLU,
+// on the residual stream x [B, D] in place.
+//
+// What bounds it on an H100: bytes.  The per-layer weights (tv2o-medium:
+// q/k/v 3M, o 1M, gate/up 8M, down 4M parameters, 33.5 MB in bf16) are read
+// once per event, 403 MB at 12 layers — 0.12 ms at 3.35 TB/s — plus the
+// cached rows each slot attends over (2 * len * H * dh * sizeof(T) per
+// slot and layer).  This first version is far from that floor (~4 ms at
+// bs=32): its 60 phases per event pay staging, CUDA-core FMA and barrier
+// latency (PERF.md).
+//
+// Design (simple first version): one cooperative persistent grid, the
+// phases of fused_step.cuh separated by a global-memory grid barrier.
+#include "fused_step.cuh"
+
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(mm::kDecThreads, 1) fused_step_kernel(mm::StepParams<T> p) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);  // gemv2's staged tile; attention scores
+  __shared__ float rs[mm::kMaxBatch];
+  mm::fused_step_body<T>(p, 0, xs, rs);
+}
+
+// The packed host arrays of mm::fill_step_params.
+template <typename T>
+int launch(const void* const* ptrs, const int* ints, const float* floats, void* stream) {
+  mm::StepParams<T> p;
+  if (!mm::fill_step_params(p, ptrs, ints, floats))
+    return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&p};
+  return mm::launch_cooperative(fused_step_kernel<T>, mm::kDecThreads, mm::kGemvSmem, 1 << 20,
+                                args, stream);
+}
+
+}  // namespace
+
+extern "C" int mm_fused_step_f32(const void* const* ptrs, const int* ints, const float* floats,
+                                 void* stream) {
+  return launch<float>(ptrs, ints, floats, stream);
+}
+
+extern "C" int mm_fused_step_bf16(const void* const* ptrs, const int* ints, const float* floats,
+                                  void* stream) {
+  return launch<__nv_bfloat16>(ptrs, ints, floats, stream);
+}

@@ -19,90 +19,35 @@
 // Design: one block per row; the row's probabilities are copied once into
 // shared memory (ragged tail masked by the strided loop), each pass reduces
 // per thread, then per warp with shuffles, then across warps in shared
-// memory.  A row stops as soon as its own texcl passes top_p.  The TPU kernel
-// stops only once EVERY row has passed; per-row stopping gives the same ids
+// memory.  The extraction loop lives in sampler.cuh, shared with the
+// token-row kernel (token_loop.cu), as the JAX package's token_loop._sample
+// repeats ops/sampler.py's loop.  A row stops as soon as its own texcl
+// passes top_p.  The TPU kernel stops only once EVERY row has passed;
+// per-row stopping gives the same ids
 // because texcl only grows, so a row past top_p can keep nothing more.  Edge
 // cases match the TPU kernel: remaining mass 0 gives log 0 = -inf, which
 // never beats the initial -inf, so such a row returns index 0.
-#include "common.cuh"
+#include "sampler.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-struct MaxIdx {
-  float m;
-  int i;
-};
-
-// Larger value wins; equal values: lower index (symmetric, so a butterfly
-// shuffle leaves every lane with the same winner).
-__device__ __forceinline__ MaxIdx better(MaxIdx a, MaxIdx b) {
-  return (b.m > a.m || (b.m == a.m && b.i < a.i)) ? b : a;
-}
-
-__device__ __forceinline__ MaxIdx warp_best(MaxIdx t) {
-  for (int off = 16; off > 0; off >>= 1) {
-    MaxIdx o{__shfl_xor_sync(0xffffffffu, t.m, off), __shfl_xor_sync(0xffffffffu, t.i, off)};
-    t = better(t, o);
-  }
-  return t;
-}
 
 __global__ void __launch_bounds__(kThreads)
 sampler_kernel(const float* __restrict__ probs, const float* __restrict__ top_p,
                const int* __restrict__ top_k, const float* __restrict__ gumbel,
                int* __restrict__ out, int V, int k_cap) {
   extern __shared__ float work[];  // [V]
-  __shared__ MaxIdx partial[kWarps];
-  __shared__ MaxIdx winner;
+  __shared__ mm::ArgmaxScratch<kThreads> scratch;
 
   const int row = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const float* p = probs + static_cast<size_t>(row) * V;
   for (int i = threadIdx.x; i < V; i += kThreads) work[i] = p[i];
-  const float tp = top_p[row];
   const int n_iter = min(top_k[row], k_cap);
-  const float* g = gumbel + static_cast<size_t>(row) * k_cap;
   __syncthreads();
-
-  // Every thread carries the same copy of the loop state, so the loop
-  // condition is uniform across the block and the barriers are safe.
-  float best = -CUDART_INF_F;
-  int bidx = 0;
-  float texcl = 0.f;
-  for (int j = 0; j < n_iter && texcl <= tp; ++j) {
-    MaxIdx t{-CUDART_INF_F, V};
-    for (int i = threadIdx.x; i < V; i += kThreads) {
-      const float x = work[i];
-      if (x > t.m) {  // strided indices grow, so '>' keeps the lowest
-        t.m = x;
-        t.i = i;
-      }
-    }
-    t = warp_best(t);
-    if (lane == 0) partial[warp] = t;
-    __syncthreads();
-    if (warp == 0) {
-      MaxIdx w = lane < kWarps ? partial[lane] : MaxIdx{-CUDART_INF_F, V};
-      w = warp_best(w);
-      if (lane == 0) winner = w;
-    }
-    __syncthreads();
-    const MaxIdx r = winner;
-    // kept: texcl <= top_p and j < top_k hold by the loop condition
-    const float score = logf(r.m) + g[j];
-    if (score > best) {
-      best = score;
-      bidx = r.i;
-    }
-    if (threadIdx.x == 0 && r.i < V) work[r.i] = 0.f;
-    texcl += r.m;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[row] = bidx;
+  const int id = mm::sample_top_p_k_block<kThreads>(
+      work, V, top_p[row], n_iter, gumbel + static_cast<size_t>(row) * k_cap, scratch);
+  if (threadIdx.x == 0) out[row] = id;
 }
 
 }  // namespace

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels and bind them with ctypes.
 
-All ``csrc/*.cu`` files compile in ONE ``nvcc`` call into a shared library
-with a plain C interface (no PyTorch headers: a few seconds to build, where
-a ``torch.utils.cpp_extension`` build takes minutes).  The library lives
+Each ``csrc/*.cu`` file compiles in its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links the objects into a shared library
+with a plain C interface (no PyTorch headers: seconds to build, where a
+``torch.utils.cpp_extension`` build takes minutes).  The library lives
 under ``build/midi_model_tpu_torch/`` at the checkout root, keyed by a hash
 of the sources, and is built at first use — never at import.
 
@@ -22,7 +23,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List
+from typing import List, Tuple
 
 import torch
 
@@ -36,12 +37,21 @@ LAUNCHES: collections.Counter = collections.Counter()
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PAGED = [_P] * 12 + [_I] * 7 + [_P]
 _ATTN = [_P] * 4 + [_I] * 5 + [_P, _P]
+# the whole-step decode kernels take host arrays of pointers, ints and
+# floats (their parameter structs, filled on the C side) and the stream
+_PACKED = [_P] * 4
 _SIGNATURES = {
     "mm_sampler": [_P] * 5 + [_I] * 3 + [_P],
     "mm_paged_decode_f32": _PAGED,
     "mm_paged_decode_bf16": _PAGED,
     "mm_causal_attention_f32": _ATTN,
     "mm_causal_attention_bf16": _ATTN,
+    "mm_token_row_f32": _PACKED,
+    "mm_token_row_bf16": _PACKED,
+    "mm_fused_step_f32": _PACKED,
+    "mm_fused_step_bf16": _PACKED,
+    "mm_event_loop_f32": _PACKED,
+    "mm_event_loop_bf16": _PACKED,
 }
 
 
@@ -65,10 +75,17 @@ def _nvcc() -> str:
     return str(Path(home) / "bin" / "nvcc")
 
 
-def nvcc_command(out: Path) -> List[str]:
-    return ([_nvcc()] + ARCH_FLAGS
-            + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", str(out)] + [str(p) for p in sorted(CSRC.glob("*.cu"))])
+def nvcc_commands(out: Path) -> Tuple[List[List[str]], List[str]]:
+    """One compile command per source (run side by side), then the link of
+    their objects into the library ``out``."""
+    compiles, objects = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out.with_name(f"{out.name}.{src.stem}.o")
+        compiles.append([_nvcc()] + ARCH_FLAGS
+                        + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-c",
+                           "-o", str(obj), str(src)])
+        objects.append(str(obj))
+    return compiles, [_nvcc()] + ARCH_FLAGS + ["-shared", "-o", str(out)] + objects
 
 
 def build(verbose: bool = False) -> Path:
@@ -78,16 +95,32 @@ def build(verbose: bool = False) -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = nvcc_command(tmp)
+    compiles, link = nvcc_commands(tmp)
     if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr)
-    os.replace(tmp, out)
+        for cmd in compiles:
+            cmd[1:1] = ["-Xptxas", "-v"]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cmd in compiles]
+    # wait for every compile before raising: no nvcc outlives the build
+    done = [(cmd, proc.communicate()[1], proc.returncode)
+            for cmd, proc in zip(compiles, procs)]
+    try:
+        for cmd, err, code in done:
+            _check_nvcc(cmd, code, err, verbose)
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _check_nvcc(link, proc.returncode, proc.stderr, verbose)
+        os.replace(tmp, out)
+    finally:
+        for cmd in compiles:
+            Path(cmd[cmd.index("-o") + 1]).unlink(missing_ok=True)
     return out
+
+
+def _check_nvcc(cmd: List[str], code: int, stderr: str, verbose: bool) -> None:
+    if code != 0:
+        raise RuntimeError(f"nvcc failed ({code}) on {cmd[-1]}:\n{stderr}")
+    if verbose:
+        print(stderr)
 
 
 @functools.cache
@@ -109,6 +142,16 @@ def call(name: str, *args) -> None:
     if err != 0:
         msg = lib.mm_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def call_packed(name: str, ptrs, ints, floats, device: torch.device) -> None:
+    """Launch a kernel that takes its parameters as three host arrays
+    (pointers — a tensor's data pointer, or None for null — ints, floats)."""
+    arrays = ((ctypes.c_void_p * len(ptrs))(*[p or None for p in ptrs]),
+              (ctypes.c_int * len(ints))(*ints),
+              (ctypes.c_float * len(floats))(*floats))
+    call(name, *[ctypes.cast(a, ctypes.c_void_p) for a in arrays],
+         stream_ptr(device))
 
 
 def stream_ptr(device: torch.device) -> int:

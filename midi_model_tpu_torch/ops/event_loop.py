@@ -1,0 +1,144 @@
+"""E whole events — token rows and event-net steps — in one launch.
+
+Counterpart of ``midi_model_tpu/ops/event_loop.py`` in its aligned form
+(``merged_decode_events``: every slot at the same history length).  The
+CUDA kernel is ``csrc/event_loop.cu``; :func:`decode_event_block_reference`
+is its plain PyTorch version.  For events ``e = 0..E-1``:
+
+- the token row of ``ops.token_loop`` from the event net's hidden (the
+  given one at ``e = 0``, the final norm of the previous event's residual
+  after), with event ``e``'s noise plane ``gumbel[e]``;
+- the event embedding of the sampled row: its 8 event-net embedding rows
+  summed in f32 in step order and rounded once (:func:`event_embedding`, as
+  the TPU kernel's one-hot f32 accumulation);
+- the whole event-net step of ``ops.fused_step`` at the uniform length
+  ``len0 + e``, appending at that position.
+
+What one launch per E events removes, next to the token-row and whole-step
+launches per event, is the host's work between them: the launches, the
+embedding gather and the per-event geometry tables.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..models.llama import rms_norm, rope_cos_sin
+from . import _build
+from . import fused_step as fs
+from . import token_loop as tl
+
+EVENTS_PER_LAUNCH = 8  # the JAX package's EVENTS_PER_DISPATCH
+
+
+def why_not_fused(config, batch: int, capacity: int) -> Optional[str]:
+    """Why the fused decode kernels (token row, whole step, event loop)
+    cannot take ``config`` at ``batch`` slots of ``capacity`` rows, or None
+    when they can: the rule behind ``decode_events(fused=None)``."""
+    problem = (tl.kernel_limits(config, batch)
+               or fs.kernel_limits(config.net, batch, capacity))
+    if problem is None and config.net.hidden_size != config.net_token.hidden_size:
+        problem = (f"event loop: the event and token nets' widths differ "
+                   f"({config.net.hidden_size}, {config.net_token.hidden_size})")
+    return problem
+
+
+def event_embedding(model, row: torch.Tensor) -> torch.Tensor:
+    """row [B, T] ids -> [B, D]: the event net's embedding rows of the row's
+    tokens summed in f32 in step order, rounded once to the model dtype."""
+    table = model.net.embed_tokens.weight
+    row = row.long()
+    acc = table[row[:, 0]].float()
+    for j in range(1, row.shape[1]):
+        acc = acc + table[row[:, j]].float()
+    return acc.to(model.dtype)
+
+
+def decode_event_block_reference(model, config, fused: fs.FusedWeights,
+                                 hidden: torch.Tensor, pools: fs.PagedPools,
+                                 len0: int, masks, temp, top_p, top_k,
+                                 gumbel: Optional[torch.Tensor], *,
+                                 n_events: int, greedy: bool, page_size: int,
+                                 pages_per_slot: int):
+    """The plain version of :func:`decode_event_block`: per event, the plain
+    token row, :func:`event_embedding` and the plain whole step."""
+    b = hidden.shape[0]
+    rows = []
+    for e in range(n_events):
+        row, _ = tl.decode_token_row_reference(
+            model, config, hidden, masks, temp, top_p, top_k,
+            None if greedy else gumbel[e], greedy=greedy)
+        index = torch.full((b,), len0 + e, dtype=torch.int32, device=hidden.device)
+        hidden, pools = fs.fused_decode_step_reference(
+            fused, config.net, event_embedding(model, row), pools, index,
+            page_size=page_size, pages_per_slot=pages_per_slot)
+        rows.append(row)
+    return torch.stack(rows), hidden, pools
+
+
+def decode_event_block(model, config, fused: fs.FusedWeights,
+                       hidden: torch.Tensor, pools: fs.PagedPools, len0: int,
+                       masks, temp, top_p, top_k,
+                       gumbel: Optional[torch.Tensor], *, n_events: int,
+                       greedy: bool, page_size: int, pages_per_slot: int):
+    """Decode ``n_events`` whole events, every slot at history length
+    ``len0`` before the first (``len0 + n_events <= capacity``).
+
+    model: a ``MIDINet``; fused: :func:`fused_step.prepare_fused` of its
+    event net; hidden [B, D]: the event net's hidden (after the final norm)
+    that conditions the first row; masks: (first, steps, pad_only) bool
+    tensors; ``temp`` / ``top_p`` / ``top_k``: scalars or per-row [B];
+    gumbel [n_events, T*B, k_cap] f32 (each event's ``gumbel_rows``; None
+    when ``greedy``).  Returns (rows [n_events, B, T] int32, hidden after
+    the last event's final norm, pools updated in place).  CPU tensors run
+    the plain version, CUDA tensors the kernel (one launch) or raise."""
+    args = (model, config, fused, hidden, pools, len0, masks, temp, top_p,
+            top_k, gumbel)
+    kw = dict(n_events=n_events, greedy=greedy, page_size=page_size,
+              pages_per_slot=pages_per_slot)
+    tensors = [hidden, *masks, pools.k, pools.v, fused.wqkv, model.lm_head.weight]
+    tensors += [t for t in (temp, top_p, top_k, gumbel) if isinstance(t, torch.Tensor)]
+    if _build.on_cpu(*tensors):
+        return decode_event_block_reference(*args, **kw)
+
+    b = hidden.shape[0]
+    device = hidden.device
+    capacity = pages_per_slot * page_size
+    if n_events < 1 or len0 < 0 or len0 + n_events > capacity:
+        raise ValueError(f"event loop: {n_events} events from length {len0} "
+                         f"do not fit a capacity of {capacity}")
+    problem = why_not_fused(config, b, capacity)
+    if problem:
+        raise ValueError(problem)
+    dtype = model.dtype
+    if greedy:
+        gumbel = None
+    else:
+        _build.check(gumbel, "gumbel", torch.float32,
+                     (n_events, config.tokenizer.max_token_seq * b, gumbel.shape[-1]))
+        gumbel = gumbel.view(-1, gumbel.shape[-1])
+    # the geometry of every event: lengths = write positions = len0 + e
+    lengths = (torch.arange(len0, len0 + n_events, dtype=torch.int32, device=device)
+               [:, None].expand(n_events, b).contiguous())
+    cos, sin = rope_cos_sin(lengths, config.net.head_dim, config.net.rope_theta)
+    bar = torch.zeros(2, dtype=torch.int32, device=device)
+    tptrs, tints, tfloats, rows, _, tkeep = tl.kernel_args(
+        model, config, hidden, masks, temp, top_p, top_k, gumbel, greedy=greedy,
+        forced_pad=None, allow=None, n_events=n_events, bar=bar)
+    emb_net = model.net.embed_tokens.weight
+    _build.check(emb_net, "event embedding", dtype,
+                 (config.tokenizer.vocab_size, config.net.hidden_size))
+    ev_acc = torch.empty((b, config.net.hidden_size), dtype=torch.float32, device=device)
+    sptrs, sints, sfloats, xs, skeep = fs.kernel_args(
+        fused, config.net, hidden, pools, lengths, lengths, cos.contiguous(),
+        sin.contiguous(), page_size=page_size, pages_per_slot=pages_per_slot, bar=bar)
+    _build.check(fused.final_norm, "final_norm", dtype, (config.net.hidden_size,))
+    ptrs = (tptrs + [emb_net.data_ptr(), ev_acc.data_ptr()] + sptrs
+            + [fused.final_norm.data_ptr()])
+    name = "mm_event_loop_f32" if dtype == torch.float32 else "mm_event_loop_bf16"
+    _build.call_packed(name, ptrs, tints + sints + [n_events], tfloats + sfloats, device)
+    _build.LAUNCHES["event_loop"] += 1
+    del tkeep, skeep
+    return rows, rms_norm(xs, fused.final_norm, config.net.rms_norm_eps), pools

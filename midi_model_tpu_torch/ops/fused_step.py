@@ -1,0 +1,253 @@
+"""One event-net decode step over all layers in one launch.
+
+Counterpart of ``midi_model_tpu/ops/fused_step.py``.  The CUDA kernel is
+``csrc/fused_step.cu``; :func:`fused_decode_step_reference` is its plain
+PyTorch version.  Per layer: RMSNorm, the fused q/k/v product, RoPE at each
+slot's position, paged attention over the slot's cached rows with the fresh
+row's own term merged in f32, the append of the fresh k/v row, o-proj and
+the SwiGLU MLP.  Rounding points are the TPU kernel's (``fused_step.py:
+147-152, 326-329, 370-378``): the query is pre-scaled in f32; the cache
+scores use it rounded to the pool dtype (``qsb``), the self term the f32
+one (``qs32``); the softmax weights are rounded to the pool dtype before
+P.V while their sum ``l`` and the merge stay f32.
+
+MHA only, with packed pages (``head_stride == head_dim``); bf16 or f32
+pools of the weights' dtype.  Ragged ``index`` and an ``active`` mask are
+supported: an inactive slot attends over nothing, and — as in the TPU
+kernel — every slot's fresh row is written at ``clip(index, 0, cap-1)``.
+The pools are updated IN PLACE (the returned pools are the same tensors).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..models.llama import LlamaStack, apply_rope, rms_norm, rope_cos_sin
+from . import _build
+from .paged_allheads import PagedPools, head_stride
+
+
+class FusedWeights(NamedTuple):
+    """The event net's weights concatenated per layer (torch ``[out, in]``)."""
+
+    wqkv: torch.Tensor  # [L, 3W, D]
+    wo: torch.Tensor  # [L, D, W]
+    wgu: torch.Tensor  # [L, 2F, D]
+    wd: torch.Tensor  # [L, D, F]
+    ln: torch.Tensor  # [L, 2, D]: attention norm, MLP norm
+    final_norm: torch.Tensor  # [D]
+
+
+def prepare_fused(stack: LlamaStack) -> FusedWeights:
+    """Concatenate the per-layer projections once per model (one extra copy
+    of the stack's weights; the callers hoist it out of the event loop)."""
+    layers = stack.layers
+
+    def stacked(fn):
+        return torch.stack([fn(ly) for ly in layers]).contiguous()
+
+    return FusedWeights(
+        wqkv=stacked(lambda ly: torch.cat([ly.self_attn.q_proj.weight,
+                                           ly.self_attn.k_proj.weight,
+                                           ly.self_attn.v_proj.weight])),
+        wo=stacked(lambda ly: ly.self_attn.o_proj.weight),
+        wgu=stacked(lambda ly: torch.cat([ly.mlp.gate_proj.weight,
+                                          ly.mlp.up_proj.weight])),
+        wd=stacked(lambda ly: ly.mlp.down_proj.weight),
+        ln=stacked(lambda ly: torch.stack([ly.input_layernorm.weight,
+                                           ly.post_attention_layernorm.weight])),
+        final_norm=stack.norm.weight)
+
+
+def _packed_mha(cfg) -> bool:
+    return (cfg.kv_heads == cfg.num_heads
+            and head_stride(cfg.head_dim, cfg.num_heads) == cfg.head_dim)
+
+
+def kernel_limits(cfg, batch: int, capacity: int) -> Optional[str]:
+    """Why the whole-step kernel cannot take the event net ``cfg`` at
+    ``batch`` slots of ``capacity`` rows, or None when it can."""
+    if not _packed_mha(cfg):
+        return "fused step: MHA event net with head_stride == head_dim required"
+    dh, d, f = cfg.head_dim, cfg.hidden_size, cfg.intermediate_size
+    if dh % 64 or dh > 128 or batch > 256 or d % 8 or f % 8 or capacity > 16384:
+        return (f"fused step kernel: head_dim 64 or 128, at most 256 slots of "
+                f"at most 16384 rows, widths multiples of 8 (got {dh}, {batch}, "
+                f"{capacity}, D={d}, F={f})")
+    return None
+
+
+def _slot_tables(index, active, b, capacity, device):
+    index = index.to(device=device, dtype=torch.int32)
+    if active is None:
+        lengths = index.clamp(max=capacity)
+    else:
+        lengths = torch.where(active.to(device=device, dtype=torch.bool),
+                              index.clamp(max=capacity), 0).to(torch.int32)
+    return index, lengths.contiguous(), index.clamp(0, capacity - 1).contiguous()
+
+
+def _check_shapes(fused: FusedWeights, cfg, pools: PagedPools, b: int,
+                  page_size: int, pages_per_slot: int):
+    if pools.k.dtype == torch.int8:
+        raise NotImplementedError("int8 paged pools are not ported yet")
+    if not _packed_mha(cfg):
+        raise ValueError("fused step: MHA event net with head_stride == "
+                         "head_dim required")
+    n_layers = fused.wqkv.shape[0]
+    w = cfg.num_heads * cfg.head_dim
+    shape = (n_layers * b * pages_per_slot, page_size, w)
+    if tuple(pools.k.shape) != shape or pools.v.shape != pools.k.shape:
+        raise ValueError(f"pools {tuple(pools.k.shape)}, expected {shape}")
+
+
+def fused_decode_step_reference(fused: FusedWeights, cfg, x: torch.Tensor,
+                                pools: PagedPools, index: torch.Tensor,
+                                active: Optional[torch.Tensor] = None, *,
+                                page_size: int, pages_per_slot: int):
+    """The plain version of :func:`fused_decode_step`: per layer, dense
+    masked attention over each slot's gathered pages."""
+    b, _ = x.shape
+    _check_shapes(fused, cfg, pools, b, page_size, pages_per_slot)
+    n_layers = fused.wqkv.shape[0]
+    h, dh = cfg.num_heads, cfg.head_dim
+    w = h * dh
+    f = fused.wgu.shape[1] // 2
+    dtype = fused.wqkv.dtype
+    eps = cfg.rms_norm_eps
+    capacity = pages_per_slot * page_size
+    index, lengths, wpos = _slot_tables(index, active, b, capacity, x.device)
+    cos, sin = rope_cos_sin(index[:, None], dh, cfg.rope_theta)  # [B, 1, dh]
+    scale = dh ** -0.5
+    valid = (torch.arange(capacity, device=x.device)[None, None, :]
+             < lengths.long()[:, None, None])  # [B, 1, cap]
+    slot_k = pools.k.view(n_layers * b, capacity, h, dh)
+    slot_v = pools.v.view(n_layers * b, capacity, h, dh)
+    slots = torch.arange(b, device=x.device)
+    write_pages = slots * pages_per_slot + wpos.long() // page_size
+    write_offs = wpos.long() % page_size
+
+    x = x.to(dtype)
+    for li in range(n_layers):
+        qkv = F.linear(rms_norm(x, fused.ln[li, 0], eps), fused.wqkv[li])
+        q, k, v = (t.view(b, 1, h, dh) for t in qkv.split(w, dim=-1))
+        qr = apply_rope(q, cos, sin)[:, 0]  # [B, H, dh]
+        kr = apply_rope(k, cos, sin)[:, 0]
+        v = v[:, 0]
+        qs32 = qr.float() * scale
+        qsb = qs32.to(dtype).float()
+        kc = slot_k[li * b:(li + 1) * b].float()  # [B, cap, H, dh]
+        vc = slot_v[li * b:(li + 1) * b]
+        scores = torch.where(valid, torch.einsum("bhd,bthd->bht", qsb, kc),
+                             -torch.inf)
+        m = scores.max(dim=-1).values  # [B, H]; -inf for an empty slot
+        pexp = torch.where(valid, torch.exp(scores - m[..., None]), 0.0)
+        l = pexp.sum(dim=-1)
+        acc = torch.einsum("bht,bthd->bhd", pexp.to(vc.dtype).float(), vc.float())
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        s_self = torch.sum(qs32 * kr.float(), dim=-1)
+        m2 = torch.maximum(m, s_self)
+        w_cache = l * torch.exp(m - m2)
+        w_self = torch.exp(s_self - m2)
+        attn = ((w_cache[..., None] * o + w_self[..., None] * v.float())
+                / (w_cache + w_self)[..., None])
+        # append after every read of this layer's pages
+        pages = li * b * pages_per_slot + write_pages
+        pools.k[pages, write_offs] = kr.reshape(b, w).to(pools.k.dtype)
+        pools.v[pages, write_offs] = v.reshape(b, w).to(pools.v.dtype)
+        x = x + F.linear(attn.reshape(b, w).to(dtype), fused.wo[li])
+        gate, up = F.linear(rms_norm(x, fused.ln[li, 1], eps),
+                            fused.wgu[li]).split(f, dim=-1)
+        x = x + F.linear(F.silu(gate) * up, fused.wd[li])
+    return rms_norm(x, fused.final_norm, eps), pools
+
+
+def fused_decode_step(fused: FusedWeights, cfg, x: torch.Tensor,
+                      pools: PagedPools, index: torch.Tensor,
+                      active: Optional[torch.Tensor] = None, *,
+                      page_size: int, pages_per_slot: int):
+    """One decode step of the event net ``cfg`` over all its layers.
+
+    fused: :func:`prepare_fused` of the stack; x [B, D]: the new rows'
+    embeddings; pools: the stack's paged pools; index int [B]: each slot's
+    length BEFORE this row; active [B] bool (optional).  Returns (hidden
+    [B, D] after the final norm, pools updated in place).  CPU tensors run
+    the plain version, CUDA tensors the kernel (one launch) or raise."""
+    tensors = [x, pools.k, pools.v, index, fused.wqkv]
+    if active is not None:
+        tensors.append(active)
+    if _build.on_cpu(*tensors):
+        return fused_decode_step_reference(
+            fused, cfg, x, pools, index, active, page_size=page_size,
+            pages_per_slot=pages_per_slot)
+
+    b = x.shape[0]
+    capacity = pages_per_slot * page_size
+    index, lengths, wpos = _slot_tables(index, active, b, capacity, x.device)
+    # the geometry of one event: [1, B] tables, [1, B, dh] RoPE rows
+    cos, sin = rope_cos_sin(index[None, :], cfg.head_dim, cfg.rope_theta)
+    bar = torch.zeros(2, dtype=torch.int32, device=x.device)
+    ptrs, ints, floats, xs, keep = kernel_args(
+        fused, cfg, x, pools, lengths[None], wpos[None], cos.contiguous(),
+        sin.contiguous(), page_size=page_size, pages_per_slot=pages_per_slot,
+        bar=bar)
+    name = ("mm_fused_step_f32" if fused.wqkv.dtype == torch.float32
+            else "mm_fused_step_bf16")
+    _build.call_packed(name, ptrs, ints, floats, x.device)
+    _build.LAUNCHES["fused_step"] += 1
+    del keep
+    return rms_norm(xs, fused.final_norm, cfg.rms_norm_eps), pools
+
+
+def kernel_args(fused: FusedWeights, cfg, x: torch.Tensor, pools: PagedPools,
+                lengths: torch.Tensor, wpos: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor, *, page_size: int, pages_per_slot: int,
+                bar: torch.Tensor):
+    """Check a whole-step launch's CUDA inputs and pack them as the kernel's
+    host arrays (``csrc/fused_step.cuh`` ``fill_step_params``).  The
+    geometry has one row per event: lengths / wpos int32 [E, B], cos / sin
+    f32 [E, B, dh]; bar: a zeroed int32 pair.  Returns (ptrs, ints, floats,
+    xs, keep): xs [B, D] is the residual stream the kernel updates in place
+    (starting from x); the tensors in ``keep`` must outlive the launch."""
+    b, d = x.shape
+    _check_shapes(fused, cfg, pools, b, page_size, pages_per_slot)
+    dtype = fused.wqkv.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused step: no kernel for {dtype}")
+    if pools.k.dtype != dtype:
+        raise TypeError(f"fused step: pools {pools.k.dtype}, weights {dtype}")
+    problem = kernel_limits(cfg, b, pages_per_slot * page_size)
+    if problem:
+        raise ValueError(problem)
+    n_layers = fused.wqkv.shape[0]
+    h, dh = cfg.num_heads, cfg.head_dim
+    w = h * dh
+    f = fused.wgu.shape[1] // 2
+    n_events = lengths.shape[0]
+    _build.check(fused.wqkv, "wqkv", dtype, (n_layers, 3 * w, d))
+    _build.check(fused.wo, "wo", dtype, (n_layers, d, w))
+    _build.check(fused.wgu, "wgu", dtype, (n_layers, 2 * f, d))
+    _build.check(fused.wd, "wd", dtype, (n_layers, d, f))
+    _build.check(fused.ln, "ln", dtype, (n_layers, 2, d))
+    _build.check(pools.k, "pools.k", dtype)
+    _build.check(pools.v, "pools.v", dtype)
+    _build.check(lengths, "lengths", torch.int32, (n_events, b))
+    _build.check(wpos, "wpos", torch.int32, (n_events, b))
+    _build.check(cos, "cos", torch.float32, (n_events, b, dh))
+    _build.check(sin, "sin", torch.float32, (n_events, b, dh))
+    device = x.device
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    xs = x.to(dtype=dtype, copy=True).contiguous()  # the residual stream
+    # scratch: qkv, attention output, fresh k rows, gated MLP input
+    scratch = [empty(b, 3 * w), empty(b, w), empty(b, w), empty(b, f)]
+    tensors = [fused.wqkv, fused.wo, fused.wgu, fused.wd, fused.ln, cos, sin,
+               lengths, wpos, pools.k, pools.v, xs, *scratch, bar]
+    ints = [b, d, h, dh, f, n_layers, page_size, pages_per_slot]
+    return ([t.data_ptr() for t in tensors], ints,
+            [cfg.rms_norm_eps, dh ** -0.5], xs, tensors)

@@ -14,9 +14,24 @@ version.  Semantics (the reference sampler's, on a stable descending sort):
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
+
+
+def per_row(x, b: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """Scalar or [B] -> contiguous [B] tensor of ``dtype`` on ``device``.
+
+    A Python scalar becomes a fill on the device: copying it from the host
+    would make the host wait for the device at every token step."""
+    if isinstance(x, torch.Tensor):
+        x = x.to(device=device, dtype=dtype)
+    elif np.ndim(x) == 0:
+        return torch.full((b,), x, dtype=dtype, device=device)
+    else:
+        x = torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    return x.expand(b).contiguous() if x.ndim == 0 else x.reshape(b).contiguous()
 
 
 def sample_top_p_k_reference(probs: torch.Tensor, top_p: torch.Tensor,

@@ -1,21 +1,33 @@
 """Batched autoregressive generation for the hierarchical MIDI model.
 
-Counterpart of ``midi_model_tpu/sampling/generate.py`` on its split path
-(per-event token scan + per-layer event-net step; the JAX package's fused
-``token_loop`` / ``fused_step`` / ``event_loop`` kernels are not ported):
+Counterpart of ``midi_model_tpu/sampling/generate.py``:
 
 - :func:`prefill` embeds the prompt rows and runs the event net with causal
   attention, writing K/V into all-heads paged pools;
-- :func:`decode_events` loops over events: :func:`token_row_scan` samples
-  an 8-token row with the token net, the shared head, the grammar mask
-  tables and top-p/top-k; one paged event-net step then attends over the
-  pools and appends the new row;
+- :func:`decode_events` loops over events.  Each event samples an 8-token
+  row (token net, shared head, grammar mask tables, top-p/top-k), embeds
+  it, and runs one event-net step that attends over the pools and appends
+  the new row.  Two paths compute that step:
+
+  * the **fused** path — taken by default for bf16 weights when the fused
+    kernels take the model's shapes (``ops.event_loop.why_not_fused``: an
+    MHA event net with packed pages, ``head_stride == head_dim``, as in the
+    JAX package's ``usable`` rules without their TPU clauses, and the CUDA
+    kernels' own limits).  Whole blocks of ``EVENTS_PER_LAUNCH`` (8) events run
+    as one launch each (``ops.event_loop``); the rest of a chunk (its
+    remainder, the rows near capacity) runs one token-row launch
+    (``ops.token_loop``) and one whole-step launch over all event-net layers
+    (``ops.fused_step``) per event, with the same semantics;
+  * the **split** path — the token net step by step with the sampler
+    kernel, then the per-layer ``decode_paged`` with the paged-decode
+    kernel — for everything else (fp32, GQA), and on request;
 - a chunk stops at its end, when every row emits eos in the same event
   (per-event "end" state, the reference's quirk), or at capacity.
 
 The loop runs eagerly from the host.  Every random draw comes from an
-explicit ``torch.Generator`` on the generation device; greedy decode draws
-nothing.
+explicit ``torch.Generator`` on the generation device, one
+``[T*B, K_CAP]`` Gumbel draw per event that both paths consume the same
+way; greedy decode draws nothing.
 """
 
 from __future__ import annotations
@@ -26,11 +38,14 @@ import numpy as np
 import torch
 
 from ..models.config import MIDIModelConfig
-from ..models.llama import DenseCache
 from ..models.midinet import MIDINet
+from ..ops import event_loop
+from ..ops.fused_step import FusedWeights, fused_decode_step, prepare_fused
 from ..ops.paged_allheads import PagedPools, alloc_pools
+from ..ops.sampler import per_row, sample_top_p_k
+from ..ops.token_loop import decode_token_row, decode_token_row_reference
 from .masks import MaskTable, build_mask_table
-from .topk_topp import gumbel_noise, per_row, sample_greedy, sample_top_p_k
+from .topk_topp import gumbel_rows
 
 PAGE_SIZE = 64
 
@@ -101,97 +116,115 @@ def prefill(model: MIDINet, config: MIDIModelConfig, prompt, max_seq: int,
                     all_eos=False)
 
 
-@torch.no_grad()
-def token_row_scan(model: MIDINet, config: MIDIModelConfig,
-                   hidden: torch.Tensor, masks: Masks, temp, top_p, top_k,
-                   generator: Optional[torch.Generator], greedy: bool):
-    """Decode one full token row per batch row.
-
-    hidden [B, D]: event-net hidden.  ``temp``/``top_p``/``top_k`` are
-    scalars or per-row [B].  Each sampled step draws Gumbel noise [B, K_CAP]
-    from ``generator``.  Returns (row [B, T] int32, ended [B] bool — eos
-    emitted at step 0)."""
-    tok_cfg = config.net_token
-    tokenizer = config.tokenizer
-    b = hidden.shape[0]
-    device = hidden.device
-    t_max = tokenizer.max_token_seq
-    eos_id = tokenizer.eos_id
-    first_event_id = eos_id + 1
-    n_events = len(tokenizer.events)
-    temp_b = per_row(temp, b, torch.float32, device)[:, None]
-    top_p = per_row(top_p, b, torch.float32, device)
-    top_k = per_row(top_k, b, torch.int32, device)
-
-    cache = DenseCache.zeros(tok_cfg, b, t_max, model.dtype, device)
-    prev = None
-    ended = torch.zeros((b,), dtype=torch.bool, device=device)
-    e_off = torch.zeros((b,), dtype=torch.long, device=device)
-    toks = []
-    for i in range(t_max):
-        inp = (hidden.to(model.dtype) if i == 0
-               else model.net_token.embed_tokens(prev.long()))
-        h, cache = model.net_token(inp[:, None, :], cache)
-        probs = torch.softmax(model.logits(h[:, 0]) / temp_b, dim=-1)
-        mask = masks.first[None, :] if i == 0 else masks.steps[e_off, i]
-        mask = torch.where(ended[:, None], masks.pad_only[None, :], mask)
-        probs = probs * mask
-        if greedy:
-            tok = sample_greedy(probs)
-        else:
-            tok = sample_top_p_k(probs, top_p, top_k,
-                                 gumbel_noise(b, generator))
-        if i == 0:
-            ended = tok == eos_id
-            e_off = (tok.long() - first_event_id).clamp(0, n_events - 1)
-        prev = tok
-        toks.append(tok)
-    return torch.stack(toks, dim=1), ended
+def _geometry(config: MIDIModelConfig, state: GenState):
+    """(page_size, pages_per_slot) of the state's pools."""
+    n_pages, ps, _ = state.pools.k.shape
+    return ps, n_pages // (config.net.num_layers * state.hidden.shape[0])
 
 
 def _decode_one_event(model: MIDINet, config: MIDIModelConfig,
                       state: GenState, masks: Masks, temp, top_p, top_k,
-                      generator, greedy: bool, eos_possible: bool):
-    """Sample one row (8 tokens) and advance the event cache by it."""
+                      generator, greedy: bool, eos_possible: bool,
+                      fused: Optional[FusedWeights]):
+    """Sample one row (8 tokens) and advance the event cache by it; the
+    fused path when ``fused`` (``prepare_fused`` of the event net) is given."""
     b = state.hidden.shape[0]
-    row, ended = token_row_scan(model, config, state.hidden, masks, temp,
-                                top_p, top_k, generator, greedy)
-    emb = model.embed_events(row[:, None, :])[:, 0]
-    n_pages, ps, _ = state.pools.k.shape
-    pps = n_pages // (config.net.num_layers * b)
+    t_max = config.tokenizer.max_token_seq
+    gumbel = None if greedy else gumbel_rows(b, t_max, generator)
+    ps, pps = _geometry(config, state)
     index = torch.full((b,), state.cur_len, dtype=torch.int32,
-                       device=row.device)
-    hidden, pools = model.net.decode_paged(emb, state.pools, index,
-                                           page_size=ps, pages_per_slot=pps)
+                       device=state.hidden.device)
+    if fused is not None:
+        row, ended = decode_token_row(model, config, state.hidden, masks, temp,
+                                      top_p, top_k, gumbel, greedy=greedy)
+        emb = event_loop.event_embedding(model, row)
+        hidden, pools = fused_decode_step(fused, config.net, emb, state.pools,
+                                          index, page_size=ps,
+                                          pages_per_slot=pps)
+    else:  # the token net step by step, each draw through the sampler kernel
+        row, ended = decode_token_row_reference(
+            model, config, state.hidden, masks, temp, top_p, top_k, gumbel,
+            greedy=greedy, sample=sample_top_p_k)
+        hidden, pools = model.net.decode_paged(
+            model.embed_events(row[:, None, :])[:, 0], state.pools, index,
+            page_size=ps, pages_per_slot=pps)
     # the host reads `ended` only when eos can be sampled at all
     all_eos = eos_possible and bool(ended.all())
     return GenState(pools=pools, hidden=hidden, cur_len=state.cur_len + 1,
                     all_eos=all_eos), row
 
 
+def _decode_event_block(model: MIDINet, config: MIDIModelConfig,
+                        state: GenState, masks: Masks, temp, top_p, top_k,
+                        generator, greedy: bool, eos_possible: bool,
+                        fused: FusedWeights, n_events: int):
+    """``n_events`` events in one event-loop launch, the noise drawn as the
+    per-event path draws it.  An event where every row emits eos ends the
+    block: its rows are kept, the later ones dropped (their appends lie
+    beyond ``cur_len``, unread and overwritten by later appends).  Returns
+    (state, rows [B, n_kept, T])."""
+    b = state.hidden.shape[0]
+    t_max = config.tokenizer.max_token_seq
+    gumbel = None if greedy else torch.stack(
+        [gumbel_rows(b, t_max, generator) for _ in range(n_events)])
+    ps, pps = _geometry(config, state)
+    rows, hidden, pools = event_loop.decode_event_block(
+        model, config, fused, state.hidden, state.pools, state.cur_len, masks,
+        temp, top_p, top_k, gumbel, n_events=n_events, greedy=greedy,
+        page_size=ps, pages_per_slot=pps)
+    n_kept, all_eos = n_events, False
+    if eos_possible:
+        ended = (rows[:, :, 0] == config.tokenizer.eos_id).all(dim=1).tolist()
+        if any(ended):
+            n_kept, all_eos = ended.index(True) + 1, True
+    return GenState(pools=pools, hidden=hidden, cur_len=state.cur_len + n_kept,
+                    all_eos=all_eos), rows[:n_kept].transpose(0, 1)
+
+
 @torch.no_grad()
 def decode_events(model: MIDINet, config: MIDIModelConfig, state: GenState,
                   masks: Masks, n_events_chunk: int, temp, top_p, top_k,
-                  generator: Optional[torch.Generator], greedy: bool = False):
+                  generator: Optional[torch.Generator], greedy: bool = False,
+                  fused: Optional[bool] = None):
     """Decode up to ``n_events_chunk`` rows.  Stops early once every row
     emitted eos in the same event, or the event cache is full.  Returns
     (state, rows [B, n_events_chunk, T] int32, n_done); rows beyond n_done
-    are pad.  The pools are updated in place."""
+    are pad.  The pools are updated in place.
+
+    ``fused``: True takes the fused path, False the split path, None the
+    fused path for bf16 weights when ``why_not_fused`` finds nothing in the
+    way.  With True the kernels raise on shapes they cannot take, and the
+    plain versions (CPU tensors) need an MHA event net with packed pages.
+    The fused path decodes whole blocks of ``event_loop.EVENTS_PER_LAUNCH``
+    events in one launch each, the rest one event at a time."""
     b = state.hidden.shape[0]
     tokenizer = config.tokenizer
+    device = state.hidden.device
     max_seq = state.capacity(config, b)
+    if fused is None:
+        fused = (model.dtype == torch.bfloat16
+                 and event_loop.why_not_fused(config, b, max_seq) is None)
+    weights = prepare_fused(model.net) if fused else None
+    temp = per_row(temp, b, torch.float32, device)
+    top_p = per_row(top_p, b, torch.float32, device)
+    top_k = per_row(top_k, b, torch.int32, device)
     rows = torch.full((b, n_events_chunk, tokenizer.max_token_seq),
-                      tokenizer.pad_id, dtype=torch.int32,
-                      device=state.hidden.device)
+                      tokenizer.pad_id, dtype=torch.int32, device=device)
     eos_possible = bool(masks.first[tokenizer.eos_id])
+    knobs = (temp, top_p, top_k, generator, greedy, eos_possible, weights)
+    e = event_loop.EVENTS_PER_LAUNCH
     step = 0
     while (step < n_events_chunk and not state.all_eos
            and state.cur_len < max_seq):
-        state, row = _decode_one_event(model, config, state, masks, temp,
-                                       top_p, top_k, generator, greedy,
-                                       eos_possible)
-        rows[:, step] = row
-        step += 1
+        if (fused and e > 1 and step + e <= n_events_chunk
+                and state.cur_len + e <= max_seq):
+            state, block = _decode_event_block(model, config, state, masks,
+                                               *knobs, e)
+        else:
+            state, row = _decode_one_event(model, config, state, masks, *knobs)
+            block = row[:, None]
+        rows[:, step:step + block.shape[1]] = block
+        step += block.shape[1]
     return state, rows, step
 
 
@@ -228,7 +261,7 @@ def generate(model: MIDINet, config: MIDIModelConfig,
              disable_channels: Optional[list] = None,
              chunk_size: Optional[int] = None, context_limit: int = 4096,
              kv_int8: bool = False, event_callback=None,
-             device=None) -> np.ndarray:
+             device=None, fused: Optional[bool] = None) -> np.ndarray:
     """Host-facing generation: returns ``[B, L, T]`` int numpy rows (prompt +
     generated), like the JAX package's ``generate``.
 
@@ -236,7 +269,8 @@ def generate(model: MIDINet, config: MIDIModelConfig,
     ``torch.Generator`` on that device seeded with ``seed``, so the output is
     reproducible on one device and independent of ``chunk_size``; it is not
     the JAX package's draw for the same seed.  ``event_callback(rows)``
-    receives each decoded chunk as numpy."""
+    receives each decoded chunk as numpy.  ``fused`` picks the decode path
+    as in :func:`decode_events`."""
     if kv_int8:
         raise NotImplementedError("int8 KV pools are not ported yet")
     device = _device(model, device)
@@ -267,7 +301,7 @@ def generate(model: MIDINet, config: MIDIModelConfig,
         n = min(chunk, remaining - produced)
         state, rows, n_done = decode_events(model, config, state, masks, n,
                                             temp, top_p, top_k, generator,
-                                            greedy=greedy)
+                                            greedy=greedy, fused=fused)
         if n_done:
             rows_np = rows[:, :n_done].cpu().numpy().astype(np.int64)
             pieces.append(rows_np)

@@ -10,34 +10,23 @@ same ids on the kernel and on its plain version.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from ..ops.sampler import per_row
 from ..ops.sampler import sample_top_p_k as _sample_op
 
 K_CAP = 128  # >= the largest top_k the UI offers
 
 
-def per_row(x, b: int, dtype: torch.dtype, device) -> torch.Tensor:
-    """Scalar or [B] -> contiguous [B] tensor of ``dtype`` on ``device``.
-
-    A Python scalar becomes a fill on the device: copying it from the host
-    would make the host wait for the device at every token step."""
-    if isinstance(x, torch.Tensor):
-        x = x.to(device=device, dtype=dtype)
-    elif np.ndim(x) == 0:
-        return torch.full((b,), x, dtype=dtype, device=device)
-    else:
-        x = torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
-    return x.expand(b).contiguous() if x.ndim == 0 else x.reshape(b).contiguous()
-
-
-def gumbel_noise(batch: int, generator: torch.Generator,
-                 k_cap: int = K_CAP) -> torch.Tensor:
-    """Standard Gumbel noise [batch, k_cap] f32 on the generator's device,
-    drawn as ``-log(E)`` with ``E ~ Exp(1)`` clamped away from 0, so no value
-    is infinite."""
-    e = torch.empty((batch, k_cap), device=generator.device)
+def gumbel_rows(batch: int, t_max: int, generator: torch.Generator,
+                k_cap: int = K_CAP) -> torch.Tensor:
+    """One event's standard Gumbel noise, ``[t_max * batch, k_cap]`` f32 on
+    the generator's device, in the JAX token-row kernel's step-major layout:
+    row ``j * batch + r`` is step ``j`` of batch row ``r``.  Drawn as
+    ``-log(E)`` with ``E ~ Exp(1)`` clamped away from 0, so no value is
+    infinite.  Both decode paths draw it once per event, so one seed gives
+    them the same noise."""
+    e = torch.empty((t_max * batch, k_cap), device=generator.device)
     e.exponential_(generator=generator)
     return -torch.log(e.clamp_min_(torch.finfo(torch.float32).tiny))
 

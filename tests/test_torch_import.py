@@ -10,12 +10,37 @@ import pytest
 import torch
 
 from midi_model_tpu_torch.ops import _build
+from midi_model_tpu_torch.models import MIDIModelConfig
+from midi_model_tpu_torch.models.midinet import MIDINet, init_model
 from midi_model_tpu_torch.ops import attention as at
+from midi_model_tpu_torch.ops import event_loop as el
+from midi_model_tpu_torch.ops import fused_step as fs
 from midi_model_tpu_torch.ops import paged_allheads as pa
 from midi_model_tpu_torch.ops import sampler as sp
+from midi_model_tpu_torch.ops import token_loop as tl
+from midi_model_tpu_torch.sampling import build_mask_table, mask_tensors
 
 ROOT = Path(__file__).resolve().parent.parent
-KERNELS = ["sampler.cu", "paged_decode.cu", "causal_attention.cu"]
+KERNELS = ["sampler.cu", "paged_decode.cu", "causal_attention.cu",
+           "token_loop.cu", "fused_step.cu", "event_loop.cu"]
+# MHA with packed pages (4 heads x 32 = 128 lanes): the fused path's shapes
+SMALL = MIDIModelConfig.get_config("v2", True, n_layer=4, n_head=4, n_embd=128,
+                                   n_inner=128)
+
+
+def _decode_inputs(model, device):
+    """A token-row and a fused-step call's tensors for ``model`` on ``device``."""
+    cfg = SMALL
+    b, pps, ps = 2, 1, 16
+    masks = mask_tensors(build_mask_table(cfg.tokenizer), device)
+    hidden = torch.randn((b, cfg.n_embd), device=device)
+    w = cfg.net.num_heads * cfg.net.head_dim
+    shape = (cfg.net.num_layers * b * pps, ps, w)
+    pools = pa.PagedPools(torch.zeros(shape, device=device),
+                          torch.zeros(shape, device=device))
+    index = torch.zeros(b, dtype=torch.int32, device=device)
+    return masks, hidden, fs.prepare_fused(model.net), pools, index, dict(
+        page_size=ps, pages_per_slot=pps)
 
 
 def test_import_whole_port_without_jax():
@@ -51,10 +76,15 @@ def test_kernel_sources_exist_with_note(name):
 
 
 def test_nvcc_command_targets_sm90a():
-    cmd = _build.nvcc_command(Path("/nonexistent/lib.so"))
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-shared" in cmd and "-std=c++17" in cmd and "-O3" in cmd
-    assert sorted(Path(c).name for c in cmd if c.endswith(".cu")) == sorted(KERNELS)
+    compiles, link = _build.nvcc_commands(Path("/nonexistent/lib.so"))
+    for cmd in compiles + [link]:
+        assert "arch=compute_90a,code=sm_90a" in cmd
+    for cmd in compiles:  # one process per source, each to its own object
+        assert "-c" in cmd and "-std=c++17" in cmd and "-O3" in cmd
+    assert sorted(Path(cmd[-1]).name for cmd in compiles) == sorted(KERNELS)
+    objects = [cmd[cmd.index("-o") + 1] for cmd in compiles]
+    assert len(set(objects)) == len(KERNELS) and set(objects) <= set(link)
+    assert "-shared" in link and link[link.index("-o") + 1] == "/nonexistent/lib.so"
     # the library is keyed by the sources and lives under build/
     lib = _build.library_path()
     assert lib.parent == ROOT / "build" / "midi_model_tpu_torch"
@@ -81,6 +111,16 @@ def test_wrappers_raise_on_non_cpu_tensors():
         pa.paged_attention_stats(torch.empty((1, 4, 32), **meta), pools,
                                  lengths, lengths, page_size=16,
                                  pages_per_slot=4, kv_heads=4, head_dim=32)
+    model = MIDINet(SMALL, device="meta")
+    masks, hidden, fused, pools, index, kw = _decode_inputs(model, "meta")
+    with pytest.raises(ValueError):
+        tl.decode_token_row(model, SMALL, hidden, masks, 1.0, 0.98, 20, None,
+                            greedy=True)
+    with pytest.raises(ValueError):
+        fs.fused_decode_step(fused, SMALL.net, hidden, pools, index, **kw)
+    with pytest.raises(ValueError):
+        el.decode_event_block(model, SMALL, fused, hidden, pools, 0, masks, 1.0, 0.98,
+                              20, None, n_events=2, greedy=True, **kw)
     # mixing devices raises too
     with pytest.raises(ValueError):
         at.causal_attention(torch.zeros((1, 4, 2, 32)), q, q)
@@ -94,4 +134,14 @@ def test_plain_versions_do_not_count_launches():
     sp.sample_top_p_k(torch.rand((2, 16)), torch.full((2,), 0.9),
                       torch.full((2,), 4, dtype=torch.int32),
                       torch.zeros((2, 8)))
+    model = init_model(SMALL, seed=0)
+    masks, hidden, fused, pools, index, kw = _decode_inputs(model, "cpu")
+    row, ended = tl.decode_token_row(model, SMALL, hidden, masks, 1.0, 0.98, 20,
+                                     None, greedy=True)
+    assert row.shape == (2, SMALL.tokenizer.max_token_seq) and ended.shape == (2,)
+    h, _ = fs.fused_decode_step(fused, SMALL.net, hidden, pools, index, **kw)
+    assert h.shape == hidden.shape and bool(pools.k.any())  # appended in place
+    rows, h, _ = el.decode_event_block(model, SMALL, fused, hidden, pools, 1, masks,
+                                       1.0, 0.98, 20, None, n_events=2, greedy=True, **kw)
+    assert rows.shape == (2, 2, SMALL.tokenizer.max_token_seq) and h.shape == hidden.shape
     assert sum(_build.LAUNCHES.values()) == 0
