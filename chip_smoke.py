@@ -8,25 +8,44 @@ exits non-zero:
 
 1. build   — compile the port's CUDA kernels from ``midi_model_tpu_torch/csrc``;
 2. kernels — each kernel against its plain PyTorch version on the card, at
-             the main path's shapes, with times for both: sampler, paged
-             decode, causal attention, the token row (f32 rows identical;
-             bf16 greedy rows identical up to near-ties), the fused
-             event-net step (f32 within 1e-4; bf16 within 3e-2 after one
-             layer, 0.125 after 12; rows outside the append bit-identical)
-             and the 8-event loop (f32 rows identical and within 1e-4; bf16
-             rows against the per-event kernel pair);
+             the main paths' shapes, with times for both: sampler, paged
+             decode, causal attention (beside one
+             ``scaled_dot_product_attention`` call, timed only), the
+             streaming paged decode on bf16/f32/int8 pools and the cell
+             kernel on int8 pools (ragged lengths, an inactive slot, a slot
+             at capacity), the cell and streaming kernels timed side by side
+             at uniform and ragged lengths, the token row (f32 rows identical; bf16 greedy
+             rows identical up to near-ties), the fused event-net step (f32
+             within 1e-4; bf16 within 3e-2 after one layer, 0.125 after 12;
+             rows outside the append bit-identical), the 8-event loop (f32
+             rows identical and within 1e-4; bf16 rows against the
+             per-event kernel pair) and the ragged event loop (f32 against
+             its plain version; bf16 bit-identical to the per-event
+             composition of the kernels, with eos mid-block, capacity and
+             an inactive slot);
 3. oracle  — fp32 tv2o-medium weights rebuilt from
              ``tests/golden/reference_oracle.pkl``: logits within atol 2e-4 /
              rtol 2e-3 and greedy rows token-identical to the golden (the
              split path: fp32 weights);
 4. slice   — bf16 tv2o-medium with random weights: ``generate`` at bs=32 on
              the default (fused) path — 8-event launches and a per-event
-             tail — and on the split path, each with the launch counts of
-             its kernels read from its own run; a timed prefill + 256-event
-             ``decode_events`` run with eos disabled on three paths in turns
-             (8-event launches, per-event fused launches, split), with kernel
-             launches per event; and ``generate`` from a random 1024-event
-             prompt; every generated row must obey the grammar mask tables.
+             tail —, on the split path and with int8 pools, each with the
+             launch counts of its kernels read from its own run; a timed
+             prefill + 256-event ``decode_events`` run with eos disabled on
+             three paths in turns (8-event launches, per-event fused
+             launches, split), with kernel launches per event; and
+             ``generate`` from a random 1024-event prompt; every generated
+             row must obey the grammar mask tables;
+5. batcher — the continuous batcher at 32 slots, max_seq 2048, chunk 16,
+             a queue of requests with mixed prompts, budgets, knobs and
+             bans, run with eos enabled and again with eos disabled (every
+             request to its budget): bf16 pools through the ragged event
+             loop, then int8 pools through the token-row and streaming int8
+             kernels, each run with its launch counts, events/s, chunk
+             count and latency and prefill time per admission group, then a
+             full-occupancy window (eos disabled) timed and profiled; bf16
+             also resubmits a seeded request into another slot (identical
+             rows).
 
 Then the kernel summary line, the card's ``nvidia-smi`` name and power limit,
 and the result line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -69,11 +88,20 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, after a warm-up."""
+    """Mean device time of ``fn`` over ``iters`` calls, after a warm-up.  A
+    sleep kernel holds the stream while the host issues the calls (twice the
+    host time of one call per call, at most 0.5 s), so the events time the
+    card's work and not the host's pace: a wrapper that takes longer to issue
+    than its kernels take to run would otherwise be timed at the former."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    hold_s = min(2 * (time.perf_counter() - t0) * iters, 0.5)
+    torch.cuda._sleep(int(hold_s * 2e9))  # cycles: the H100's clock is at most 1.98 GHz
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -152,6 +180,9 @@ def phase_kernels(card: str) -> dict:
         "ms": time_ms(lambda: sp.sample_top_p_k(main_probs, top_p_main, top_k_main, g), 200),
         "plain_ms": time_ms(lambda: sp.sample_top_p_k_reference(
             main_probs, top_p_main, top_k_main, g), 5),
+        "library_ms": None,
+        # probs and noise read once; about top_k passes of compares over each row
+        **bound(b * v * 4 + b * k_cap * 4 + b * 12, b * v * 20, "f32"),
     }
     emit({"phase": "kernel", "name": "sampler", "shape": [b, v],
           "ids_identical": True, **results["sampler"], "card": card})
@@ -178,8 +209,8 @@ def phase_kernels(card: str) -> dict:
         kern = pa.PagedPools(k_pool.clone(), v_pool.clone())
         plain = pa.PagedPools(k_pool.clone(), v_pool.clone())
         kw = dict(page_size=ps, pages_per_slot=pps, kv_heads=hkv, head_dim=d)
-        o, m, l, kern = pa.paged_attention_stats(
-            q, kern, lengths, base, (new_k, new_v, wpages, woffs), **kw)
+        o, m, l, kern = pa.paged_decode_cell(
+            q, kern, lengths, base, (new_k, new_v, None, wpages, woffs), **kw)
         o_r, m_r, l_r = pa.decode_reference(q, plain, lengths, base, **kw)
         pa.kv_append(plain, new_k, new_v, wpages, woffs)
         torch.cuda.synchronize()
@@ -197,11 +228,14 @@ def phase_kernels(card: str) -> dict:
         worst[f"{dtype} kv_heads={hkv}"] = err
         if dtype == torch.bfloat16:  # the main path's pool dtype
             results["paged_decode"] = {
-                "ms": time_ms(lambda: pa.paged_attention_stats(
-                    q, kern, lengths, base, (new_k, new_v, wpages, woffs), **kw), 200),
+                "ms": time_ms(lambda: pa.paged_decode_cell(
+                    q, kern, lengths, base, (new_k, new_v, None, wpages, woffs), **kw), 200),
                 "plain_ms": time_ms(lambda: (
                     pa.decode_reference(q, plain, lengths, base, **kw),
                     pa.kv_append(plain, new_k, new_v, wpages, woffs)), 20),
+                "library_ms": None,
+                **bound(int(lengths.sum()) * 2 * w * 2 + b * h * d * 8 + b * h * 8
+                        + 2 * 2 * b * w * 2, int(lengths.sum()) * h * d * 4, "bf16"),
             }
     results["paged_decode"]["max_abs_err"] = max(worst.values())
     emit({"phase": "kernel", "name": "paged_decode", "batch": b, "heads": h,
@@ -229,18 +263,193 @@ def phase_kernels(card: str) -> dict:
                 f"causal attention {dtype} [{b},{s},{h},{dh}]")
         errs[f"{dtype}[{b},{s},{h},{dh}]"] = float((out.float() - ref.float()).abs().max())
         if dtype == torch.bfloat16:
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             results["causal_attention"] = {
                 "max_abs_err": max(errs.values()),
                 "ms": time_ms(lambda: at.causal_attention(q, k, v), 10),
                 "plain_ms": time_ms(lambda: at.attention_reference(
                     q, k, v, at.causal_bias(s, dev)), 3),
+                # one PyTorch call for the same function, timed here only
+                "library_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 10),
+                **bound(4 * b * s * h * dh * 2, 4 * b * h * dh * s * (s + 1) // 2, "bf16"),
             }
     emit({"phase": "kernel", "name": "causal_attention", "max_abs_err_by_case": errs,
           **results["causal_attention"], "card": card})
+    results.update(check_paged_stream(card, gen))
+    time_paged_cell_vs_stream(card, gen)
     results["token_row"] = check_token_row(card, gen)
     results["fused_step"] = check_fused_step(card, gen)
     results["event_loop"] = check_event_loop(card, gen)
+    results["event_loop_ragged"] = check_event_loop_ragged(card, gen)
     return results
+
+
+# the batcher's ragged lengths at capacity 2048: empty, an inactive slot, one
+# 4-page block plus a page, whole blocks, one row, a slot at capacity
+RAGGED_LENGTHS = [0, 0, 320, 256, 1, 63, 64, 65, 2048, 1000, 2047, 500, 5, 17, 129, 700] * 2
+
+
+def check_paged_stream(card: str, gen) -> dict:
+    """The streaming paged decode on bf16, f32 and int8 pools and the cell
+    kernel on int8 pools, against the plain version, at the batcher's
+    shapes: B=32, 16 heads x 64, pages of 64, capacity 2048.  Ragged
+    lengths: 0, an inactive slot (length 0), one full block plus one page
+    (320 rows), whole blocks, one row, and a slot at capacity whose clipped
+    append lands on a row the call reads; the GQA form too.  o, m, l within
+    1e-4 (f32 sums in another order; an int8 value dequantizes to the same
+    exact product on both sides); the pools after the append equal
+    kv_append's, so every row outside it is untouched."""
+    import torch
+
+    from midi_model_tpu_torch.ops import paged_allheads as pa
+
+    dev = torch.device("cuda")
+    b, h, d, ps, pps, n_layers = 32, 16, 64, 64, 32, 2
+    cap = ps * pps
+    lengths = torch.tensor(RAGGED_LENGTHS, dtype=torch.int32, device=dev)
+    inactive = 1  # the batcher gives an inactive slot length 0
+    li = 1
+    base = ((li * b + torch.arange(b, device=dev)) * pps).to(torch.int32)
+    write_pos = lengths.clamp(0, cap - 1)
+    write_pos[inactive] = 700  # an inactive slot still appends, as in decode_paged
+    wpages = base + write_pos // ps
+    woffs = write_pos % ps
+    n_pages = n_layers * b * pps
+    live = lengths > 0
+    worst, out = {}, {}
+
+    def pools_of(dtype, w):
+        if dtype == torch.int8:
+            k = torch.randint(-127, 128, (n_pages, ps, w), generator=gen, device=dev,
+                              dtype=torch.int8)
+            v = torch.randint(-127, 128, (n_pages, ps, w), generator=gen, device=dev,
+                              dtype=torch.int8)
+            sc = (torch.rand((n_pages, ps, pa.LANE), generator=gen, device=dev) * 0.02
+                  + 1e-3).to(torch.bfloat16)
+            return pa.PagedPools(k, v, sc)
+        return pa.PagedPools(
+            torch.randn((n_pages, ps, w), generator=gen, device=dev).to(dtype),
+            torch.randn((n_pages, ps, w), generator=gen, device=dev).to(dtype))
+
+    def rows_of(pools, w):
+        if pools.quantized:
+            new = [torch.randint(-127, 128, (b, w), generator=gen, device=dev,
+                                 dtype=torch.int8) for _ in range(2)]
+            return new + [(torch.rand((b, pa.LANE), generator=gen, device=dev) * 0.02
+                           ).to(torch.bfloat16)]
+        return [torch.randn((b, w), generator=gen, device=dev).to(pools.k.dtype)
+                for _ in range(2)] + [None]
+
+    def clone(pools):
+        return pa.PagedPools(*(None if t is None else t.clone() for t in pools))
+
+    cases = [("bf16", torch.bfloat16, 16, True), ("f32", torch.float32, 16, True),
+             ("int8", torch.int8, 16, True), ("int8 cell", torch.int8, 16, False),
+             ("f32 gqa", torch.float32, 4, True), ("int8 gqa", torch.int8, 4, True)]
+    for name, dtype, hkv, streaming in cases:
+        decode = pa.paged_decode_stream if streaming else pa.paged_decode_cell
+        w = hkv * pa.head_stride(d, hkv)
+        pools = pools_of(dtype, w)
+        q = torch.randn((b, h, d), generator=gen, device=dev) * d ** -0.5
+        new_k, new_v, new_s = rows_of(pools, w)
+        write = (new_k, new_v, new_s, wpages, woffs)
+        kw = dict(page_size=ps, pages_per_slot=pps, kv_heads=hkv, head_dim=d)
+        kern, plain = clone(pools), clone(pools)
+        o, m, l, kern = decode(q, kern, lengths, base, write, **kw)
+        o_r, m_r, l_r = pa.decode_reference(q, plain, lengths, base, **kw)
+        pa.kv_append(plain, new_k, new_v, wpages, woffs, new_s)
+        torch.cuda.synchronize()
+        for ours, ref in zip(kern, plain):
+            if ours is not None:
+                require(torch.equal(ours, ref), f"paged {name}: pools after append differ")
+        require(bool((m[~live] == -torch.inf).all() and (l[~live] == 0).all()
+                     and (o[~live] == 0).all()), f"paged {name}: empty slot stats")
+        require(bool(torch.isfinite(o).all()), f"paged {name}: non-finite o")
+        require(torch.allclose(o[live], o_r[live], atol=1e-4, rtol=1e-4), f"paged {name}: o")
+        require(torch.allclose(m[live], m_r[live], atol=1e-4, rtol=1e-5), f"paged {name}: m")
+        require(torch.allclose(l[live], l_r[live], rtol=1e-4), f"paged {name}: l")
+        worst[name] = float((o[live] - o_r[live]).abs().max())
+        if dtype == torch.int8 and hkv == h:  # the batcher's int8 pools and generate(kv_int8)
+            kernel = "paged_decode_stream" if streaming else "paged_decode_int8"
+            rows_read = int(lengths.sum())
+            n_bytes = (rows_read * (2 * w + 2 * hkv * 2)  # int8 k, v; one k and one v scale per head
+                       + b * h * d * 4 * 2 + b * h * 8  # q in, o, m, l out
+                       + 2 * 2 * b * w + 2 * b * pa.LANE * 2  # appended k, v, scale rows: in, out
+                       + b * 16)  # lengths, bases, write pages and offsets
+            out[kernel] = {
+                "ms": time_ms(lambda: decode(q, kern, lengths, base, write, **kw), 200),
+                "plain_ms": time_ms(lambda: (
+                    pa.decode_reference(q, plain, lengths, base, **kw),
+                    pa.kv_append(plain, new_k, new_v, wpages, woffs, new_s)), 20),
+                "library_ms": None,
+                **bound(n_bytes, rows_read * h * d * 4, "int8")}
+        del pools, kern, plain
+    for kernel in out:
+        out[kernel]["max_abs_err"] = max(v for k, v in worst.items() if "int8" in k)
+    emit({"phase": "kernel", "name": "paged_decode_stream+int8", "batch": b, "heads": h,
+          "head_dim": d, "lengths": lengths.tolist(), "inactive_slot": inactive,
+          "o_max_abs_err": worst, "timed": out, "card": card})
+    return out
+
+
+def time_paged_cell_vs_stream(card: str, gen) -> dict:
+    """The cell and the streaming kernel on the same inputs at B=32, 16 heads
+    x 64, pages of 64, capacity 2048, bf16 and int8 pools: every slot at one
+    length (``generate``'s split path) from 64 to 2047 rows, and the
+    batcher's ragged lengths.  Device ms per call (``time_ms``) and host ms
+    to issue one call; o of the two kernels within 1e-4."""
+    import torch
+
+    from midi_model_tpu_torch.ops import paged_allheads as pa
+
+    dev = torch.device("cuda")
+    b, h, d, ps, pps = 32, 16, 64, 64, 32
+    n_pages = b * pps
+    w = h * d
+    base = (torch.arange(b, device=dev) * pps).to(torch.int32)
+    kw = dict(page_size=ps, pages_per_slot=pps, kv_heads=h, head_dim=d)
+    q = torch.randn((b, h, d), generator=gen, device=dev) * d ** -0.5
+    shapes = {f"uniform {n}": [n] * b for n in (64, 96, 128, 160, 192, 256, 1024, 2047)}
+    shapes["ragged"] = RAGGED_LENGTHS
+    by_case = {}
+    for name in ("bf16", "int8"):
+        if name == "int8":
+            pools = pa.PagedPools(*(torch.randint(-127, 128, (n_pages, ps, w), generator=gen,
+                                                  device=dev, dtype=torch.int8)
+                                    for _ in range(2)),
+                                  (torch.rand((n_pages, ps, pa.LANE), generator=gen,
+                                              device=dev) * 0.02).to(torch.bfloat16))
+            rows = [pools.k[0, :b].clone(), pools.v[0, :b].clone(), pools.scales[0, :b].clone()]
+        else:
+            pools = pa.PagedPools(*(torch.randn((n_pages, ps, w), generator=gen,
+                                                device=dev).to(torch.bfloat16)
+                                    for _ in range(2)))
+            rows = [pools.k[0, :b].clone(), pools.v[0, :b].clone(), None]
+        for shape, lens in shapes.items():
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            pos = lengths.clamp(max=ps * pps - 1)
+            write = (*rows, base + pos // ps, pos % ps)
+            case = {}
+            for kernel, decode in (("cell", pa.paged_decode_cell),
+                                   ("streaming", pa.paged_decode_stream)):
+                def call():
+                    return decode(q, pools, lengths, base, write, **kw)
+                call()  # the appends written: later calls read the same rows
+                case[f"{kernel}_o"] = call()[0]
+                case[f"{kernel}_ms"] = time_ms(call, 200)
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    call()
+                case[f"{kernel}_issue_ms"] = (time.perf_counter() - t0) * 1e3 / 200
+                torch.cuda.synchronize()
+            require(torch.allclose(case.pop("cell_o"), case.pop("streaming_o"), atol=1e-4,
+                                   rtol=1e-4), f"paged {name} {shape}: the kernels differ")
+            by_case[f"{name} {shape}"] = case
+        del pools, rows
+    emit({"phase": "kernel", "name": "paged_decode_cell_vs_stream", "batch": b, "heads": h,
+          "head_dim": d, "by_case": by_case, "card": card})
+    return by_case
 
 
 def check_token_row(card: str, gen) -> dict:
@@ -313,7 +522,11 @@ def check_token_row(card: str, gen) -> dict:
             args = (model, config, hidden, masks, 1.0, 0.98, 20, g)
             timing = {"ms": time_ms(lambda: tl.decode_token_row(*args, greedy=False), 20),
                       "plain_ms": time_ms(lambda: tl.decode_token_row_reference(
-                          *args, greedy=False), 3)}
+                          *args, greedy=False), 3),
+                      "library_ms": None,
+                      **bound(2 * tok_net_params(model) + b * config.n_embd * 2
+                              + t_max * b * 128 * 4, 2 * b * t_max * tok_net_params(model),
+                              "bf16")}
         del model
         torch.cuda.empty_cache()
     result = {"max_abs_err": 1.0 - min(out["torch.float32"].values()), **timing}
@@ -437,10 +650,15 @@ def check_fused_step(card: str, gen) -> dict:
                             f"{BF16_DEEP_TOL}")
             case[f"{n_layers}_layers"] = got
             if dtype == torch.bfloat16 and n_layers == config.net.num_layers:
+                weights = sum(t.numel() for t in fused[:5])
+                cached = int(index.clamp(max=cap)[active].sum()) * n_layers
                 result = {"ms": time_ms(lambda: fs.fused_decode_step(
                               fused, net, x, kern, index, active, **kw), 20),
                           "plain_ms": time_ms(lambda: fs.fused_decode_step_reference(
-                              fused, net, x, plain, index, active, **kw), 3)}
+                              fused, net, x, plain, index, active, **kw), 3),
+                          "library_ms": None,
+                          **bound(2 * (weights + cached * 2 * w + n_layers * b * 2 * w),
+                                  2 * b * weights + 4 * cached * w, "bf16")}
             del kern, plain
         errs[str(dtype)] = case
         del full, k0, v0
@@ -559,7 +777,15 @@ def check_event_loop(card: str, gen) -> dict:
                     model, config, fused, hidden, pools, len0, *knobs, g, greedy=False,
                     **kw), 2),
                 "kernel_pair_ms": time_ms(lambda: pair(model, fused, hidden, pools, g, False),
-                                          10)}
+                                          10),
+                "library_ms": None}
+            ev_w = sum(t.numel() for t in fused[:5])
+            cached = b * len0 * config.net.num_layers
+            result.update(bound(
+                2 * (ev_w + tok_net_params(model) + cached * 2 * w
+                     + n_ev * b * config.net.num_layers * 2 * w),
+                2 * n_ev * b * (ev_w + t_max * tok_net_params(model)) + 4 * n_ev * cached * w,
+                "bf16"))
             del pools
         del model, fused, k0, v0
         torch.cuda.empty_cache()
@@ -567,6 +793,202 @@ def check_event_loop(card: str, gen) -> dict:
     emit({"phase": "kernel", "name": "event_loop", "batch": b, "events": n_ev,
           "cached_rows": len0, "by_case": out, **result, "card": card})
     return result
+
+
+def check_event_loop_ragged(card: str, gen) -> dict:
+    """The ragged event loop (the batcher's merged path) at tv2o-medium,
+    B=32, 8 events, pages of 64, capacity 2048, eos enabled: mixed lengths,
+    one slot inactive at entry, one that reaches the capacity after 3
+    events, per-slot temp / top_p / top_k, allow planes — ten slots may
+    start a row only with eos or a note, at a high temperature, so slots
+    draw eos mid-block.  f32 against its plain version: rows identical
+    (greedy and sampled), hidden and appended rows within 1e-4, every other
+    row untouched.  bf16 against the per-event composition of the kernels
+    on the same inputs (token row with forced_pad = ~alive, event
+    embedding, whole step with active = alive, hidden frozen for retired
+    slots): rows and the hidden of the slots alive at the end
+    bit-identical; the share of rows identical to the plain version is
+    printed, with the logit gap of each greedy pick that differs from the
+    plain version's at the first event (a near-tie)."""
+    import numpy as np
+    import torch
+
+    from midi_model_tpu_torch.models import MIDIModelConfig
+    from midi_model_tpu_torch.models.midinet import init_model
+    from midi_model_tpu_torch.ops import event_loop as el
+    from midi_model_tpu_torch.ops import fused_step as fs
+    from midi_model_tpu_torch.ops import paged_allheads as pa
+    from midi_model_tpu_torch.ops import token_loop as tl
+    from midi_model_tpu_torch.sampling import (build_allow_vector, build_mask_table,
+                                               mask_tensors, slot_gumbel)
+
+    dev = torch.device("cuda")
+    config = MIDIModelConfig.from_name("tv2o-medium")
+    tok = config.tokenizer
+    b, n_ev, ps, pps = 32, 8, 64, 32
+    cap = ps * pps
+    t_max = tok.max_token_seq
+    eos, pad = tok.eos_id, tok.pad_id
+    masks = mask_tensors(build_mask_table(tok), dev)
+    rng = np.random.default_rng(3)
+    index = torch.as_tensor(rng.integers(1, cap - 100, b), dtype=torch.int32, device=dev)
+    index[3] = cap - 3  # retires at capacity after 3 events
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    active[5] = False
+    eos_slots = list(range(8, 18))
+    temp = torch.tensor([1.0, 0.8, 1.2, 1.0] * 8, device=dev)
+    temp[eos_slots] = 1e3
+    top_p = torch.tensor([0.98, 0.9, 1.0, 0.5] * 8, device=dev)
+    top_k = torch.tensor([20, 8, 128, 64] * 8, dtype=torch.int32, device=dev)
+    allow = np.ones((b, tok.vocab_size), bool)
+    note_or_eos = np.ones(tok.vocab_size, bool)
+    note_or_eos[[i for n, i in tok.event_ids.items() if n != "note"]] = False
+    allow[eos_slots] = note_or_eos
+    allow[0] = build_allow_vector(tok, disable_patch_change=True, disable_channels=[1, 3])
+    allow[3, eos] = False  # slot 3 runs into the capacity
+    allow = torch.as_tensor(allow, device=dev)
+    seeds = torch.as_tensor(rng.integers(0, 2 ** 32, b), device=dev)
+    noise = slot_gumbel(seeds, index[None, :] + torch.arange(n_ev, device=dev)[:, None], t_max)
+    hidden = torch.randn((b, config.n_embd), generator=gen, device=dev)
+    w = config.net.num_heads * config.net.head_dim
+    n_pages = config.net.num_layers * b * pps
+    kw = dict(n_events=n_ev, page_size=ps, pages_per_slot=pps)
+
+    def written(rows):
+        """[n_pages, ps] mask of the appended rows: slot s at index_s + e in
+        every layer while it is alive (its row does not start with pad)."""
+        mask = torch.zeros((n_pages, ps), dtype=torch.bool, device=dev)
+        for e, s in (rows[:, :, 0] != pad).nonzero().tolist():
+            pos = int(index[s]) + e
+            pages = (torch.arange(config.net.num_layers, device=dev) * b + s) * pps + pos // ps
+            mask[pages, pos % ps] = True
+        return mask
+
+    def composition(model, fused, pools, g, greedy):
+        """The per-event kernels: token row, event embedding, whole step."""
+        alive, h, rows = active.clone(), hidden.clone(), []
+        for e in range(n_ev):
+            row, _ = tl.decode_token_row(model, config, h, masks, temp, top_p, top_k,
+                                         None if greedy else g[e], greedy=greedy,
+                                         forced_pad=~alive, allow=allow)
+            pos = index + e
+            h_new, pools = fs.fused_decode_step(fused, config.net, el.event_embedding(model, row),
+                                                pools, pos, alive, page_size=ps,
+                                                pages_per_slot=pps)
+            h = torch.where(alive[:, None], h_new, h.to(h_new.dtype))
+            alive = alive & (row[:, 0] != eos) & (pos + 1 < cap)
+            rows.append(row)
+        return torch.stack(rows), h, alive
+
+    def err(a, b_):
+        return float((a.float() - b_.float()).abs().max())
+
+    out, result = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = init_model(config, seed=4, dtype=dtype, device=dev)
+        fused = fs.prepare_fused(model.net)
+        k0 = torch.randn((n_pages, ps, w), generator=gen, device=dev).to(dtype)
+        v0 = torch.randn((n_pages, ps, w), generator=gen, device=dev).to(dtype)
+        case = {}
+        for greedy in (True, False):
+            name = f"{dtype} {'greedy' if greedy else 'sampled'}"
+            g = None if greedy else noise
+            args = (model, config, fused, hidden)
+            knobs = (index, active, masks, temp, top_p, top_k, g, allow)
+            kern = pa.PagedPools(k0.clone(), v0.clone())
+            rows, h, _ = el.decode_event_block_ragged(*args, kern, *knobs, greedy=greedy, **kw)
+            plain = pa.PagedPools(k0.clone(), v0.clone())
+            rows_r, h_r, _ = el.decode_event_block_ragged_reference(*args, plain, *knobs,
+                                                                    greedy=greedy, **kw)
+            torch.cuda.synchronize()
+            alive_rows = rows[:, :, 0] != pad
+            eos_at = (rows[:, :, 0] == eos).nonzero().tolist()
+            require(bool((rows[:, 5] == pad).all()), f"ragged {name}: inactive slot not pad")
+            require(bool(alive_rows[:3, 3].all() and not alive_rows[3:, 3].any()),
+                    f"ragged {name}: slot 3 did not retire at capacity after 3 events")
+            require(bool(torch.isfinite(h.float()).all()), f"ragged {name}: non-finite")
+            got = {"eos_at_event_slot": eos_at,
+                   "identical_row_share": float((rows == rows_r).all(dim=2).all(dim=0)
+                                                .float().mean())}
+            if dtype == torch.float32:
+                mask = written(rows)
+                for ours, ref, before in ((kern.k, plain.k, k0), (kern.v, plain.v, v0)):
+                    require(torch.equal(ours[~mask], before[~mask])
+                            and torch.equal(ref[~mask], before[~mask]),
+                            f"ragged {name}: a row outside the appends changed")
+                got.update(hidden=err(h, h_r),
+                           appended_rows=max(err(kern.k[mask], plain.k[mask]),
+                                             err(kern.v[mask], plain.v[mask])))
+                require(torch.equal(rows, rows_r) and got["hidden"] <= 1e-4
+                        and got["appended_rows"] <= 1e-4, f"ragged {name}: {got}")
+                if not greedy:
+                    require(any(e >= 1 for e, _ in eos_at),
+                            f"ragged {name}: no slot drew eos mid-block: {eos_at}")
+            else:
+                rows_c, h_c, alive_end = composition(model, fused,
+                                                     pa.PagedPools(k0.clone(), v0.clone()),
+                                                     g, greedy)
+                torch.cuda.synchronize()
+                same_rows = torch.equal(rows, rows_c)
+                same_hidden = torch.equal(h[alive_end], h_c[alive_end])
+                if greedy:  # rows first differing from the plain version at event 0
+                    got["event0_tie_logit_gaps"] = tie_gaps(model, hidden, rows[0], rows_r[0],
+                                                            temp)
+                got["vs_kernel_composition"] = {"rows_identical": same_rows,
+                                                "alive_hidden_identical": same_hidden,
+                                                "hidden": err(h[alive_end], h_c[alive_end])}
+                require(same_rows and same_hidden, f"ragged {name}: {got}")
+            del kern, plain
+            case["greedy" if greedy else "sampled"] = got
+        out[str(dtype)] = case
+        if dtype == torch.bfloat16:  # the batcher's dtype
+            pools = pa.PagedPools(k0.clone(), v0.clone())
+            run = (lambda: el.decode_event_block_ragged(
+                model, config, fused, hidden, pools, index, active, masks, temp, top_p,
+                top_k, noise, allow, greedy=False, **kw))
+            rows, _, _ = run()
+            n_live = int((rows[:, :, 0] != pad).sum())  # alive (slot, event) pairs
+            cached = int(index[active].long().sum()) * config.net.num_layers
+            weights = sum(t.numel() for t in fused[:5]) + tok_net_params(model)
+            n_bytes = 2 * (weights + cached * 2 * w + n_live * config.net.num_layers * 2 * w)
+            n_ops = (2 * n_live * (sum(t.numel() for t in fused[:5])
+                                   + t_max * tok_net_params(model))
+                     + 4 * n_ev * cached * w)
+            result = {
+                "ms": time_ms(run, 5),
+                "plain_ms": time_ms(lambda: el.decode_event_block_ragged_reference(
+                    model, config, fused, hidden, pools, index, active, masks, temp, top_p,
+                    top_k, noise, allow, greedy=False, **kw), 2),
+                "composition_ms": time_ms(lambda: composition(model, fused, pools, noise,
+                                                              False), 5),
+                "library_ms": None, **bound(n_bytes, n_ops, "bf16")}
+            del pools
+        del model, fused, k0, v0
+        torch.cuda.empty_cache()
+    result["max_abs_err"] = max(c["hidden"] for c in out["torch.float32"].values())
+    emit({"phase": "kernel", "name": "event_loop_ragged", "batch": b, "events": n_ev,
+          "index": index.tolist(), "by_case": out, **result, "card": card})
+    return result
+
+
+def tok_net_params(model) -> int:
+    """Weights the token row reads: the token net's layers, its final norm
+    and the shared lm_head."""
+    return (sum(p.numel() for p in model.net_token.layers.parameters())
+            + model.net_token.norm.weight.numel() + model.lm_head.weight.numel())
+
+
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}  # H100 SXM, dense, per second
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(n_bytes: float, n_ops: float, kind: str) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def phase_oracle(card: str):
@@ -655,23 +1077,30 @@ def phase_slice(card: str) -> dict:
     # the main path, once per decode path, each with the launch counts read
     # from exactly its own run: the default (fused at bf16: 259 events = 32
     # event-loop launches and a 3-event per-event tail), then the split path
+    # and generate(kv_int8=True), which takes the split path on int8 pools
     launches = {}
-    for fused, kernels in ((None, ("event_loop", "token_row", "fused_step",
-                                   "causal_attention")),
-                           (False, ("sampler", "paged_decode", "causal_attention"))):
+    for fused, kv_int8, max_len, kernels in (
+            (None, False, 260, ("event_loop", "token_row", "fused_step", "causal_attention")),
+            (False, False, 260, ("sampler", "paged_decode", "paged_decode_stream",
+                                 "causal_attention")),
+            (None, True, 40, ("sampler", "paged_decode_int8", "causal_attention"))):
         _build.LAUNCHES.clear()
-        rows = generate(model, config, batch_size=batch, max_len=260, temp=1.0,
-                        top_p=0.98, top_k=20, seed=0, fused=fused)
+        rows = generate(model, config, batch_size=batch, max_len=max_len, temp=1.0,
+                        top_p=0.98, top_k=20, seed=0, fused=fused, kv_int8=kv_int8)
         torch.cuda.synchronize()
         counts = dict(_build.LAUNCHES)
-        path = "fused (default)" if fused is None else "split"
-        require(rows.shape[0] == batch and 1 < rows.shape[1] <= 260, f"rows {rows.shape}")
+        path = ("split, int8 pools" if kv_int8 else
+                "fused (default)" if fused is None else "split")
+        require(rows.shape[0] == batch and 1 < rows.shape[1] <= max_len, f"rows {rows.shape}")
         check_rows(rows[:, 1:], table, tokenizer, f"generate bs=32, {path} path")
         for name in kernels:
             require(counts.get(name, 0) > 0, f"{path} path never launched {name}: {counts}")
-        if fused is None:
+        if fused is None and not kv_int8:
             require("sampler" not in counts and "paged_decode" not in counts,
                     f"the default bf16 path took the split path: {counts}")
+        if kv_int8:
+            require("paged_decode" not in counts and "fused_step" not in counts,
+                    f"the int8 path ran a bf16 kernel: {counts}")
         launches = {**counts, **launches}
         emit({"phase": "slice_generate", "path": path, "batch": batch,
               "rows_shape": list(rows.shape), "launches": counts, "card": card})
@@ -749,6 +1178,204 @@ def phase_slice(card: str) -> dict:
     return launches
 
 
+def phase_batcher(card: str, kv_int8: bool) -> dict:
+    """The continuous batcher at tv2o-medium's full width, bf16 weights:
+    32 slots, max_seq 2048, chunk 16, a queue of requests with prompts of
+    16-1024 events and budgets of 64-512 events admitted as slots free up,
+    some with their own temp / top_p / top_k, some with banned channels.
+    bf16 pools run the ragged event loop (one launch per chunk); ``kv_int8``
+    the split scan (token-row kernel, streaming int8 paged kernel).  The
+    queue runs twice: with eos enabled (random weights end a request on eos
+    after a few events, so that run is mostly admissions), then with eos
+    disabled, every request decoding its whole budget (budget retirement,
+    long co-tenancy, many chunks).  Every request finishes with grammatical
+    rows free of its bans; events/s, the chunk count, chunk latency and
+    prefill ms per admission group are printed for each run, and events/s
+    and the device-busy share of a profiled window at full occupancy (eos
+    disabled, every slot decoding).  bf16 also resubmits one seeded request
+    into another slot beside other requests: its rows must be identical."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from midi_model_tpu_torch.models import MIDIModelConfig
+    from midi_model_tpu_torch.models.midinet import init_model
+    from midi_model_tpu_torch.ops import _build
+    from midi_model_tpu_torch.sampling import build_mask_table
+    from midi_model_tpu_torch.serve import ContinuousBatcher
+
+    dev = torch.device("cuda")
+    config = MIDIModelConfig.from_name("tv2o-medium")
+    tok = config.tokenizer
+    model = init_model(config, seed=5, dtype=torch.bfloat16, device=dev)
+    kw = dict(n_slots=32, max_seq=2048, chunk=16, kv_int8=kv_int8, seed=11)
+    rng = np.random.default_rng(21 if kv_int8 else 20)
+    n_req = 48 if kv_int8 else 64
+    banned = [2, 9]
+    chan_ids = {tok.vocab.param_base("channel") + c for c in banned}
+
+    def prompt(n):
+        rows = rng.integers(3, tok.vocab_size, (n, tok.max_token_seq))
+        rows[0] = tok.pad_id
+        rows[0, 0] = tok.bos_id
+        return rows
+
+    requests = []
+    for i in range(n_req):
+        extra = {}
+        if i % 4 == 1:
+            extra.update(temp=0.9, top_p=0.9, top_k=8)
+        if i % 5 == 2:
+            extra.update(disable_channels=banned)
+        requests.append((prompt(int(rng.integers(16, 1025))), int(rng.integers(64, 513)), extra))
+
+    def run_queue(disable_eos: bool) -> dict:
+        """The whole queue through one batcher; its metrics and launches."""
+        table = build_mask_table(tok, disable_eos=disable_eos)
+        batcher = ContinuousBatcher(model, config, disable_eos=disable_eos, **kw)
+        require(batcher.fused != kv_int8 and batcher.pipeline,
+                f"batcher path: fused={batcher.fused}, pipeline={batcher.pipeline}")
+        groups = []  # (size, bucket, start event, stop event) of each admission forward
+        prefill_group = batcher._prefill_group
+
+        def timed_prefill(bucket, part):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            prefill_group(bucket, part)
+            stop.record()
+            groups.append((len(part), bucket, start, stop))
+
+        batcher._prefill_group = timed_prefill
+        dispatch = batcher._dispatch
+        dispatched = []  # chunks sent to the card
+
+        def counted_dispatch():
+            dispatched.append(1)
+            return dispatch()
+
+        batcher._dispatch = counted_dispatch
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        rids = [batcher.submit(p, budget, **extra) for p, budget, extra in requests]
+        torch.cuda.synchronize()
+        submit_s = time.perf_counter() - t0  # the first 32 admitted
+        results, chunk_s = {}, []
+        while batcher.any_active:
+            ts = time.perf_counter()
+            results.update((f.request_id, f) for f in batcher.step())
+            chunk_s.append(time.perf_counter() - ts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        require(set(results) == set(rids),
+                f"batcher: {len(rids) - len(results)} requests unfinished")
+        events = 0
+        for rid, (_, budget, extra) in zip(rids, requests):
+            fin = results[rid]
+            require(len(fin.rows) <= budget and (fin.reason == "eos" or len(fin.rows) == budget),
+                    f"request {rid}: {len(fin.rows)} rows of {budget}, reason {fin.reason}")
+            if len(fin.rows):
+                check_rows(fin.rows[None], table, tok, f"batcher request {rid}")
+                if "disable_channels" in extra:
+                    require(not (set(fin.rows.ravel().tolist()) & chan_ids),
+                            f"request {rid}: a banned channel")
+            events += len(fin.rows) + (fin.reason == "eos")
+        n_chunks = len(dispatched)
+        if kv_int8:
+            require(counts.get("token_row", 0) > 0 and counts.get("paged_decode_stream", 0) > 0
+                    and "event_loop_ragged" not in counts and "paged_decode_int8" not in counts,
+                    f"int8 batcher launches: {counts}")
+        else:
+            require(counts.get("event_loop_ragged", 0) == n_chunks and "token_row" not in counts
+                    and "paged_decode_stream" not in counts and "fused_step" not in counts,
+                    f"bf16 batcher launches: {counts} over {n_chunks} chunks")
+        prefill_ms = [(size, bucket, start.elapsed_time(stop))
+                      for size, bucket, start, stop in groups]
+        chunk_ms = sorted(t * 1e3 for t in chunk_s)
+        return {
+            "requests": n_req, "events": events, "wall_s": wall, "submit_s": submit_s,
+            "events_per_s": events / wall,
+            # the p99 of `steps` step() calls: the chunks dispatched, and the
+            # pipeline's last call, which only reads
+            "chunks": n_chunks, "steps": len(chunk_s),
+            "chunk_ms_mean": float(np.mean(chunk_ms)),
+            "chunk_ms_p99": float(np.percentile(chunk_ms, 99)),
+            "chunk_ms_max": chunk_ms[-1],
+            "prefill_groups": len(prefill_ms),
+            "prefill_ms_per_group_mean": float(np.mean([t for _, _, t in prefill_ms])),
+            "prefill_ms_by_size_bucket": prefill_ms[:12],
+            "finish_reasons": {r: sum(f.reason == r for f in results.values())
+                               for r in ("eos", "budget")},
+            "launches": counts}
+
+    metrics = {"eos_churn": run_queue(disable_eos=False),
+               "budget_churn": run_queue(disable_eos=True)}
+    require(metrics["budget_churn"]["finish_reasons"]["budget"] == n_req,
+            f"budget churn: {metrics['budget_churn']['finish_reasons']}")
+    counts = metrics["budget_churn"]["launches"]
+
+    # full occupancy: 32 requests with eos disabled and budgets past the
+    # window: 4 chunks timed after two, then 2 more profiled (every slot decodes)
+    steady = ContinuousBatcher(model, config, disable_eos=True, **kw)
+    for _ in range(32):
+        steady.submit(prompt(int(rng.integers(16, 1025))), 512)
+    for _ in range(2):
+        steady.step()
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    for _ in range(4):  # timed without the profiler, whose host tracing slows launches
+        require(not steady.step(), "steady window: a request finished")
+    torch.cuda.synchronize()
+    wall_w = time.perf_counter() - tw
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tp = time.perf_counter()
+        for _ in range(2):
+            require(not steady.step(), "steady window: a request finished")
+        torch.cuda.synchronize()
+        wall_p = time.perf_counter() - tp
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+    metrics["full_occupancy"] = {
+        "slots": 32, "chunks": 4, "events_per_s": 32 * kw["chunk"] * 4 / wall_w,
+        "chunk_ms": wall_w * 1e3 / 4, "profiled_chunks": 2,
+        "device_ms_per_chunk": dev_us / 2e3, "profiled_chunk_ms": wall_p * 1e3 / 2,
+        "device_busy_share": dev_us / 1e6 / wall_p,
+        "device_share_of_unprofiled_chunk": dev_us / 2e3 / (wall_w * 1e3 / 4)}
+    del steady
+
+    if not kv_int8:  # one seeded request, alone in its prompt bucket, in two batches
+        solo = prompt(10)
+        others = [(prompt(int(rng.integers(40, 300))), 96, {}) for _ in range(6)]
+        runs = []
+        for before in (0, 5):  # eos disabled: the request decodes its whole budget
+            b2 = ContinuousBatcher(model, config, disable_eos=True, **kw)
+            for p, budget, extra in others[:before]:
+                b2.submit(p, budget, **extra)
+            rid = b2.submit(solo, 48, seed=1234, temp=1.1)
+            slot = next(i for i, sl in enumerate(b2.slots) if sl.request_id == rid)
+            for p, budget, extra in others[before:]:
+                b2.submit(p, budget, **extra)
+            runs.append((slot, b2.run_all()[rid].rows))
+        (slot_a, rows_a), (slot_b, rows_b) = runs
+        same = rows_a.shape == rows_b.shape and bool((rows_a == rows_b).all())
+        first_diff = None
+        if not same:
+            n = min(len(rows_a), len(rows_b))
+            diff = np.nonzero((rows_a[:n] != rows_b[:n]).any(axis=1))[0]
+            first_diff = int(diff[0]) if len(diff) else n
+        metrics["seeded_resubmit"] = {"slots": [slot_a, slot_b], "rows": len(rows_a),
+                                      "identical": same, "first_differing_event": first_diff}
+        require(slot_a != slot_b and same and len(rows_a) == 48,
+                f"seeded resubmit: {metrics['seeded_resubmit']}")
+    emit({"phase": "batcher_int8" if kv_int8 else "batcher_bf16", **metrics, "card": card})
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
 SOURCES = {
     "sampler": ("midi_model_tpu_torch/csrc/sampler.cu", "midi_model_tpu/ops/sampler.py:39"),
     "paged_decode": ("midi_model_tpu_torch/csrc/paged_decode.cu",
@@ -761,6 +1388,12 @@ SOURCES = {
                    "midi_model_tpu/ops/fused_step.py:81"),
     "event_loop": ("midi_model_tpu_torch/csrc/event_loop.cu",
                    "midi_model_tpu/ops/event_loop.py:92"),
+    "paged_decode_int8": ("midi_model_tpu_torch/csrc/paged_decode.cu",
+                          "midi_model_tpu/ops/paged_allheads.py:212"),
+    "paged_decode_stream": ("midi_model_tpu_torch/csrc/paged_decode_stream.cu",
+                            "midi_model_tpu/ops/paged_allheads.py:408"),
+    "event_loop_ragged": ("midi_model_tpu_torch/csrc/event_loop.cu",
+                          "midi_model_tpu/ops/event_loop.py:1162"),
 }
 
 
@@ -788,11 +1421,19 @@ def main() -> int:
     results = phase_kernels(card)
     phase_oracle(card)
     launches = phase_slice(card)
+    # each batcher path's launches from its own run
+    launches.update({k: v for k, v in phase_batcher(card, kv_int8=False).items()
+                     if k == "event_loop_ragged"})
+    launches.update({k: v for k, v in phase_batcher(card, kv_int8=True).items()
+                     if k == "paged_decode_stream"})
     require("jax" not in sys.modules, "jax was imported")
+    require(not any(m == "midi_model_tpu" or m.startswith("midi_model_tpu.")
+                    for m in sys.modules), "the JAX package was imported")
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[name], **results[name]}
+         "launches": launches[name], **{k: results[name][k] for k in keys}}
         for name, (src, replaces) in SOURCES.items()]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

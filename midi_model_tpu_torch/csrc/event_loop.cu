@@ -1,8 +1,10 @@
 // E whole events — token rows AND event-net steps — in ONE launch.
 //
 // Replaces: midi_model_tpu/ops/event_loop.py, _event_loop_kernel (Pallas
-// TPU), its aligned form (merged_decode_events): every slot at the same
-// history length.
+// TPU), in both its forms: aligned (merged_decode_events, every slot at the
+// same history length; entry points mm_event_loop_*) and ragged
+// (merged_decode_ragged, the continuous batcher's slots; entry points
+// mm_event_loop_ragged_*).
 //
 // What it computes (the plain version is
 // midi_model_tpu_torch/ops/event_loop.py, decode_event_block_reference),
@@ -24,9 +26,25 @@
 // the host's work between them: the launches, the embedding gather and the
 // per-event geometry tables.
 //
+// The ragged form (the plain version is decode_event_block_ragged_reference
+// in the same module) gives every slot its own length and RoPE position
+// index_s + e (the host's per-event tables), per-slot knobs, allow plane and
+// noise, and keeps a per-slot alive mask in global memory: it starts as the
+// host's `active`; a retired slot samples pad at every step, appends
+// nothing, attends over nothing and keeps its residual frozen (a slot dead
+// at entry keeps the zero residual it starts with); after event e's last
+// layer a slot retires when its row's step 0 is eos or its length
+// index_s + e + 1 reaches the capacity — the eos row itself goes through
+// the event net.  The host derives the new index from the rows (one per
+// non-pad row).
+//
 // Design: one cooperative persistent grid; between events one extra phase
 // writes the token net's next input, T(fnorm * T(x * rsqrt)) of the
-// residual — the plain version's RMSNorm rounding points.
+// residual — the plain version's RMSNorm rounding points.  In the ragged
+// form block 0 also updates the alive mask there, from the previous event's
+// rows: every read of the mask by that event's phases lies behind the grid
+// barrier that ended it, and the barrier after this phase publishes the
+// update to the token row and the step body that read it.
 #include "fused_step.cuh"
 #include "token_row.cuh"
 
@@ -37,6 +55,7 @@ struct LoopParams {
   mm::TokenParams<T> tok;
   mm::StepParams<T> step;
   const T* fnorm;  // the event net's final norm [D]
+  unsigned char* alive;  // [B] the ragged form's alive mask, in place; null when aligned
   int n_events;
 };
 
@@ -50,6 +69,16 @@ __global__ void __launch_bounds__(mm::kDecThreads, 1) event_loop_kernel(LoopPara
   const int B = p.step.B, D = p.step.D;
   for (int e = 0; e < p.n_events; ++e) {
     if (e > 0) {  // the token net's input: the final norm of the residual
+      if (p.alive && blockIdx.x == 0) {  // retire after event e-1: eos row or capacity
+        const int cap = p.step.pps * p.step.page_size;
+        for (int b = threadIdx.x; b < B; b += mm::kDecThreads) {
+          const int prev = (e - 1) * B + b;
+          // lengths[e-1][b] = min(index_b + e - 1, cap): + 1 is the new length
+          if (p.tok.row[static_cast<size_t>(prev) * p.tok.n_steps] == p.tok.eos_id ||
+              p.step.lengths[prev] + 1 >= cap)
+            p.alive[b] = 0;
+        }
+      }
       mm::row_scales<T>(p.step.x, B, D, p.step.eps, rs);
       __syncthreads();
       for (int i = (blockIdx.x * mm::kDecThreads + threadIdx.x) * 8; i < B * D;
@@ -71,10 +100,12 @@ __global__ void __launch_bounds__(mm::kDecThreads, 1) event_loop_kernel(LoopPara
 // ptrs: mm::fill_token_params's pointers, then emb_net [V, D] and ev_acc
 // [B, D] f32 scratch, then mm::fill_step_params's (the geometry tables with
 // one row per event; the same barrier pair as the token row's), then the
-// final norm; ints: the token row's, the step's, then n_events; floats: the
-// token row's, then the step's.
+// final norm, then (ragged) the alive mask [B] uint8; ints: the token
+// row's, the step's, then n_events; floats: the token row's, then the
+// step's.
 template <typename T>
-int launch(const void* const* ptrs, const int* ints, const float* floats, void* stream) {
+int launch(const void* const* ptrs, const int* ints, const float* floats, void* stream,
+           bool ragged) {
   LoopParams<T> p;
   bool ok = mm::fill_token_params(p.tok, ptrs, ints, floats);
   p.tok.emb_net = static_cast<const T*>(*ptrs++);
@@ -82,9 +113,12 @@ int launch(const void* const* ptrs, const int* ints, const float* floats, void* 
   ok = mm::fill_step_params(p.step, ptrs, ints, floats) && ok;
   p.tok.ev_out = p.step.x;
   p.fnorm = static_cast<const T*>(*ptrs++);
+  p.alive = ragged ? static_cast<unsigned char*>(const_cast<void*>(*ptrs++)) : nullptr;
+  p.tok.alive = p.alive;
+  p.step.alive = p.alive;
   p.n_events = *ints++;
   if (!ok || p.tok.B != p.step.B || p.tok.D != p.step.D || p.tok.bar != p.step.bar ||
-      p.n_events < 1)
+      p.n_events < 1 || (ragged && !p.alive))
     return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&p};
   return mm::launch_cooperative(event_loop_kernel<T>, mm::kDecThreads, mm::kGemvSmem, 1 << 20,
@@ -95,10 +129,20 @@ int launch(const void* const* ptrs, const int* ints, const float* floats, void* 
 
 extern "C" int mm_event_loop_f32(const void* const* ptrs, const int* ints, const float* floats,
                                  void* stream) {
-  return launch<float>(ptrs, ints, floats, stream);
+  return launch<float>(ptrs, ints, floats, stream, false);
 }
 
 extern "C" int mm_event_loop_bf16(const void* const* ptrs, const int* ints, const float* floats,
                                   void* stream) {
-  return launch<__nv_bfloat16>(ptrs, ints, floats, stream);
+  return launch<__nv_bfloat16>(ptrs, ints, floats, stream, false);
+}
+
+extern "C" int mm_event_loop_ragged_f32(const void* const* ptrs, const int* ints,
+                                        const float* floats, void* stream) {
+  return launch<float>(ptrs, ints, floats, stream, true);
+}
+
+extern "C" int mm_event_loop_ragged_bf16(const void* const* ptrs, const int* ints,
+                                         const float* floats, void* stream) {
+  return launch<__nv_bfloat16>(ptrs, ints, floats, stream, true);
 }

@@ -32,11 +32,6 @@ namespace mm {
 constexpr int kStepMaxChunks = 4;  // head_dim <= 128
 constexpr int kStepMaxHeadDim = 32 * kStepMaxChunks;
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
 template <typename T>
 struct StepParams {
   const T *wqkv, *wo, *wgu, *wd, *ln;  // [L,3W,D], [L,D,W], [L,2F,D], [L,D,F], [L,2,D]
@@ -46,9 +41,18 @@ struct StepParams {
   T *x;                                // [B, D] residual stream, in place
   T *qkv, *attn, *fresh_k, *gated;     // scratch
   unsigned int* bar;                   // zeroed {count, generation}
+  // The ragged event loop's per-slot alive mask [B] (null otherwise): a
+  // retired slot attends over nothing, appends nothing and keeps its
+  // residual frozen.
+  const unsigned char* alive;
   int B, D, H, dh, F, L, page_size, pps;
   float eps, scale;
 };
+
+template <typename T>
+__device__ __forceinline__ bool retired(const StepParams<T>& p, int b) {
+  return p.alive != nullptr && !p.alive[b];
+}
 
 // Sum v[0..63] over the warp's lanes: a halving butterfly (62 shuffles)
 // that leaves lane L with the sums of dims 2L and 2L+1 in v[0], v[1].
@@ -102,7 +106,7 @@ __device__ void slot_head_attention(const StepParams<T>& p, int ev, int li, int 
   }
   __syncthreads();
 
-  const int len = p.lengths[slot];
+  const int len = retired(p, b) ? 0 : p.lengths[slot];
   const int base = (li * p.B + b) * p.pps;
   auto row_at = [&](int t) {
     return (static_cast<size_t>(base + t / p.page_size) * p.page_size + t % p.page_size) * W +
@@ -227,6 +231,7 @@ __device__ void fused_step_body(const StepParams<T>& p, int ev, float* xs, float
          i += gridDim.x * kDecThreads) {
       const int b = i / W;
       const int w = i - b * W;
+      if (retired(p, b)) continue;
       const int pos = p.wpos[ev * B + b];
       const size_t dst =
           (static_cast<size_t>((li * B + b) * p.pps + pos / p.page_size) * p.page_size +
@@ -240,6 +245,7 @@ __device__ void fused_step_body(const StepParams<T>& p, int ev, float* xs, float
         [&](int u, int c) { return wo + static_cast<size_t>(2 * u + c) * W; },
         [&](int b, int k, float* out) { load8(p.attn + static_cast<size_t>(b) * W + k, out); },
         [&](int u, int b, float a0, float a1) {
+          if (retired(p, b)) return;  // the residual stays frozen
           T* o = p.x + static_cast<size_t>(b) * D + 2 * u;
           o[0] = from_f32<T>(to_f32(o[0]) + round_to<T>(a0));
           o[1] = from_f32<T>(to_f32(o[1]) + round_to<T>(a1));
@@ -264,6 +270,7 @@ __device__ void fused_step_body(const StepParams<T>& p, int ev, float* xs, float
         [&](int u, int c) { return wd + static_cast<size_t>(2 * u + c) * F; },
         [&](int b, int k, float* out) { load8(p.gated + static_cast<size_t>(b) * F + k, out); },
         [&](int u, int b, float a0, float a1) {
+          if (retired(p, b)) return;  // the residual stays frozen
           T* o = p.x + static_cast<size_t>(b) * D + 2 * u;
           o[0] = from_f32<T>(to_f32(o[0]) + round_to<T>(a0));
           o[1] = from_f32<T>(to_f32(o[1]) + round_to<T>(a1));
@@ -274,7 +281,8 @@ __device__ void fused_step_body(const StepParams<T>& p, int ev, float* xs, float
 }
 
 // Fill p from the packed host arrays and advance the cursors.  ptrs: the
-// pointers of StepParams in declaration order; ints: B, D, H, dh, F, L,
+// pointers of StepParams in declaration order up to `bar` (alive is left
+// null); ints: B, D, H, dh, F, L,
 // page_size, pages_per_slot; floats: eps, scale.  Returns false for shapes
 // the kernel does not take.
 template <typename T>
@@ -289,6 +297,7 @@ bool fill_step_params(StepParams<T>& p, const void* const*& ptrs, const int*& in
   for (T** s : {&p.k_pool, &p.v_pool, &p.x, &p.qkv, &p.attn, &p.fresh_k, &p.gated})
     *s = static_cast<T*>(next());
   p.bar = static_cast<unsigned int*>(next());
+  p.alive = nullptr;
   for (int* f : {&p.B, &p.D, &p.H, &p.dh, &p.F, &p.L, &p.page_size, &p.pps}) *f = *ints++;
   p.eps = *floats++;
   p.scale = *floats++;

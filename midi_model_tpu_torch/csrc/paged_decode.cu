@@ -1,19 +1,25 @@
-// All-heads paged flash decode with the fresh-row append.
+// All-heads paged flash decode with the fresh-row append: one block per
+// (slot, head).
 //
 // Replaces: midi_model_tpu/ops/paged_allheads.py, _decode_kernel_cell (Pallas
-// TPU, per-slot grid); it computes the same function as _decode_kernel_stream.
+// TPU, per-slot grid), for bf16, f32 and int8 pools.  paged_decode_stream.cu
+// computes the same function over a flat (slot, block) work list.
 //
 // What it computes: for each slot b and query head h, attention of the one
 // pre-scaled f32 query row q[b, h, :] over the slot's first lengths[b] cached
-// rows.  Pools are [n_pages, page_size, Hkv*stride] (bf16 or f32) with the
-// layer axis folded into pages; row t of slot b lives at page
-// base_pages[b] + t / page_size, row t % page_size, lanes
-// [hkv*stride, hkv*stride + D) with hkv = h / (H / Hkv) (GQA).  Outputs:
-// the normalized context o [B, H, D] f32 and the flash stats m, l [B, H]
-// (max score and sum of exp(score - m)), which the caller uses to merge the
-// fresh token's own term.  A slot of length 0 returns m = -inf, l = 0,
-// o = 0, never NaN.  Optionally appends each slot's fresh packed k/v row at
-// (write_pages[b], write_offs[b]); the pools are updated IN PLACE.
+// rows.  Pools are [n_pages, page_size, Hkv*stride] (bf16, f32 or int8) with
+// the layer axis folded into pages; row t of slot b is flat row
+// base_pages[b] * page_size + t, lanes [g*stride, g*stride + D) with
+// g = h / (H / Hkv) (GQA).  int8 pools carry a bf16 scale pool
+// [n_pages, page_size, 128]: k scales in lanes [0:Hkv], v scales in
+// [Hkv:2Hkv]; a cached value dequantizes as float(int8) * float(scale) — an
+// exact product, the plain version's (decode_reference) value — before it
+// enters the score or the P.V sum.  Outputs: the normalized context
+// o [B, H, D] f32 and the flash stats m, l [B, H] (max score and sum of
+// exp(score - m)), which the caller uses to merge the fresh token's own
+// term.  A slot of length 0 returns m = -inf, l = 0, o = 0, never NaN.
+// Optionally appends each slot's fresh packed k/v row (and its scale row)
+// at (write_pages[b], write_offs[b]); the pools are updated IN PLACE.
 //
 // What bounds it on an H100: bytes.  Each cached row is read once per kv
 // head (2 * D * sizeof(T) bytes per head per row) and gets ~2 flops per
@@ -29,9 +35,13 @@
 // The append comes after the reads.  At capacity the caller clips the write
 // position to capacity-1 while lengths = capacity, so the row being written
 // can be one this call reads.  With MHA (H == Hkv) only block (b, h) reads
-// head h's lanes of slot b, so that block writes exactly those lanes after a
-// barrier that follows its last read.  With GQA several blocks read the same
-// kv lanes, so the append runs as a second launch on the same stream.
+// head h's lanes of slot b, so that block writes exactly those lanes (and
+// head h's two scale lanes; head 0's block also the scale row's unused
+// lanes) after a barrier that follows its last read.  With GQA several
+// blocks read the same kv lanes, so the append runs as a second launch on
+// the same stream.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
@@ -39,16 +49,21 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxChunks = 4;  // D <= 128: each lane holds up to 4 dims
+constexpr int kLane = 128;     // scale row width
+
+struct Geometry {
+  int H, Hkv, groups, D, stride, W, page_size;
+};
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const float* __restrict__ q, T* k_pool, T* v_pool,
+paged_decode_kernel(const float* __restrict__ q, T* k_pool, T* v_pool, __nv_bfloat16* scales,
                     const int* __restrict__ lengths, const int* __restrict__ base_pages,
                     float* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
                     const T* __restrict__ new_k, const T* __restrict__ new_v,
+                    const __nv_bfloat16* __restrict__ new_scales,
                     const int* __restrict__ write_pages, const int* __restrict__ write_offs,
-                    int H, int groups, int D, int stride, int W, int page_size,
-                    int append_here) {
+                    Geometry g, int append_here) {
   __shared__ float s_m[kWarps];
   __shared__ float s_l[kWarps];
   __shared__ float s_acc[kWarps][32 * kMaxChunks];
@@ -57,30 +72,36 @@ paged_decode_kernel(const float* __restrict__ q, T* k_pool, T* v_pool,
   const int h = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int lane_off = (h / groups) * stride;
+  const int kv = h / g.groups;
+  const int lane_off = kv * g.stride;
   const int len = lengths[b];
-  const int base = base_pages[b];
+  const size_t first_row = static_cast<size_t>(base_pages[b]) * g.page_size;
 
-  const float* qh = q + (static_cast<size_t>(b) * H + h) * D;
+  const float* qh = q + (static_cast<size_t>(b) * g.H + h) * g.D;
   float qr[kMaxChunks];
   float acc[kMaxChunks];
 #pragma unroll
   for (int c = 0; c < kMaxChunks; ++c) {
     const int d = lane + 32 * c;
-    qr[c] = d < D ? qh[d] : 0.f;
+    qr[c] = d < g.D ? qh[d] : 0.f;
     acc[c] = 0.f;
   }
 
   float m = -CUDART_INF_F;
   float l = 0.f;
   for (int t = warp; t < len; t += kWarps) {
-    const size_t row =
-        (static_cast<size_t>(base + t / page_size) * page_size + t % page_size) * W + lane_off;
+    const size_t r = first_row + t;
+    const size_t row = r * g.W + lane_off;
+    float ks = 1.f, vs = 1.f;  // exact: x * 1.f == x for bf16 / f32 pools
+    if (scales) {
+      ks = mm::to_f32(scales[r * kLane + kv]);
+      vs = mm::to_f32(scales[r * kLane + g.Hkv + kv]);
+    }
     float s = 0.f;
 #pragma unroll
     for (int c = 0; c < kMaxChunks; ++c) {
       const int d = lane + 32 * c;
-      if (d < D) s += qr[c] * mm::to_f32(k_pool[row + d]);
+      if (d < g.D) s += qr[c] * (mm::to_f32(k_pool[row + d]) * ks);
     }
     s = mm::warp_sum(s);
     const float m_new = fmaxf(m, s);
@@ -90,7 +111,7 @@ paged_decode_kernel(const float* __restrict__ q, T* k_pool, T* v_pool,
 #pragma unroll
     for (int c = 0; c < kMaxChunks; ++c) {
       const int d = lane + 32 * c;
-      if (d < D) acc[c] = acc[c] * corr + p * mm::to_f32(v_pool[row + d]);
+      if (d < g.D) acc[c] = acc[c] * corr + p * (mm::to_f32(v_pool[row + d]) * vs);
     }
     m = m_new;
   }
@@ -102,17 +123,25 @@ paged_decode_kernel(const float* __restrict__ q, T* k_pool, T* v_pool,
 #pragma unroll
   for (int c = 0; c < kMaxChunks; ++c) {
     const int d = lane + 32 * c;
-    if (d < D) s_acc[warp][d] = acc[c];
+    if (d < g.D) s_acc[warp][d] = acc[c];
   }
   __syncthreads();  // every read of this slot's rows is done
 
   if (append_here) {
-    const size_t dst =
-        (static_cast<size_t>(write_pages[b]) * page_size + write_offs[b]) * W + lane_off;
-    const size_t src = static_cast<size_t>(b) * W + lane_off;
-    for (int i = threadIdx.x; i < stride; i += kThreads) {
+    const size_t dst_row = static_cast<size_t>(write_pages[b]) * g.page_size + write_offs[b];
+    const size_t dst = dst_row * g.W + lane_off;
+    const size_t src = static_cast<size_t>(b) * g.W + lane_off;
+    for (int i = threadIdx.x; i < g.stride; i += kThreads) {
       k_pool[dst + i] = new_k[src + i];
       v_pool[dst + i] = new_v[src + i];
+    }
+    if (scales) {
+      const __nv_bfloat16* ns = new_scales + static_cast<size_t>(b) * kLane;
+      __nv_bfloat16* ds = scales + dst_row * kLane;
+      if (threadIdx.x == 0) ds[kv] = ns[kv];
+      if (threadIdx.x == 1) ds[g.Hkv + kv] = ns[g.Hkv + kv];
+      if (h == 0)
+        for (int i = 2 * g.Hkv + threadIdx.x; i < kLane; i += kThreads) ds[i] = ns[i];
     }
   }
 
@@ -128,11 +157,11 @@ paged_decode_kernel(const float* __restrict__ q, T* k_pool, T* v_pool,
       scale[w] = s_m[w] == -CUDART_INF_F ? 0.f : expf(s_m[w] - big);
       total += s_l[w] * scale[w];
     }
-    const size_t out_row = (static_cast<size_t>(b) * H + h) * D;
+    const size_t out_row = (static_cast<size_t>(b) * g.H + h) * g.D;
 #pragma unroll
     for (int c = 0; c < kMaxChunks; ++c) {
       const int d = lane + 32 * c;
-      if (d < D) {
+      if (d < g.D) {
         float sum = 0.f;
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) sum += s_acc[w][d] * scale[w];
@@ -140,68 +169,69 @@ paged_decode_kernel(const float* __restrict__ q, T* k_pool, T* v_pool,
       }
     }
     if (lane == 0) {
-      m_out[static_cast<size_t>(b) * H + h] = big;
-      l_out[static_cast<size_t>(b) * H + h] = total;
+      m_out[static_cast<size_t>(b) * g.H + h] = big;
+      l_out[static_cast<size_t>(b) * g.H + h] = total;
     }
   }
 }
 
-// GQA append: one block per slot copies the whole packed row, ordered after
-// the decode kernel by the stream.
+// GQA append: one block per slot copies the whole packed row (and the
+// whole scale row), ordered after the decode kernel by the stream.
 template <typename T>
-__global__ void append_kernel(T* k_pool, T* v_pool, const T* __restrict__ new_k,
-                              const T* __restrict__ new_v, const int* __restrict__ write_pages,
+__global__ void append_kernel(T* k_pool, T* v_pool, __nv_bfloat16* scales,
+                              const T* __restrict__ new_k, const T* __restrict__ new_v,
+                              const __nv_bfloat16* __restrict__ new_scales,
+                              const int* __restrict__ write_pages,
                               const int* __restrict__ write_offs, int W, int page_size) {
   const int b = blockIdx.x;
-  const size_t dst = (static_cast<size_t>(write_pages[b]) * page_size + write_offs[b]) * W;
+  const size_t dst_row = static_cast<size_t>(write_pages[b]) * page_size + write_offs[b];
   const size_t src = static_cast<size_t>(b) * W;
   for (int i = threadIdx.x; i < W; i += blockDim.x) {
-    k_pool[dst + i] = new_k[src + i];
-    v_pool[dst + i] = new_v[src + i];
+    k_pool[dst_row * W + i] = new_k[src + i];
+    v_pool[dst_row * W + i] = new_v[src + i];
   }
+  if (scales)
+    for (int i = threadIdx.x; i < kLane; i += blockDim.x)
+      scales[dst_row * kLane + i] = new_scales[static_cast<size_t>(b) * kLane + i];
 }
 
 template <typename T>
-int launch(const float* q, void* k_pool, void* v_pool, const int* lengths,
+int launch(const float* q, void* k_pool, void* v_pool, void* scales, const int* lengths,
            const int* base_pages, float* o, float* m, float* l, const void* new_k,
-           const void* new_v, const int* write_pages, const int* write_offs, int B, int H,
-           int Hkv, int D, int W, int page_size, int append, void* stream) {
+           const void* new_v, const void* new_scales, const int* write_pages,
+           const int* write_offs, int B, int H, int Hkv, int D, int W, int page_size,
+           int append, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int groups = H / Hkv;
-  const int stride = W / Hkv;
-  const int append_here = append && groups == 1;
+  const Geometry g{H, Hkv, H / Hkv, D, W / Hkv, W, page_size};
+  const int append_here = append && g.groups == 1;
+  auto* sc = static_cast<__nv_bfloat16*>(scales);
+  auto* nsc = static_cast<const __nv_bfloat16*>(new_scales);
   paged_decode_kernel<T><<<dim3(B, H), kThreads, 0, s>>>(
-      q, static_cast<T*>(k_pool), static_cast<T*>(v_pool), lengths, base_pages, o, m, l,
-      static_cast<const T*>(new_k), static_cast<const T*>(new_v), write_pages, write_offs, H,
-      groups, D, stride, W, page_size, append_here);
+      q, static_cast<T*>(k_pool), static_cast<T*>(v_pool), sc, lengths, base_pages, o, m, l,
+      static_cast<const T*>(new_k), static_cast<const T*>(new_v), nsc, write_pages, write_offs,
+      g, append_here);
   int err = mm::last_error();
   if (err != 0 || !append || append_here) return err;
-  append_kernel<T><<<B, 256, 0, s>>>(static_cast<T*>(k_pool), static_cast<T*>(v_pool),
-                                     static_cast<const T*>(new_k),
-                                     static_cast<const T*>(new_v), write_pages, write_offs, W,
-                                     page_size);
+  append_kernel<T><<<B, 256, 0, s>>>(static_cast<T*>(k_pool), static_cast<T*>(v_pool), sc,
+                                     static_cast<const T*>(new_k), static_cast<const T*>(new_v),
+                                     nsc, write_pages, write_offs, W, page_size);
   return mm::last_error();
 }
 
 }  // namespace
 
-extern "C" int mm_paged_decode_f32(const float* q, void* k_pool, void* v_pool,
-                                   const int* lengths, const int* base_pages, float* o,
-                                   float* m, float* l, const void* new_k, const void* new_v,
-                                   const int* write_pages, const int* write_offs, int B, int H,
-                                   int Hkv, int D, int W, int page_size, int append,
-                                   void* stream) {
-  return launch<float>(q, k_pool, v_pool, lengths, base_pages, o, m, l, new_k, new_v,
-                       write_pages, write_offs, B, H, Hkv, D, W, page_size, append, stream);
-}
+#define MM_PAGED_DECODE(NAME, T)                                                            \
+  extern "C" int NAME(const float* q, void* k_pool, void* v_pool, void* scales,             \
+                      const int* lengths, const int* base_pages, float* o, float* m,        \
+                      float* l, const void* new_k, const void* new_v,                       \
+                      const void* new_scales, const int* write_pages,                       \
+                      const int* write_offs, int B, int H, int Hkv, int D, int W,           \
+                      int page_size, int append, void* stream) {                            \
+    return launch<T>(q, k_pool, v_pool, scales, lengths, base_pages, o, m, l, new_k, new_v, \
+                     new_scales, write_pages, write_offs, B, H, Hkv, D, W, page_size,       \
+                     append, stream);                                                       \
+  }
 
-extern "C" int mm_paged_decode_bf16(const float* q, void* k_pool, void* v_pool,
-                                    const int* lengths, const int* base_pages, float* o,
-                                    float* m, float* l, const void* new_k, const void* new_v,
-                                    const int* write_pages, const int* write_offs, int B,
-                                    int H, int Hkv, int D, int W, int page_size, int append,
-                                    void* stream) {
-  return launch<__nv_bfloat16>(q, k_pool, v_pool, lengths, base_pages, o, m, l, new_k, new_v,
-                               write_pages, write_offs, B, H, Hkv, D, W, page_size, append,
-                               stream);
-}
+MM_PAGED_DECODE(mm_paged_decode_f32, float)
+MM_PAGED_DECODE(mm_paged_decode_bf16, __nv_bfloat16)
+MM_PAGED_DECODE(mm_paged_decode_int8, int8_t)

@@ -65,6 +65,10 @@ struct TokenParams {
   const T* emb_net;
   float* ev_acc;
   T* ev_out;
+  // The ragged event loop's per-slot alive mask [B] (null otherwise): a
+  // retired slot samples pad at every step, like a forced_pad row, and its
+  // event embedding is not written (its residual stays frozen).
+  const unsigned char* alive;
   int B, D, H, dh, F, V, L, n_steps, E, k_cap, eos_id, first_event_id, greedy;
   float eps, scale;
 };
@@ -172,7 +176,7 @@ __device__ void sample_row(const TokenParams<T>& p, int ev, int j, int b, float*
   float sum = 0.f;
   for (int v = threadIdx.x; v < V; v += kDecThreads) sum += expf(work[v] - m);
   sum = block_reduce(sum, false, red);
-  const bool forced = p.forced != nullptr && p.forced[b];
+  const bool forced = (p.forced != nullptr && p.forced[b]) || (p.alive != nullptr && !p.alive[b]);
   const bool pad = forced || (j > 0 && p.ended[b]);
   const unsigned char* mask =
       pad ? p.pad_only
@@ -208,7 +212,7 @@ __device__ void sample_row(const TokenParams<T>& p, int ev, int j, int b, float*
     T* x = p.x + static_cast<size_t>(b) * p.D;
     for (int i = threadIdx.x; i < p.D; i += kDecThreads) x[i] = e[i];
   }
-  if (p.emb_net) {  // f32 sum over the row in step order, one rounding at the end
+  if (p.emb_net && !(p.alive && !p.alive[b])) {  // f32 sum in step order, one rounding
     const T* e = p.emb_net + static_cast<size_t>(id) * p.D;
     float* acc = p.ev_acc + static_cast<size_t>(b) * p.D;
     T* out = p.ev_out + static_cast<size_t>(b) * p.D;
@@ -310,8 +314,8 @@ __device__ void token_row_body(const TokenParams<T>& p, int ev, float* xs, float
 
 // Fill p from the packed host arrays and advance the cursors.  ptrs: the
 // pointers of TokenParams in declaration order up to `ended`, 9 per layer
-// for kTokMaxLayers layers first (emb_net, ev_acc and ev_out are left
-// null); ints: B, D, H, dh, F, V, L, n_steps, E, k_cap, eos_id,
+// for kTokMaxLayers layers first (emb_net, ev_acc, ev_out and alive are
+// left null); ints: B, D, H, dh, F, V, L, n_steps, E, k_cap, eos_id,
 // first_event_id, greedy; floats: eps, scale.  Returns false for shapes
 // the kernel does not take.
 template <typename T>
@@ -347,6 +351,7 @@ bool fill_token_params(TokenParams<T>& p, const void* const*& ptrs, const int*& 
   p.emb_net = nullptr;
   p.ev_acc = nullptr;
   p.ev_out = nullptr;
+  p.alive = nullptr;
   for (int* f : {&p.B, &p.D, &p.H, &p.dh, &p.F, &p.V, &p.L, &p.n_steps, &p.E, &p.k_cap,
                  &p.eos_id, &p.first_event_id, &p.greedy})
     *f = *ints++;

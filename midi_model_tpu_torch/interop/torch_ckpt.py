@@ -33,8 +33,9 @@ def load_state_dict(path: str) -> Dict[str, np.ndarray]:
 
 def params_from_state_dict(sd: Dict[str, np.ndarray], config: MIDIModelConfig,
                            dtype=torch.float32, device=None) -> MIDINet:
-    """Reference-layout state dict -> a :class:`MIDINet` on ``device``.
-    Keys the model does not have are ignored; a missing key raises."""
+    """Reference-layout state dict -> a :class:`MIDINet` on ``device`` (None:
+    the card).  Keys the model does not have are ignored; a missing key
+    raises."""
     model = MIDINet(config, dtype=dtype, device=device)
     names = model.state_dict().keys()
     missing = [n for n in names if n not in sd]
@@ -61,7 +62,8 @@ _JAX_LAYER_NAMES = {
 def from_jax_params(params_np: dict, config: MIDIModelConfig,
                     dtype=torch.float32, device=None) -> MIDINet:
     """The JAX package's parameter pytree (numpy leaves; ``[in, out]``
-    matrices stacked on a leading layer axis) -> a :class:`MIDINet`."""
+    matrices stacked on a leading layer axis) -> a :class:`MIDINet` on
+    ``device`` (None: the card)."""
     sd: Dict[str, np.ndarray] = {}
     for prefix, cfg in (("net", config.net), ("net_token", config.net_token)):
         p = params_np[prefix]

@@ -15,7 +15,7 @@ import json
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
-from midi_model_tpu.tokenizer import MIDITokenizer
+from ..tokenizer import MIDITokenizer
 
 CONFIG_NAMES = ["tv1-medium", "tv2-medium", "tv2o-medium", "tv2-large", "tv2o-large"]
 

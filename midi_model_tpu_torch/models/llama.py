@@ -25,7 +25,7 @@ Three ways through the stack:
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +34,18 @@ from torch import nn
 from ..ops import paged_allheads as pa
 from ..ops.attention import attention_reference, causal_attention
 from .config import TransformerConfig
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the card when it is None.  The port runs on the CPU
+    only where the caller asks for it: with no device named and no card,
+    raise instead of carrying on quietly on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "port's plain versions on the CPU")
+    return torch.device("cuda")
 
 
 def _linear(n_in: int, n_out: int, dtype, device) -> nn.Linear:
@@ -152,7 +164,7 @@ class LlamaStack(nn.Module):
     def __init__(self, cfg: TransformerConfig, dtype=torch.float32,
                  device=None):
         super().__init__()
-        device = torch.device("cpu" if device is None else device)
+        device = resolve_device(device)
         self.cfg = cfg
         self.embed_tokens = nn.utils.skip_init(
             nn.Embedding, cfg.vocab_size, cfg.hidden_size, dtype=dtype,
@@ -192,59 +204,88 @@ class LlamaStack(nn.Module):
         return self.norm(x), cache
 
     def prefill_paged(self, emb: torch.Tensor, pools: pa.PagedPools, *,
-                      page_size: int, pages_per_slot: int
+                      page_size: int, pages_per_slot: int,
+                      slots: Optional[torch.Tensor] = None,
+                      n_slots: Optional[int] = None
                       ) -> Tuple[torch.Tensor, pa.PagedPools]:
-        """Run the stack over a whole prompt ``emb [B, S, D]``, writing each
+        """Run the stack over whole prompts ``emb [G, S, D]``, writing each
         layer's packed K/V straight into its pages of the pools (in place;
-        rows past S in the written pages are zero).  Returns (hidden [B, S, D]
+        quantized per token and head for int8 pools).  Prompt ``g`` goes to
+        slot ``slots[g]`` of a pool laid out for ``n_slots`` slots (page
+        ``(li*n_slots + slot) * pages_per_slot``); by default slot ``g`` of
+        ``G``.  Rows past S in the written pages are zero, and at most
+        ``pages_per_slot`` pages are written.  Returns (hidden [G, S, D]
         after the final norm, pools)."""
-        b, s, _ = emb.shape
+        g_n, s, _ = emb.shape
         cfg = self.cfg
         n_layers, ps = cfg.num_layers, page_size
-        if pools.k.shape[0] != n_layers * b * pages_per_slot:
+        if slots is None:
+            slots = torch.arange(g_n, device=emb.device)
+            n_slots = g_n
+        if pools.k.shape[0] != n_layers * n_slots * pages_per_slot:
             raise ValueError(f"pools hold {pools.k.shape[0]} pages, expected "
-                             f"{n_layers * b * pages_per_slot}")
-        n_pre = -(-s // ps)
+                             f"{n_layers * n_slots * pages_per_slot}")
+        n_pre = min(-(-s // ps), pages_per_slot)
+        rows = n_pre * ps
         positions = torch.arange(s, device=emb.device)
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-        width = pools.k.shape[-1]
-        k4 = pools.k.view(n_layers * b, pages_per_slot, ps, width)
-        v4 = pools.v.view(n_layers * b, pages_per_slot, ps, width)
+        hkv, dh = cfg.kv_heads, cfg.head_dim
+        page = (slots.long()[:, None] * pages_per_slot
+                + torch.arange(n_pre, device=emb.device)[None, :])  # [G, n_pre]
 
-        def write(buf4, x, li):  # [B, S, Hkv, Dh] -> this layer's pages
-            flat = pa.pack_heads(x, cfg.kv_heads, cfg.head_dim)
-            flat = F.pad(flat, (0, 0, 0, n_pre * ps - s))
-            buf4[li * b:(li + 1) * b, :n_pre] = flat.view(b, n_pre, ps, width)
+        def write(buf, flat, li):  # flat [G, S, w] -> this layer's pages
+            flat = F.pad(flat, (0, 0, 0, max(rows - s, 0)))[:, :rows]
+            buf[li * n_slots * pages_per_slot + page] = flat.reshape(
+                g_n, n_pre, ps, flat.shape[-1]).to(buf.dtype)
 
         x = emb
         for li, layer in enumerate(self.layers):
             q, k, v = layer.qkv(x, cos, sin)
             attn = causal_attention(q, k, v)
-            x = layer.finish(x, attn.reshape(b, s, -1))
-            write(k4, k, li)
-            write(v4, v, li)
+            x = layer.finish(x, attn.reshape(g_n, s, -1))
+            if pools.quantized:
+                kq, k_scale = pa.quantize_packed(k, hkv, dh)
+                vq, v_scale = pa.quantize_packed(v, hkv, dh)
+                write(pools.k, kq, li)
+                write(pools.v, vq, li)
+                write(pools.scales, pa.combine_scales(k_scale, v_scale, hkv), li)
+            else:
+                write(pools.k, pa.pack_heads(k, hkv, dh), li)
+                write(pools.v, pa.pack_heads(v, hkv, dh), li)
         return self.norm(x), pools
 
     def decode_paged(self, x: torch.Tensor, pools: pa.PagedPools,
-                     index: torch.Tensor, *, page_size: int,
-                     pages_per_slot: int
-                     ) -> Tuple[torch.Tensor, pa.PagedPools]:
+                     index: Union[int, torch.Tensor],
+                     active: Optional[torch.Tensor] = None, *, page_size: int,
+                     pages_per_slot: int) -> Tuple[torch.Tensor, pa.PagedPools]:
         """One-token decode step over paged pools.
 
-        x: [B, D] input embeddings; index: int [B] per-slot lengths BEFORE
-        this token.  The paged kernel attends the cached history and appends
-        the fresh row (rows at capacity are written to the last position);
-        the fresh token's own term merges analytically in f32 from the
-        (o, m, l) stats — for a length-0 slot (m = -inf, l = 0) that is
-        exactly the self attention.  Returns (hidden [B, D], pools)."""
+        x: [B, D] input embeddings; index: the per-slot lengths BEFORE this
+        token, int [B], or one int when every slot has the same length;
+        active: bool [B] (optional) — an inactive slot attends over nothing
+        (length 0) and its output is garbage the caller masks.  The paged
+        kernel attends the cached history and appends the fresh row (rows at
+        capacity are written to the last position; int8 pools get the row
+        quantized per token and head outside the kernel, as
+        ``quantize_packed``); an int ``index`` tells it the longest length,
+        which picks the kernel (``ops.paged_allheads.paged_kernel``).  The
+        fresh token's own term merges analytically in f32 and unquantized
+        from the (o, m, l) stats — for a length-0 slot (m = -inf, l = 0)
+        that is exactly the self attention.  Returns (hidden [B, D], pools)."""
         b, _ = x.shape
         cfg = self.cfg
         h, hkv, dh = cfg.num_heads, cfg.kv_heads, cfg.head_dim
         groups = h // hkv
         capacity = pages_per_slot * page_size
+        max_length = None
+        if isinstance(index, int):
+            max_length = min(index, capacity)
+            index = torch.full((b,), index, dtype=torch.int32, device=x.device)
         index = index.to(torch.int32)
         write_pos = index.clamp(0, capacity - 1)
         lengths = index.clamp(max=capacity)
+        if active is not None:
+            lengths = torch.where(active.bool(), lengths, 0).to(torch.int32)
         write_offs = write_pos % page_size
         cos, sin = rope_cos_sin(index[:, None], dh, cfg.rope_theta)  # [B,1,Dh]
         scale = dh ** -0.5
@@ -256,12 +297,18 @@ class LlamaStack(nn.Module):
             base_pages = (li * b + slots) * pages_per_slot
             # q pre-scaled in f32 (the kernel does no scaling)
             qs = q[:, 0].float() * scale
-            write = (pa.pack_heads(k, hkv, dh).contiguous(),
-                     pa.pack_heads(v, hkv, dh).contiguous(),
-                     base_pages + write_pos // page_size, write_offs)
+            if pools.quantized:
+                kq, k_scale = pa.quantize_packed(k, hkv, dh)
+                vq, v_scale = pa.quantize_packed(v, hkv, dh)
+                rows = (kq, vq, pa.combine_scales(k_scale, v_scale, hkv))
+            else:
+                rows = (pa.pack_heads(k, hkv, dh).contiguous(),
+                        pa.pack_heads(v, hkv, dh).contiguous(), None)
+            write = rows + (base_pages + write_pos // page_size, write_offs)
             o, m, l, pools = pa.paged_attention_stats(
                 qs, pools, lengths, base_pages, write, page_size=page_size,
-                pages_per_slot=pages_per_slot, kv_heads=hkv, head_dim=dh)
+                pages_per_slot=pages_per_slot, kv_heads=hkv, head_dim=dh,
+                max_length=max_length)
 
             k_rep = k.float().repeat_interleave(groups, dim=1)  # [B, H, Dh]
             v_rep = v.float().repeat_interleave(groups, dim=1)

@@ -21,17 +21,19 @@ import torch
 from torch import nn
 
 from .config import MIDIModelConfig
-from .llama import DenseCache, LlamaStack
+from .llama import DenseCache, LlamaStack, resolve_device
 
 
 class MIDINet(nn.Module):
     """Parameters are left uninitialized: load them with
-    ``interop.params_from_state_dict`` or fill them with :func:`init_model`."""
+    ``interop.params_from_state_dict`` or fill them with :func:`init_model`.
+    ``device=None`` is the card (``resolve_device``); the CPU runs only where
+    the caller passes ``device="cpu"``."""
 
     def __init__(self, config: MIDIModelConfig, dtype=torch.float32,
                  device=None):
         super().__init__()
-        device = torch.device("cpu" if device is None else device)
+        device = resolve_device(device)
         self.config = config
         self.net = LlamaStack(config.net, dtype, device)
         self.net_token = LlamaStack(config.net_token, dtype, device)
@@ -83,8 +85,8 @@ class MIDINet(nn.Module):
 @torch.no_grad()
 def init_model(config: MIDIModelConfig, *, seed: int = 0,
                dtype=torch.float32, device=None) -> MIDINet:
-    """Random weights made on ``device`` from ``seed``: matrices and
-    embeddings ``N(0, initializer_range)``, norm weights 1."""
+    """Random weights made on ``device`` (None: the card) from ``seed``:
+    matrices and embeddings ``N(0, initializer_range)``, norm weights 1."""
     model = MIDINet(config, dtype=dtype, device=device)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(seed)

@@ -1,7 +1,11 @@
 """Hand-written CUDA kernels (``csrc/``) with their plain PyTorch versions.
 
 - ``sampler``        : top-p/top-k Gumbel-argmax sampler;
-- ``paged_allheads`` : paged KV pools and paged flash decode with append;
+- ``paged_allheads`` : paged KV pools (bf16/f32/int8) and paged flash decode
+                       with append, per-slot and streaming;
+- ``token_loop``     : the token row of one event;
+- ``fused_step``     : one event-net step over all layers;
+- ``event_loop``     : E whole events per launch, aligned and ragged;
 - ``attention``      : dense reference attention and causal attention;
 - ``_build``         : nvcc build, ctypes binding and launch counters.
 """

@@ -35,7 +35,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 LAUNCHES: collections.Counter = collections.Counter()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_PAGED = [_P] * 12 + [_I] * 7 + [_P]
+_PAGED = [_P] * 14 + [_I] * 7 + [_P]
+_STREAM = [_P] * 16 + [_I] * 9 + [_P]
 _ATTN = [_P] * 4 + [_I] * 5 + [_P, _P]
 # the whole-step decode kernels take host arrays of pointers, ints and
 # floats (their parameter structs, filled on the C side) and the stream
@@ -44,6 +45,10 @@ _SIGNATURES = {
     "mm_sampler": [_P] * 5 + [_I] * 3 + [_P],
     "mm_paged_decode_f32": _PAGED,
     "mm_paged_decode_bf16": _PAGED,
+    "mm_paged_decode_int8": _PAGED,
+    "mm_paged_decode_stream_f32": _STREAM,
+    "mm_paged_decode_stream_bf16": _STREAM,
+    "mm_paged_decode_stream_int8": _STREAM,
     "mm_causal_attention_f32": _ATTN,
     "mm_causal_attention_bf16": _ATTN,
     "mm_token_row_f32": _PACKED,
@@ -52,6 +57,8 @@ _SIGNATURES = {
     "mm_fused_step_bf16": _PACKED,
     "mm_event_loop_f32": _PACKED,
     "mm_event_loop_bf16": _PACKED,
+    "mm_event_loop_ragged_f32": _PACKED,
+    "mm_event_loop_ragged_bf16": _PACKED,
 }
 
 

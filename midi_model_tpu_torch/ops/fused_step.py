@@ -93,7 +93,8 @@ def _slot_tables(index, active, b, capacity, device):
 def _check_shapes(fused: FusedWeights, cfg, pools: PagedPools, b: int,
                   page_size: int, pages_per_slot: int):
     if pools.k.dtype == torch.int8:
-        raise NotImplementedError("int8 paged pools are not ported yet")
+        raise NotImplementedError("fused step: int8 pools are not ported yet "
+                                  "(B4 on int8 pools)")
     if not _packed_mha(cfg):
         raise ValueError("fused step: MHA event net with head_stride == "
                          "head_dim required")
@@ -107,9 +108,12 @@ def _check_shapes(fused: FusedWeights, cfg, pools: PagedPools, b: int,
 def fused_decode_step_reference(fused: FusedWeights, cfg, x: torch.Tensor,
                                 pools: PagedPools, index: torch.Tensor,
                                 active: Optional[torch.Tensor] = None, *,
-                                page_size: int, pages_per_slot: int):
+                                page_size: int, pages_per_slot: int,
+                                append_inactive: bool = True):
     """The plain version of :func:`fused_decode_step`: per layer, dense
-    masked attention over each slot's gathered pages."""
+    masked attention over each slot's gathered pages.  With
+    ``append_inactive=False`` an inactive slot appends nothing (the ragged
+    event loop's retired slots)."""
     b, _ = x.shape
     _check_shapes(fused, cfg, pools, b, page_size, pages_per_slot)
     n_layers = fused.wqkv.shape[0]
@@ -129,6 +133,9 @@ def fused_decode_step_reference(fused: FusedWeights, cfg, x: torch.Tensor,
     slots = torch.arange(b, device=x.device)
     write_pages = slots * pages_per_slot + wpos.long() // page_size
     write_offs = wpos.long() % page_size
+    appends = slots
+    if not append_inactive and active is not None:
+        appends = slots[active.to(device=x.device, dtype=torch.bool)]
 
     x = x.to(dtype)
     for li in range(n_layers):
@@ -155,9 +162,9 @@ def fused_decode_step_reference(fused: FusedWeights, cfg, x: torch.Tensor,
         attn = ((w_cache[..., None] * o + w_self[..., None] * v.float())
                 / (w_cache + w_self)[..., None])
         # append after every read of this layer's pages
-        pages = li * b * pages_per_slot + write_pages
-        pools.k[pages, write_offs] = kr.reshape(b, w).to(pools.k.dtype)
-        pools.v[pages, write_offs] = v.reshape(b, w).to(pools.v.dtype)
+        pages = li * b * pages_per_slot + write_pages[appends]
+        pools.k[pages, write_offs[appends]] = kr.reshape(b, w)[appends].to(pools.k.dtype)
+        pools.v[pages, write_offs[appends]] = v.reshape(b, w)[appends].to(pools.v.dtype)
         x = x + F.linear(attn.reshape(b, w).to(dtype), fused.wo[li])
         gate, up = F.linear(rms_norm(x, fused.ln[li, 1], eps),
                             fused.wgu[li]).split(f, dim=-1)

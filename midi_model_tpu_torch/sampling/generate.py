@@ -19,10 +19,15 @@ Counterpart of ``midi_model_tpu/sampling/generate.py``:
     (``ops.token_loop``) and one whole-step launch over all event-net layers
     (``ops.fused_step``) per event, with the same semantics;
   * the **split** path — the token net step by step with the sampler
-    kernel, then the per-layer ``decode_paged`` with the paged-decode
-    kernel — for everything else (fp32, GQA), and on request;
+    kernel, then the per-layer ``decode_paged`` with the per-slot paged
+    decode kernel — for everything else (fp32, GQA, int8 pools), and on
+    request;
 - a chunk stops at its end, when every row emits eos in the same event
   (per-event "end" state, the reference's quirk), or at capacity.
+
+``kv_int8`` stores the event KV as int8 pages with per-token-per-head bf16
+scales (``ops.paged_allheads``); it takes the split path (the whole-step
+kernel's int8 form is not ported yet).
 
 The loop runs eagerly from the host.  Every random draw comes from an
 explicit ``torch.Generator`` on the generation device, one
@@ -98,17 +103,16 @@ def prefill(model: MIDINet, config: MIDIModelConfig, prompt, max_seq: int,
             kv_int8: bool = False, device=None) -> GenState:
     """Run the event net over the prompt rows ``[B, P, T]``, writing the
     prompt KV directly into paged pools of capacity ``max_seq`` (rounded up
-    to whole pages).  The JAX package embeds long prompts in 16-event
-    chunks to bound TPU memory; the values are the same in one pass."""
-    if kv_int8:
-        raise NotImplementedError("int8 KV pools are not ported yet")
+    to whole pages; int8 pages and scales with ``kv_int8``).  The JAX
+    package embeds long prompts in 16-event chunks to bound TPU memory; the
+    values are the same in one pass."""
     device = _device(model, device)
     prompt = torch.as_tensor(np.asarray(prompt), device=device).long()
     b, p_len, _ = prompt.shape
     net = config.net
     pps = pages_per_slot(max_seq)
     pools = alloc_pools(net.kv_heads, net.num_layers * b * pps, PAGE_SIZE,
-                        net.head_dim, model.dtype, device)
+                        net.head_dim, model.dtype, device, quantized=kv_int8)
     hidden, pools = model.net.prefill_paged(
         model.embed_events(prompt), pools, page_size=PAGE_SIZE,
         pages_per_slot=pps)
@@ -132,12 +136,12 @@ def _decode_one_event(model: MIDINet, config: MIDIModelConfig,
     t_max = config.tokenizer.max_token_seq
     gumbel = None if greedy else gumbel_rows(b, t_max, generator)
     ps, pps = _geometry(config, state)
-    index = torch.full((b,), state.cur_len, dtype=torch.int32,
-                       device=state.hidden.device)
     if fused is not None:
         row, ended = decode_token_row(model, config, state.hidden, masks, temp,
                                       top_p, top_k, gumbel, greedy=greedy)
         emb = event_loop.event_embedding(model, row)
+        index = torch.full((b,), state.cur_len, dtype=torch.int32,
+                           device=state.hidden.device)
         hidden, pools = fused_decode_step(fused, config.net, emb, state.pools,
                                           index, page_size=ps,
                                           pages_per_slot=pps)
@@ -145,8 +149,8 @@ def _decode_one_event(model: MIDINet, config: MIDIModelConfig,
         row, ended = decode_token_row_reference(
             model, config, state.hidden, masks, temp, top_p, top_k, gumbel,
             greedy=greedy, sample=sample_top_p_k)
-        hidden, pools = model.net.decode_paged(
-            model.embed_events(row[:, None, :])[:, 0], state.pools, index,
+        hidden, pools = model.net.decode_paged(  # one length: it picks the kernel
+            model.embed_events(row[:, None, :])[:, 0], state.pools, state.cur_len,
             page_size=ps, pages_per_slot=pps)
     # the host reads `ended` only when eos can be sampled at all
     all_eos = eos_possible and bool(ended.all())
@@ -194,16 +198,21 @@ def decode_events(model: MIDINet, config: MIDIModelConfig, state: GenState,
     ``fused``: True takes the fused path, False the split path, None the
     fused path for bf16 weights when ``why_not_fused`` finds nothing in the
     way.  With True the kernels raise on shapes they cannot take, and the
-    plain versions (CPU tensors) need an MHA event net with packed pages.
+    plain versions (CPU tensors) need an MHA event net with packed pages;
+    int8 pools raise ``NotImplementedError`` (B4's int8 form is not ported).
     The fused path decodes whole blocks of ``event_loop.EVENTS_PER_LAUNCH``
     events in one launch each, the rest one event at a time."""
     b = state.hidden.shape[0]
     tokenizer = config.tokenizer
     device = state.hidden.device
     max_seq = state.capacity(config, b)
+    if fused and state.pools.quantized:
+        raise NotImplementedError("the fused decode path on int8 pools (B4 on "
+                                  "int8 pools) is not ported yet")
     if fused is None:
         fused = (model.dtype == torch.bfloat16
-                 and event_loop.why_not_fused(config, b, max_seq) is None)
+                 and event_loop.why_not_fused(config, b, max_seq,
+                                              state.pools.k.dtype) is None)
     weights = prepare_fused(model.net) if fused else None
     temp = per_row(temp, b, torch.float32, device)
     top_p = per_row(top_p, b, torch.float32, device)
@@ -270,9 +279,8 @@ def generate(model: MIDINet, config: MIDIModelConfig,
     reproducible on one device and independent of ``chunk_size``; it is not
     the JAX package's draw for the same seed.  ``event_callback(rows)``
     receives each decoded chunk as numpy.  ``fused`` picks the decode path
-    as in :func:`decode_events`."""
-    if kv_int8:
-        raise NotImplementedError("int8 KV pools are not ported yet")
+    as in :func:`decode_events`; ``kv_int8`` stores int8 pools (the split
+    path)."""
     device = _device(model, device)
     tokenizer = config.tokenizer
     prompt = normalize_prompt(tokenizer, prompt, batch_size)
@@ -294,7 +302,7 @@ def generate(model: MIDINet, config: MIDIModelConfig,
 
     remaining = max_len - p_len
     chunk = chunk_size or remaining
-    state = prefill(model, config, prompt, max_len, device=device)
+    state = prefill(model, config, prompt, max_len, kv_int8=kv_int8, device=device)
     pieces = [head, prompt] if head.shape[1] else [prompt]
     produced = 0
     while produced < remaining:

@@ -1,0 +1,428 @@
+"""Continuous-batch serving: per-slot request admission into a running batch.
+
+Counterpart of ``midi_model_tpu/serve/batcher.py`` on one device (its
+``mesh`` argument and the dp/tp paths are not ported).  A fixed
+``n_slots``-row decode batch lives on the model's device:
+
+- the event-net KV cache is one set of paged pools (``ops.paged_allheads``)
+  with a contiguous page range per (layer, slot), bf16/f32 or int8;
+- admission runs the requests of one prompt bucket (``PREFILL_BUCKETS``) as
+  one prefill forward through the causal attention kernel and writes their
+  K/V straight into their slots' pages, quantized for int8 pools;
+- one :meth:`ContinuousBatcher.step` decodes a chunk of events for every
+  slot: the ragged event-loop kernel (one launch per chunk) when the fused
+  kernels take the model (bf16 weights and pools, ``why_not_fused``), else
+  the split scan — the token-row kernel and ``decode_paged`` with the
+  streaming paged kernel, one event at a time.  An ``alive`` mask on the
+  device retires a slot mid-chunk on its eos row or at capacity;
+- the host collects each slot's rows, retires slots on an eos row, budget
+  or capacity, and reuses them for queued requests at once.
+
+Every request carries its own temp / top_p / top_k, grammar bans (a row of
+the ``[B, V]`` allow plane) and seed; its noise is a function of its seed
+and its sequence position (``sampling.slot_gumbel``), so a seeded request
+decodes the same rows whatever shares the batch, whatever its slot and
+whatever the chunk size.
+
+The host keeps a mirror of the device's per-slot index, advanced from the
+rows it reads, so a step fetches nothing but its rows.  With ``pipeline``
+the next chunk is dispatched before the previous chunk's rows are read.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..models.config import MIDIModelConfig
+from ..models.midinet import MIDINet
+from ..ops import event_loop
+from ..ops import token_loop
+from ..ops.fused_step import prepare_fused
+from ..ops.paged_allheads import alloc_pools
+from ..ops.sampler import sample_top_p_k
+from ..sampling.generate import mask_tensors
+from ..sampling.masks import build_allow_vector, build_mask_table
+from ..sampling.topk_topp import slot_gumbel
+
+PREFILL_BUCKETS = (16, 64, 256, 1024, 4096)
+
+
+@dataclass
+class _Slot:
+    request_id: int = -1
+    active: bool = False
+    budget: int = 0
+    produced: int = 0
+    rows: List[np.ndarray] = field(default_factory=list)
+    # rows delivered to a streaming callback so far (serve/batcher_service)
+    streamed: int = 0
+
+
+@dataclass
+class Finished:
+    request_id: int
+    rows: np.ndarray  # [n, T] generated rows (prompt excluded)
+    reason: str  # "eos" | "budget"
+
+
+class ContinuousBatcher:
+    _MAX_PREFILL_GROUP = 8  # bounds one admission forward's activations
+
+    def __init__(self, model: MIDINet, config: MIDIModelConfig, n_slots: int = 8,
+                 max_seq: int = 4096, chunk: int = 16, temp: float = 1.0,
+                 top_p: float = 0.98, top_k: int = 20, seed: int = 0,
+                 disable_eos: bool = False, greedy: bool = False,
+                 page_size: int = 64, kv_int8: bool = False,
+                 pipeline: Optional[bool] = None, fused: Optional[bool] = None):
+        """The batcher runs on ``model``'s device (the card unless the model
+        was built with ``device="cpu"``).
+
+        ``max_seq`` is rounded up to a multiple of 4 pages: the capacity at
+        which slots retire.  ``fused``: True runs each chunk through the
+        ragged event-loop kernel, False through the split scan, None the
+        former for bf16 weights and pools when
+        ``ops.event_loop.why_not_fused`` finds nothing in the way.
+        ``pipeline``: dispatch chunk N+1 before reading chunk N's rows
+        (default: on for a CUDA device, off on the CPU); per-request rows
+        are the same either way."""
+        self.model = model
+        self.config = config
+        self.tokenizer = config.tokenizer
+        self.device = model.device
+        self.n_slots = n_slots
+        self.page_size = page_size
+        self.greedy = greedy
+        block = 4 * page_size
+        self.max_seq = -(-max_seq // block) * block
+        self.pages_per_slot = self.max_seq // page_size
+        self.chunk = chunk
+        self.temp, self.top_p, self.top_k = temp, top_p, top_k
+        self.masks = mask_tensors(
+            build_mask_table(config.tokenizer, disable_eos=disable_eos), self.device)
+        net = config.net
+        self._pools = alloc_pools(net.kv_heads, net.num_layers * n_slots * self.pages_per_slot,
+                                  page_size, net.head_dim, model.dtype, self.device,
+                                  quantized=kv_int8)
+        if fused and kv_int8:
+            raise NotImplementedError("the ragged event loop on int8 pools (B4 on int8 "
+                                      "pools) is not ported yet")
+        if fused is None:
+            fused = (model.dtype == torch.bfloat16
+                     and event_loop.why_not_fused(config, n_slots, self.max_seq,
+                                                  self._pools.k.dtype) is None)
+        self.fused = bool(fused)
+        self._weights = prepare_fused(model.net) if self.fused else None
+        # the split scan's token row: the kernel where it takes the token net
+        self._token_kernel = token_loop.kernel_limits(config, n_slots) is None
+        self._index = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
+        self._hidden = torch.zeros((n_slots, config.n_embd), dtype=model.dtype,
+                                   device=self.device)
+        self._active = np.zeros((n_slots,), bool)
+        # host mirror of the device index: advanced from the rows, reset on
+        # admission — no per-step fetch
+        self._index_host = np.zeros((n_slots,), np.int64)
+        self._temp = np.full((n_slots,), temp, np.float32)
+        self._top_p = np.full((n_slots,), top_p, np.float32)
+        self._top_k = np.full((n_slots,), top_k, np.int32)
+        self._allow = np.ones((n_slots, config.tokenizer.vocab_size), bool)
+        self._seed = np.zeros((n_slots,), np.int64)
+        self._base_seed = seed
+        self._knobs = None  # the device copy of the per-slot knobs, None when stale
+        self.slots = [_Slot() for _ in range(n_slots)]
+        self.queue: List[tuple] = []
+        self._next_id = 0
+        self.pipeline = (self.device.type == "cuda" if pipeline is None
+                         else bool(pipeline))
+        # pipelined mode: the chunk dispatched by the previous step(), unread
+        self._inflight = None
+
+    # ---- submission ------------------------------------------------------
+
+    def submit(self, prompt_rows, max_events: int, temp: float = None,
+               top_p: float = None, top_k: int = None, seed: int = None,
+               disable_patch_change: bool = False,
+               disable_control_change: bool = False,
+               disable_channels=None) -> int:
+        """Queue a request ``[events, T]``; returns its request id.
+
+        ``temp`` / ``top_p`` / ``top_k`` override the batcher's defaults for
+        this request's slot; the ``disable_*`` bans become its row of the
+        allow plane; ``seed`` pins its noise (an unseeded request gets
+        ``SeedSequence([seed, request_id])`` of the batcher's seed)."""
+        rid = self._next_id
+        self._next_id += 1
+        if seed is None:
+            seed = int(np.random.SeedSequence(
+                [self._base_seed, rid]).generate_state(1)[0])
+        prompt = np.asarray(prompt_rows, dtype=np.int64)
+        if prompt.ndim != 2:
+            raise ValueError("prompt must be [events, max_token_seq]")
+        if not 1 <= prompt.shape[0] <= self.max_seq:
+            raise ValueError(f"prompt of {prompt.shape[0]} events: 1 to "
+                             f"max_seq={self.max_seq} required")
+        knobs = (self.temp if temp is None else temp,
+                 self.top_p if top_p is None else top_p,
+                 self.top_k if top_k is None else top_k)
+        allow = None
+        if disable_patch_change or disable_control_change or disable_channels:
+            allow = build_allow_vector(
+                self.tokenizer, disable_patch_change=disable_patch_change,
+                disable_control_change=disable_control_change,
+                disable_channels=disable_channels)
+        self.queue.append((rid, prompt, max_events, knobs, allow, seed & 0xFFFFFFFF))
+        self._admit()
+        return rid
+
+    def _admit(self):
+        """Move queued requests into free slots: the requests of one prompt
+        bucket share one prefill forward (at most ``_MAX_PREFILL_GROUP``)."""
+        free = [i for i, s in enumerate(self.slots) if not s.active]
+        if not free or not self.queue:
+            return
+        take = self.queue[: len(free)]
+        del self.queue[: len(take)]
+        ps = self.page_size
+        groups: Dict[int, list] = {}
+        for item, slot in zip(take, free):
+            p_len = item[1].shape[0]
+            bucket = next((b for b in PREFILL_BUCKETS if b >= p_len), p_len)
+            bucket = -(-bucket // ps) * ps  # whole pages
+            groups.setdefault(bucket, []).append((slot, item))
+        for bucket, members in groups.items():
+            for at in range(0, len(members), self._MAX_PREFILL_GROUP):
+                part = members[at: at + self._MAX_PREFILL_GROUP]
+                self._prefill_group(bucket, part)
+                for slot, item in part:
+                    self._install_host(slot, item)
+
+    @torch.no_grad()
+    def _prefill_group(self, bucket: int, part: list):
+        """One causal forward over the group's prompts padded to ``bucket``
+        rows; their K/V go to their slots' pages and each slot's hidden and
+        index are set.  Pad rows after a prompt are never attended by it."""
+        t_max = self.tokenizer.max_token_seq
+        g = len(part)
+        padded = np.full((g, bucket, t_max), self.tokenizer.pad_id, np.int64)
+        p_lens = np.zeros((g,), np.int64)
+        slots = np.zeros((g,), np.int64)
+        for j, (slot, (_rid, prompt, *_rest)) in enumerate(part):
+            padded[j, : prompt.shape[0]] = prompt[:, :t_max]
+            p_lens[j] = prompt.shape[0]
+            slots[j] = slot
+        slots_t = self._to_device(slots)
+        p_lens_t = self._to_device(p_lens)
+        hidden, self._pools = self.model.net.prefill_paged(
+            self.model.embed_events(self._to_device(padded)), self._pools,
+            page_size=self.page_size, pages_per_slot=self.pages_per_slot,
+            slots=slots_t, n_slots=self.n_slots)
+        rows = torch.arange(g, device=self.device)
+        self._hidden[slots_t] = hidden[rows, p_lens_t - 1]
+        self._index[slots_t] = p_lens_t.to(torch.int32)
+
+    def _install_host(self, slot: int, item):
+        rid, prompt, budget, knobs, allow, seed = item
+        s = self.slots[slot]
+        self._index_host[slot] = prompt.shape[0]
+        s.request_id = rid
+        s.active = True
+        s.budget = budget
+        s.produced = 0
+        s.rows = []
+        s.streamed = 0
+        self._active[slot] = True
+        self._temp[slot], self._top_p[slot], self._top_k[slot] = knobs
+        self._seed[slot] = seed
+        self._allow[slot] = True if allow is None else allow
+        self._knobs = None
+
+    def _to_device(self, array: np.ndarray) -> torch.Tensor:
+        """A host array on the batcher's device, without waiting for the
+        device (a pageable host-to-device copy is staged at once)."""
+        return torch.from_numpy(np.ascontiguousarray(array)).to(self.device,
+                                                               non_blocking=True)
+
+    def _device_knobs(self) -> dict:
+        """The per-slot knobs on the device, uploaded when they changed."""
+        if self._knobs is None:
+            self._knobs = dict(
+                active=self._to_device(self._active), temp=self._to_device(self._temp),
+                top_p=self._to_device(self._top_p), top_k=self._to_device(self._top_k),
+                seed=self._to_device(self._seed),
+                # the allow plane enters the kernels only when a slot has a ban
+                allow=None if self._allow.all() else self._to_device(self._allow))
+        return self._knobs
+
+    # ---- decoding --------------------------------------------------------
+
+    @property
+    def any_active(self) -> bool:
+        return (bool(self._active.any()) or bool(self.queue)
+                or self._inflight is not None)
+
+    def step(self, on_rows=None) -> List[Finished]:
+        """Decode one chunk for all active slots; returns finished requests.
+
+        ``on_rows(request_id, rows [n, T])`` (optional) streams each live
+        slot's freshly decoded rows (``serve.batcher_service``).
+
+        With ``pipeline`` the next chunk is dispatched before the previous
+        chunk's rows are read, so reading them and the bookkeeping overlap
+        the device's work.  Admissions and budget retirements then take
+        effect a chunk late: the rows a slot decodes past its end are
+        discarded (the device's eos and capacity retirement is unaffected),
+        and each call returns the previous chunk's results.  Per-request
+        rows are the same: the noise is keyed by position."""
+        if self._inflight is None and not self._active.any():
+            self._admit()
+            if not self._active.any():
+                return []
+        if not self.pipeline:
+            finished = self._process(*self._dispatch(), on_rows)
+            self._admit()
+            return finished
+        prev = self._inflight
+        self._inflight = self._dispatch() if self._active.any() else None
+        finished = self._process(*prev, on_rows) if prev is not None else []
+        self._admit()
+        return finished
+
+    @torch.no_grad()
+    def _dispatch(self):
+        """Enqueue one chunk; returns (rows, ready, snapshot): the rows
+        [B, chunk, T] on the host (filled when ``ready``, a CUDA event, has
+        passed; None on the CPU) and the dispatch-time (active, request id)
+        of every slot — rows of a slot reused since are discarded."""
+        snap = (self._active.copy(), np.asarray([s.request_id for s in self.slots]))
+        kn = self._device_knobs()
+        t_max = self.tokenizer.max_token_seq
+        positions = (self._index[None, :]
+                     + torch.arange(self.chunk, dtype=torch.int32, device=self.device)[:, None])
+        gumbel = None if self.greedy else slot_gumbel(kn["seed"], positions, t_max)
+        knobs = (kn["temp"], kn["top_p"], kn["top_k"])
+        if self.fused:
+            rows, self._hidden, self._pools = event_loop.decode_event_block_ragged(
+                self.model, self.config, self._weights, self._hidden, self._pools,
+                self._index, kn["active"], self.masks, *knobs, gumbel, kn["allow"],
+                n_events=self.chunk, greedy=self.greedy, page_size=self.page_size,
+                pages_per_slot=self.pages_per_slot)
+            # one step per non-pad row: the eos row advances, rows after
+            # retirement (pad) do not — the split scan's index exactly
+            self._index = self._index + (rows[:, :, 0] != self.tokenizer.pad_id).sum(
+                0, dtype=torch.int32)
+        else:
+            rows = self._split_chunk(kn, knobs, gumbel)
+        rows = rows.transpose(0, 1)
+        if self.device.type != "cuda":
+            return rows.numpy(), None, snap
+        host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+        host.copy_(rows, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return host, ready, snap
+
+    def _split_chunk(self, kn: dict, knobs: tuple, gumbel):
+        """The chunk one event at a time: the token row (kernel or plain,
+        forced pad for retired slots), the summed event embedding, and the
+        event net's ``decode_paged`` over the streaming kernel with the
+        retired slots inactive.  Returns rows [chunk, B, T]."""
+        model, config = self.model, self.config
+        capacity = self.max_seq
+        eos_id = self.tokenizer.eos_id
+        index, hidden, alive = self._index, self._hidden, kn["active"].clone()
+        rows = []
+        for e in range(self.chunk):
+            noise = None if gumbel is None else gumbel[e]
+            if self._token_kernel:
+                row, _ = token_loop.decode_token_row(
+                    model, config, hidden, self.masks, *knobs, noise, greedy=self.greedy,
+                    forced_pad=~alive, allow=kn["allow"])
+            else:
+                row, _ = token_loop.decode_token_row_reference(
+                    model, config, hidden, self.masks, *knobs, noise, greedy=self.greedy,
+                    forced_pad=~alive, allow=kn["allow"], sample=sample_top_p_k)
+            h, self._pools = model.net.decode_paged(
+                model.embed_events(row[:, None, :])[:, 0], self._pools, index, alive,
+                page_size=self.page_size, pages_per_slot=self.pages_per_slot)
+            new_index = torch.where(alive, (index + 1).clamp(max=capacity), index)
+            hidden = torch.where(alive[:, None], h, hidden)
+            # mid-chunk retirement: the eos row went through the event net,
+            # nothing after it does
+            alive = alive & (row[:, 0] != eos_id) & (new_index < capacity)
+            index = new_index
+            rows.append(row)
+        self._index, self._hidden = index, hidden
+        return torch.stack(rows)
+
+    def _process(self, rows, ready, snap, on_rows) -> List[Finished]:
+        """Host bookkeeping for one chunk's rows; returns finished requests.
+        A slot whose occupant changed since the dispatch (pipelined mode)
+        has its rows discarded: they are the previous occupant's overshoot."""
+        if ready is not None:
+            ready.synchronize()
+            rows = rows.numpy()
+        snap_active, snap_rid = snap
+        cur_rid = np.asarray([s.request_id for s in self.slots])
+        own = snap_active & self._active & (snap_rid == cur_rid)
+        # the device advanced a slot once per non-pad row and stopped at
+        # capacity, so the mirror is exact; a reused slot's mirror was reset
+        # by its admission
+        nonpad = (rows[:, :, 0] != self.tokenizer.pad_id).sum(1)
+        self._index_host[own] += nonpad[own]
+        np.minimum(self._index_host, self.max_seq, out=self._index_host)
+
+        finished: List[Finished] = []
+        eos_id = self.tokenizer.eos_id
+        pad_id = self.tokenizer.pad_id
+        for b, slot in enumerate(self.slots):
+            if not own[b]:
+                continue
+            for n in range(rows.shape[1]):
+                row = rows[b, n]
+                done_reason = None
+                if row[0] == eos_id:
+                    done_reason = "eos"
+                elif row[0] == pad_id:
+                    # the device retired the slot earlier in the chunk
+                    # (capacity); its rows from there on are pad
+                    done_reason = "budget"
+                else:
+                    slot.rows.append(row)
+                    slot.produced += 1
+                    if slot.produced >= slot.budget:
+                        done_reason = "budget"
+                # at capacity the device stops the slot: retire it at chunk
+                # end only (the mirror is the end-of-chunk index)
+                if (done_reason is None and n == rows.shape[1] - 1
+                        and int(self._index_host[b]) >= self.max_seq):
+                    done_reason = "budget"
+                if done_reason:
+                    finished.append(Finished(
+                        request_id=slot.request_id,
+                        rows=(np.stack(slot.rows) if slot.rows
+                              else np.zeros((0, rows.shape[2]), np.int32)),
+                        reason=done_reason))
+                    slot.active = False
+                    self._active[b] = False
+                    # a retired slot drops its bans: an unconstrained batch
+                    # runs without the allow plane
+                    self._allow[b] = True
+                    self._knobs = None
+                    break
+            if on_rows is not None and slot.streamed < len(slot.rows):
+                on_rows(slot.request_id, np.stack(slot.rows[slot.streamed:]))
+                slot.streamed = len(slot.rows)
+        return finished
+
+    def run_all(self, max_steps: int = 10_000) -> Dict[int, Finished]:
+        """Drive until every submitted request finishes."""
+        results: Dict[int, Finished] = {}
+        for _ in range(max_steps):
+            if not self.any_active:
+                break
+            for fin in self.step():
+                results[fin.request_id] = fin
+        return results

@@ -49,7 +49,7 @@ def tiny_models(seed: int = 0):
     jcfg, cfg = tiny_configs()
     sd = synthesize_state_dict(layout(cfg), seed)
     params = jax_params_from_sd(sd, jcfg)
-    return jcfg, cfg, params, params_from_state_dict(sd, cfg), sd
+    return jcfg, cfg, params, params_from_state_dict(sd, cfg, device="cpu"), sd
 
 
 def to_np(x):

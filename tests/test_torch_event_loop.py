@@ -50,8 +50,9 @@ def setup():
     sd = synthesize_state_dict(layout(cfg), 0)
     params = jax_params_from_sd(sd, jcfg)
     bf16 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16), params)
-    models = {"f32": (params, params_from_state_dict(sd, cfg)),
-              "bf16": (bf16, params_from_state_dict(sd, cfg, dtype=torch.bfloat16))}
+    models = {"f32": (params, params_from_state_dict(sd, cfg, device="cpu")),
+              "bf16": (bf16, params_from_state_dict(sd, cfg, dtype=torch.bfloat16,
+                                                      device="cpu"))}
     prompt = np.random.default_rng(8).integers(3, 20, (B, P_LEN, cfg.tokenizer.max_token_seq))
     return jcfg, cfg, models, models["bf16"][1], prompt
 
@@ -94,7 +95,7 @@ def test_event_block_matches_pallas_kernel(case, setup):
         greedy=greedy, interpret=True)
     ref_hidden = jax_rms_norm(xout, merged["final_norm"], jcfg.net.rms_norm_eps)
 
-    before = [_np(t) for t in state.pools]
+    before = [_np(t) for t in (state.pools.k, state.pools.v)]
     rows, hidden, pools = el.decode_event_block(
         model, cfg, fs.prepare_fused(model.net), state.hidden, state.pools, P_LEN,
         mask_tensors(table, "cpu"), 1.0, 0.98, 20,
@@ -110,7 +111,7 @@ def test_event_block_matches_pallas_kernel(case, setup):
     for li in range(cfg.net.num_layers):
         for pos in range(P_LEN, P_LEN + n_ev):
             written[(li * B + np.arange(B)) * pps + pos // ps, pos % ps] = True
-    for ours, ref, orig in zip(pools, ref_pools, before):
+    for ours, ref, orig in zip((pools.k, pools.v), (ref_pools.k, ref_pools.v), before):
         ours, ref = _np(ours), np.asarray(ref, np.float32)
         np.testing.assert_allclose(ours[written], ref[written], atol=tol, rtol=tol)
         np.testing.assert_array_equal(ours[~written], orig[~written])
@@ -173,7 +174,7 @@ def test_default_rule_follows_the_kernels_limits(monkeypatch):
     # a small model inside every limit: 8 x 64 event heads, 2 x 256 token heads
     cfg = MIDIModelConfig.get_config("v2", True, n_layer=1, n_head=8, n_embd=512,
                                      n_inner=64)
-    model = init_model(cfg, seed=0, dtype=torch.bfloat16)
+    model = init_model(cfg, seed=0, dtype=torch.bfloat16, device="cpu")
     taken = []
     gen_mod = importlib.import_module("midi_model_tpu_torch.sampling.generate")
     monkeypatch.setattr(gen_mod, "prepare_fused",

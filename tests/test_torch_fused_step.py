@@ -39,7 +39,7 @@ def setup():
     sd = synthesize_state_dict(layout(cfg), 11)
     params = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16),
                                     jax_params_from_sd(sd, jcfg))
-    model = params_from_state_dict(sd, cfg, dtype=torch.bfloat16)
+    model = params_from_state_dict(sd, cfg, dtype=torch.bfloat16, device="cpu")
     return jcfg, cfg, params, model
 
 

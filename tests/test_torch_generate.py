@@ -73,7 +73,8 @@ def test_reference_oracle_on_cpu():
     golden = pickle.loads(GOLDEN.read_bytes())
     cfg = MIDIModelConfig.from_name(golden["config"])
     model = params_from_state_dict(
-        synthesize_state_dict(golden["layout"], golden["seed"]), cfg)
+        synthesize_state_dict(golden["layout"], golden["seed"]), cfg,
+        device="cpu")
     prompt = golden["prompt"]
     hidden, _ = model(torch.from_numpy(prompt))
     logits, _ = model.forward_token(hidden[:, -1], None)
@@ -131,6 +132,21 @@ def test_prompt_head_and_callback(models):
     np.testing.assert_array_equal(np.concatenate(chunks, axis=1), out[:, 10:])
 
 
+def test_greedy_int8_pools_match_jax(models):
+    """``kv_int8``: int8 pages and per-token-per-head scales, the split path
+    (the cell kernel's plain version), token-identical to the JAX package's
+    int8 ``generate``."""
+    jcfg, cfg, params, model, _ = models
+    tok = cfg.tokenizer
+    prompt = np.random.default_rng(2).integers(3, 20, (2, 6, tok.max_token_seq))
+    ours = generate(model, cfg, prompt=prompt, batch_size=2, max_len=14, greedy=True,
+                    kv_int8=True)
+    ref = jax_generate(params, jcfg, prompt=prompt, batch_size=2, max_len=14, greedy=True,
+                       kv_int8=True)
+    assert ours.shape[1] > 6
+    np.testing.assert_array_equal(ours, ref)
+
+
 @pytest.mark.parametrize("prompt", [None, "row", "rows", "batch", "short"])
 def test_normalize_prompt_matches_jax(prompt, models):
     tok = models[1].tokenizer
@@ -145,9 +161,11 @@ def test_normalize_prompt_matches_jax(prompt, models):
 
 
 def test_unported_options_raise(models):
+    """int8 pools run the split path; the fused path on them (B4 on int8
+    pools) is not ported and raises."""
     cfg, model = models[1], models[3]
-    with pytest.raises(NotImplementedError):
-        generate(model, cfg, max_len=4, kv_int8=True)
+    with pytest.raises(NotImplementedError, match="B4"):
+        generate(model, cfg, max_len=4, kv_int8=True, fused=True)
     with pytest.raises(ValueError):
         generate(model, cfg, max_len=4, device="meta")
 
@@ -177,7 +195,8 @@ def bf16_models():
     sd = synthesize_state_dict(layout(cfg), 0)
     params = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16),
                                     jax_params_from_sd(sd, jcfg))
-    return jcfg, cfg, params, params_from_state_dict(sd, cfg, dtype=torch.bfloat16)
+    return jcfg, cfg, params, params_from_state_dict(sd, cfg, dtype=torch.bfloat16,
+                                                    device="cpu")
 
 
 def test_fused_path_greedy_matches_jax_kernels(bf16_models):

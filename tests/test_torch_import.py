@@ -1,5 +1,6 @@
-"""The port imports with jax blocked, ships its kernel sources, and never
-falls back from a non-CPU tensor to a plain version."""
+"""The port imports with jax and the JAX package blocked, ships its kernel
+sources, runs on the card unless the caller names the CPU, and never falls
+back from a non-CPU tensor to a plain version."""
 
 import subprocess
 import sys
@@ -21,8 +22,8 @@ from midi_model_tpu_torch.ops import token_loop as tl
 from midi_model_tpu_torch.sampling import build_mask_table, mask_tensors
 
 ROOT = Path(__file__).resolve().parent.parent
-KERNELS = ["sampler.cu", "paged_decode.cu", "causal_attention.cu",
-           "token_loop.cu", "fused_step.cu", "event_loop.cu"]
+KERNELS = ["sampler.cu", "paged_decode.cu", "paged_decode_stream.cu",
+           "causal_attention.cu", "token_loop.cu", "fused_step.cu", "event_loop.cu"]
 # MHA with packed pages (4 heads x 32 = 128 lanes): the fused path's shapes
 SMALL = MIDIModelConfig.get_config("v2", True, n_layer=4, n_head=4, n_embd=128,
                                    n_inner=128)
@@ -47,22 +48,72 @@ def test_import_whole_port_without_jax():
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None  # any import of jax now raises
+        sys.modules["midi_model_tpu"] = None  # and of the JAX package
         import midi_model_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             midi_model_tpu_torch.__path__, "midi_model_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        loaded = sorted(m for m in sys.modules if m.startswith("midi_model_tpu."))
-        allowed = ("midi_model_tpu.tokenizer", "midi_model_tpu.midi")
-        bad = [m for m in loaded if not m.startswith(allowed)]
-        assert not bad, bad
+        loaded = sorted(m for m in sys.modules if m.startswith("midi_model_tpu.")
+                        or (m == "midi_model_tpu" and sys.modules[m] is not None))
+        assert not loaded, loaded
         assert "triton" not in sys.modules
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 12
+    assert int(out.stdout.strip()) >= 20
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """chip_smoke.py imported as a module (its phases import the port
+    inside their functions: run its imports by calling nothing) loads no
+    jax and no module of the JAX package, and its main() refuses to run
+    without a card."""
+    code = textwrap.dedent("""
+        import importlib.util, sys
+        sys.modules["jax"] = None
+        sys.modules["midi_model_tpu"] = None
+        spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+        smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(smoke)
+        import midi_model_tpu_torch.serve, midi_model_tpu_torch.sampling
+        loaded = [m for m in sys.modules if m.startswith("midi_model_tpu.")]
+        assert not loaded, loaded
+        assert smoke.main() != 0  # no CUDA device here
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "no CUDA device" in out.stderr
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """``device=None`` is the card: without one the entry points raise
+    instead of running on the CPU; with ``device="cpu"`` they run there."""
+    from midi_model_tpu_torch.interop import params_from_state_dict, synthesize_state_dict
+    from midi_model_tpu_torch.models.llama import LlamaStack, resolve_device
+    from midi_model_tpu_torch.serve import ContinuousBatcher
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MIDINet(SMALL)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_model(SMALL)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LlamaStack(SMALL.net)
+    layout = [(k, tuple(v.shape)) for k, v in
+              MIDINet(SMALL, device="meta").state_dict().items()]
+    sd = synthesize_state_dict(layout, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_state_dict(sd, SMALL)
+    model = params_from_state_dict(sd, SMALL, device="cpu")
+    assert model.device.type == "cpu"
+    assert ContinuousBatcher(model, SMALL, n_slots=2, max_seq=64).device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
 
 
 @pytest.mark.parametrize("name", KERNELS)
@@ -121,6 +172,18 @@ def test_wrappers_raise_on_non_cpu_tensors():
     with pytest.raises(ValueError):
         el.decode_event_block(model, SMALL, fused, hidden, pools, 0, masks, 1.0, 0.98,
                               20, None, n_events=2, greedy=True, **kw)
+    with pytest.raises(ValueError):
+        el.decode_event_block_ragged(model, SMALL, fused, hidden, pools, index,
+                                     torch.ones(2, dtype=torch.bool, device="meta"), masks,
+                                     1.0, 0.98, 20, None, n_events=2, greedy=True, **kw)
+    for decode in (pa.paged_decode_cell, pa.paged_decode_stream):
+        with pytest.raises(ValueError):
+            decode(torch.empty((1, 4, 32), **meta), pools, lengths, lengths, page_size=16,
+                   pages_per_slot=4, kv_heads=4, head_dim=32)
+    with pytest.raises(ValueError):  # the cell kernel's side of the length rule
+        pa.paged_attention_stats(torch.empty((1, 4, 32), **meta), pools, lengths, lengths,
+                                 page_size=16, pages_per_slot=4, kv_heads=4, head_dim=32,
+                                 max_length=1)
     # mixing devices raises too
     with pytest.raises(ValueError):
         at.causal_attention(torch.zeros((1, 4, 2, 32)), q, q)
@@ -134,7 +197,7 @@ def test_plain_versions_do_not_count_launches():
     sp.sample_top_p_k(torch.rand((2, 16)), torch.full((2,), 0.9),
                       torch.full((2,), 4, dtype=torch.int32),
                       torch.zeros((2, 8)))
-    model = init_model(SMALL, seed=0)
+    model = init_model(SMALL, seed=0, device="cpu")
     masks, hidden, fused, pools, index, kw = _decode_inputs(model, "cpu")
     row, ended = tl.decode_token_row(model, SMALL, hidden, masks, 1.0, 0.98, 20,
                                      None, greedy=True)
@@ -144,4 +207,9 @@ def test_plain_versions_do_not_count_launches():
     rows, h, _ = el.decode_event_block(model, SMALL, fused, hidden, pools, 1, masks,
                                        1.0, 0.98, 20, None, n_events=2, greedy=True, **kw)
     assert rows.shape == (2, 2, SMALL.tokenizer.max_token_seq) and h.shape == hidden.shape
+    rows, h, _ = el.decode_event_block_ragged(
+        model, SMALL, fused, hidden, pools, torch.tensor([0, 1], dtype=torch.int32),
+        torch.tensor([True, False]), masks, 1.0, 0.98, 20, None, n_events=2, greedy=True,
+        **kw)
+    assert rows.shape == (2, 2, SMALL.tokenizer.max_token_seq) and not h[1].any()
     assert sum(_build.LAUNCHES.values()) == 0

@@ -33,7 +33,7 @@ def models():
 
 def test_weights_two_ways_agree(models):
     jcfg, cfg, params, model, sd = models
-    via_jax = from_jax_params(jax.tree.map(np.asarray, params), cfg)
+    via_jax = from_jax_params(jax.tree.map(np.asarray, params), cfg, device="cpu")
     a, b = model.state_dict(), via_jax.state_dict()
     assert a.keys() == b.keys()
     for k in a:
@@ -59,7 +59,7 @@ def test_bf16_load_rounds_like_jax(models):
     jcfg, cfg, params, _, sd = models
     from midi_model_tpu_torch.interop import params_from_state_dict
 
-    model = params_from_state_dict(sd, cfg, dtype=torch.bfloat16)
+    model = params_from_state_dict(sd, cfg, dtype=torch.bfloat16, device="cpu")
     ours = model.net.layers[0].self_attn.q_proj.weight.float().numpy()
     ref = np.asarray(jnp.asarray(sd["net.layers.0.self_attn.q_proj.weight"],
                                  jnp.bfloat16), np.float32)

@@ -60,7 +60,7 @@ def test_paged_stats_and_append_match_jax(h, hkv, d, dtype):
     o, m, l, out = pa.paged_attention_stats(
         torch.from_numpy(q), pools, torch.from_numpy(lengths),
         torch.from_numpy(base),
-        (new_k, new_v, torch.from_numpy(wpages), torch.from_numpy(woffs)), **kw)
+        (new_k, new_v, None, torch.from_numpy(wpages), torch.from_numpy(woffs)), **kw)
     assert out.k is pools.k  # updated in place
 
     jpools = jpa.PagedPools(k=jk, v=jv)
@@ -105,6 +105,22 @@ def test_pool_helpers_match_jax(h, hkv, d):
 
 
 def test_int8_pools_not_ported():
-    with pytest.raises(NotImplementedError):
-        pa.alloc_pools(4, 8, PS, 64, torch.float32, torch.device("cpu"),
-                       quantized=True)
+    """int8 pools are ported for the paged decode kernels; the whole-step
+    kernel's int8 form (B4 on int8 pools) is not, and says so."""
+    from midi_model_tpu_torch.models import MIDIModelConfig
+    from midi_model_tpu_torch.models.midinet import init_model
+    from midi_model_tpu_torch.ops import fused_step as fs
+
+    pools = pa.alloc_pools(4, 8, PS, 64, torch.float32, torch.device("cpu"),
+                           quantized=True)
+    assert pools.quantized and pools.k.dtype == torch.int8
+    cfg = MIDIModelConfig.get_config("v2", True, n_layer=1, n_head=4, n_embd=512,
+                                     n_inner=256)
+    model = init_model(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="B4"):
+        fs.fused_decode_step(fs.prepare_fused(model.net), cfg.net,
+                             torch.zeros((2, 512)), pa.alloc_pools(
+                                 4, 2 * 4, PS, 128, torch.float32, torch.device("cpu"),
+                                 quantized=True),
+                             torch.zeros(2, dtype=torch.int32), page_size=PS,
+                             pages_per_slot=4)
