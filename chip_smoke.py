@@ -17,7 +17,13 @@ exits non-zero:
              at uniform and ragged lengths, the token row (f32 rows identical; bf16 greedy
              rows identical up to near-ties), the fused event-net step (f32
              within 1e-4; bf16 within 3e-2 after one layer, 0.125 after 12;
-             rows outside the append bit-identical), the 8-event loop (f32
+             rows outside the append bit-identical) and its int8-pool form
+             (the same bounds, but f32 within 1e-2 after 12 layers; appended
+             int8 rows within one quantization step; inactive slots
+             untouched), the causal attention backward
+             (dq, dk, dv in f32 within 1e-4, bf16 within 2e-2, at the event
+             and token nets' training shapes and a GQA case; beside one SDPA
+             forward + backward, timed only), the 8-event loop (f32
              rows identical and within 1e-4; bf16 rows against the
              per-event kernel pair) and the ragged event loop (f32 against
              its plain version; bf16 bit-identical to the per-event
@@ -29,23 +35,32 @@ exits non-zero:
              split path: fp32 weights);
 4. slice   — bf16 tv2o-medium with random weights: ``generate`` at bs=32 on
              the default (fused) path — 8-event launches and a per-event
-             tail —, on the split path and with int8 pools, each with the
-             launch counts of its kernels read from its own run; a timed
-             prefill + 256-event ``decode_events`` run with eos disabled on
-             three paths in turns (8-event launches, per-event fused
-             launches, split), with kernel launches per event; and
+             tail —, on the split path, and with int8 pools on their default
+             (the token row and the int8 whole step per event, no split
+             kernel) and split paths, each with the launch counts of its
+             kernels read from its own run; a timed prefill + 256-event
+             ``decode_events`` run with eos disabled on five paths in turns
+             (8-event launches, per-event fused launches, split; int8 pair,
+             int8 split), with kernel launches per event; and
              ``generate`` from a random 1024-event prompt; every generated
              row must obey the grammar mask tables;
 5. batcher — the continuous batcher at 32 slots, max_seq 2048, chunk 16,
              a queue of requests with mixed prompts, budgets, knobs and
              bans, run with eos enabled and again with eos disabled (every
              request to its budget): bf16 pools through the ragged event
-             loop, then int8 pools through the token-row and streaming int8
-             kernels, each run with its launch counts, events/s, chunk
-             count and latency and prefill time per admission group, then a
-             full-occupancy window (eos disabled) timed and profiled; bf16
-             also resubmits a seeded request into another slot (identical
-             rows).
+             loop, then int8 pools through the per-event pair (token row,
+             the whole step's int8 form; the default) and through the split
+             scan (token row, streaming int8 kernel), each run with its
+             launch counts, events/s, chunk count and latency and prefill
+             time per admission group, then a full-occupancy window (eos
+             disabled) timed and profiled; the int8 default must be the
+             faster of its two paths; bf16 also resubmits a seeded request
+             into another slot (identical rows);
+6. train   — tv2o-medium training: step 0 through the attention kernels
+             against plain attention (f32), the CLI (5 steps, validation,
+             checkpoint, export, examples, resume), a falling loss on a
+             fixed batch, step time, tokens/s, peak memory and the
+             attention backward's share of a profiled step.
 
 Then the kernel summary line, the card's ``nvidia-smi`` name and power limit,
 and the result line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -69,6 +84,13 @@ LOGITS_TOL = dict(atol=2e-4, rtol=2e-3)  # oracle logits, as the JAX package's t
 # readings on an H100 (PERF.md section 6): kernel vs plain 0.094 (hidden), plain
 # on the CPU vs plain on the card 0.078; the bound is 1.6x the latter.
 BF16_DEEP_TOL = 0.125
+# The whole step on int8 pools with f32 weights, after all 12 layers: the
+# TPU kernel's int8 rule rounds every v-scaled softmax weight to bf16 even
+# then, so a last-ulp difference of exp between two correct implementations
+# now and then moves one weight by a bf16 step (2**-8), and the moves
+# compound with depth.  Recorded reading on an H100 (PERF.md section 6):
+# kernel vs plain 1.04e-3 (hidden); 1e-4 holds after one layer.
+INT8_F32_DEEP_TOL = 1e-2
 
 
 def require(cond, msg: str) -> None:
@@ -280,6 +302,8 @@ def phase_kernels(card: str) -> dict:
     time_paged_cell_vs_stream(card, gen)
     results["token_row"] = check_token_row(card, gen)
     results["fused_step"] = check_fused_step(card, gen)
+    results["fused_step_int8"] = check_fused_step_int8(card, gen)
+    results["causal_attention_bwd"] = check_attention_bwd(card, gen)
     results["event_loop"] = check_event_loop(card, gen)
     results["event_loop_ragged"] = check_event_loop_ragged(card, gen)
     return results
@@ -666,6 +690,216 @@ def check_fused_step(card: str, gen) -> dict:
     result["max_abs_err"] = errs["torch.float32"][f"{config.net.num_layers}_layers"]["hidden"]
     emit({"phase": "kernel", "name": "fused_step", "batch": b, "index": index.tolist(),
           "max_abs_err_by_dtype": errs, **result, "card": card})
+    return result
+
+
+def check_fused_step_int8(card: str, gen) -> dict:
+    """The whole-step kernel's int8 form against its plain version at
+    tv2o-medium, B=32, pages of 64, capacity 1024, random int8 pools and
+    bf16 scales: lengths mixed over 0..1024, one slot at capacity (its
+    clipped write lands on a row the step reads) and one inactive slot (it
+    appends nothing).  Both sides quantize and scatter the fresh rows with
+    the same torch ops; the kernel reads the pools and writes none of them.
+    f32 weights: hidden within 1e-4 after one layer and INT8_F32_DEEP_TOL
+    after all 12; bf16: within 3e-2 after one layer and BF16_DEEP_TOL after
+    all 12 (after 12 layers the plain version on the CPU against the plain
+    version on the card is printed beside it).  Appended rows: scales within
+    rtol 2e-2 after one layer and within the hidden's tolerance (relative)
+    after 12, and dequantized values within the hidden's tolerance plus one quantization
+    step (a scale one bf16 step apart moves a value near the absmax by two
+    int8 steps); every other row, scale rows included, bit-identical."""
+    import torch
+
+    from midi_model_tpu_torch.models import MIDIModelConfig
+    from midi_model_tpu_torch.models.midinet import init_model
+    from midi_model_tpu_torch.ops import fused_step as fs
+    from midi_model_tpu_torch.ops import paged_allheads as pa
+
+    dev = torch.device("cuda")
+    config = MIDIModelConfig.from_name("tv2o-medium")
+    b, ps, pps = 32, 64, 16
+    cap = ps * pps
+    h_n, dh = config.net.num_heads, config.net.head_dim
+    w = h_n * dh
+    index = torch.tensor([0, 1, 63, 64, 1000, cap, 65, 127, 128, 500, 999, 2] * 3,
+                         dtype=torch.int32, device=dev)[:b]
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    active[7] = False
+    x = torch.randn((b, config.net.hidden_size), generator=gen, device=dev) * 0.1
+    kw = dict(page_size=ps, pages_per_slot=pps)
+
+    def appended(n_layers):
+        """[n_pages, ps] mask of the rows the step appends: each ACTIVE slot
+        of every layer at clip(index, 0, cap-1)."""
+        wpos = index.clamp(0, cap - 1).long()
+        slots = torch.arange(b, device=dev)[active]
+        page = ((torch.arange(n_layers, device=dev)[:, None] * b + slots) * pps
+                + wpos[slots] // ps).flatten()
+        mask = torch.zeros((n_layers * b * pps, ps), dtype=torch.bool, device=dev)
+        mask[page, (wpos[slots] % ps).repeat(n_layers)] = True
+        return mask
+
+    def err(a, b_):
+        return float((a.float() - b_.float()).abs().max())
+
+    n_all = config.net.num_layers * b * pps
+    k0 = torch.randint(-127, 128, (n_all, ps, w), generator=gen, device=dev, dtype=torch.int8)
+    v0 = torch.randint(-127, 128, (n_all, ps, w), generator=gen, device=dev, dtype=torch.int8)
+    s0 = (torch.rand((n_all, ps, pa.LANE), generator=gen, device=dev) * 0.02
+          + 1e-3).to(torch.bfloat16)
+    errs, result = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = init_model(config, seed=1, dtype=dtype, device=dev)
+        full = fs.prepare_fused(model.net)
+        del model
+        case = {}
+        for n_layers in (1, config.net.num_layers):
+            net = type(config.net)(**{**config.net.__dict__, "num_layers": n_layers})
+            fused = fs.FusedWeights(*(t[:n_layers] for t in full[:5]), full.final_norm)
+            n_pages = n_layers * b * pps
+            kern = pa.PagedPools(k0[:n_pages].clone(), v0[:n_pages].clone(), s0[:n_pages].clone())
+            plain = pa.PagedPools(k0[:n_pages].clone(), v0[:n_pages].clone(),
+                                  s0[:n_pages].clone())
+            h, _ = fs.fused_decode_step(fused, net, x, kern, index, active, **kw)
+            h_r, _ = fs.fused_decode_step_reference(fused, net, x, plain, index, active, **kw)
+            torch.cuda.synchronize()
+            written = appended(n_layers)
+            require(bool(torch.isfinite(h.float()).all()), f"int8 step {dtype}: non-finite")
+            for ours, ref, before in ((kern.k, plain.k, k0), (kern.v, plain.v, v0),
+                                      (kern.scales, plain.scales, s0)):
+                before = before[:n_pages]
+                require(torch.equal(ours[~written], before[~written])
+                        and torch.equal(ref[~written], before[~written]),
+                        f"int8 step {dtype}: a row outside the active slots' appends changed")
+            deep = n_layers > 1
+            tol = ((INT8_F32_DEEP_TOL if deep else 1e-4) if dtype == torch.float32
+                   else BF16_DEEP_TOL if deep else 3e-2)
+            # the scale rows' k and v lanes; lanes [2H:128] are zero on both sides
+            sk, sr = (t[written][:, :2 * h_n].float() for t in (kern.scales, plain.scales))
+            deq = []
+            for j, (ours, ref) in enumerate(((kern.k, plain.k), (kern.v, plain.v))):
+                sc = [t[:, j * h_n:(j + 1) * h_n, None] for t in (sk, sr)]
+                a = ours[written].float().view(-1, h_n, dh) * sc[0]
+                r = ref[written].float().view(-1, h_n, dh) * sc[1]
+                deq.append(float(((a - r).abs() - torch.maximum(*sc)).max()))
+            got = {"hidden": err(h, h_r), "scales_rel": float(((sk - sr).abs() / sr).max()),
+                   "dequantized_minus_one_step": max(deq)}
+            if deep:  # the same plain version on the CPU: its spread from summation order
+                cpu = pa.PagedPools(*(t[:n_pages].cpu() for t in (k0, v0, s0)))
+                h_c, _ = fs.fused_decode_step_reference(
+                    fs.FusedWeights(*(t.cpu() for t in fused)), net, x.cpu(), cpu,
+                    index.cpu(), active.cpu(), **kw)
+                sc = cpu.scales[written.cpu()][:, :2 * h_n].float()
+                got["plain_cpu_vs_plain_card"] = {
+                    "hidden": err(h_c, h_r.cpu()),
+                    "scales_rel": float(((sc - sr.cpu()).abs() / sr.cpu()).max())}
+                del cpu
+            close = (got["hidden"] <= tol if deep
+                     else torch.allclose(h.float(), h_r.float(), atol=tol, rtol=tol))
+            # a scale is its fresh row's absmax / 127: after 12 layers the rows
+            # drift as the hidden does
+            require(close and got["scales_rel"] <= (tol if deep else 2e-2)
+                    and got["dequantized_minus_one_step"] <= tol,
+                    f"int8 step {dtype}, {n_layers} layers: {got}")
+            case[f"{n_layers}_layers"] = got
+            if dtype == torch.bfloat16 and n_layers == config.net.num_layers:
+                weights = sum(t.numel() for t in fused[:5])
+                cached = int(index.clamp(max=cap)[active].sum()) * n_layers
+                n_live = int(active.sum()) * n_layers
+                result = {"ms": time_ms(lambda: fs.fused_decode_step(
+                              fused, net, x, kern, index, active, **kw), 20),
+                          "plain_ms": time_ms(lambda: fs.fused_decode_step_reference(
+                              fused, net, x, plain, index, active, **kw), 3),
+                          "library_ms": None,
+                          # bf16 weights; int8 rows and one k and one v bf16 scale
+                          # per head; the appended rows and scale rows written
+                          **bound(2 * weights + cached * (2 * w + 2 * h_n * 2)
+                                  + n_live * (2 * w + 2 * pa.LANE),
+                                  2 * b * weights + 4 * cached * w, "bf16")}
+            del kern, plain
+        errs[str(dtype)] = case
+        del full
+        torch.cuda.empty_cache()
+    result["max_abs_err"] = errs["torch.float32"][f"{config.net.num_layers}_layers"]["hidden"]
+    emit({"phase": "kernel", "name": "fused_step_int8", "batch": b, "index": index.tolist(),
+          "inactive_slot": 7, "by_dtype": errs, **result, "card": card})
+    return result
+
+
+def check_attention_bwd(card: str, gen) -> dict:
+    """The causal-attention backward kernel against its plain version
+    (``causal_attention_backward_reference``, on the same inputs and the
+    forward kernel's log-sum-exp) at the training shapes: the event net
+    [2, 2047, 16, 64] (S = max_len - 1: a ragged last tile on both sides)
+    and the token net [4094, 8, 4, 256], in f32 and bf16, plus a GQA case
+    (16 query heads over 4 kv heads) with a strided q.  f32: dq, dk, dv
+    within atol and rtol 1e-4 (summation order).  bf16: within 2e-2 — both
+    sides round P to bf16 at the same point and sum in f32, then round the
+    gradients to bf16: one bf16 step at magnitude 2-4.  Timed at the event
+    net's bf16 shape beside one ``scaled_dot_product_attention``
+    forward + backward (timed only, used nowhere), and the forward with its
+    log-sum-exp output."""
+    import torch
+
+    from midi_model_tpu_torch.ops import attention as at
+
+    dev = torch.device("cuda")
+    f32_tol = dict(atol=1e-4, rtol=1e-4)
+    bf16_tol = dict(atol=2e-2, rtol=2e-2)
+    cases = [(2, 2047, 16, 16, 64, torch.float32), (2, 2047, 16, 16, 64, torch.bfloat16),
+             (4094, 8, 4, 4, 256, torch.float32), (4094, 8, 4, 4, 256, torch.bfloat16),
+             (2, 300, 16, 4, 64, torch.float32)]
+    errs, result = {}, {}
+    for b, s, h, hkv, dh, dtype in cases:
+        name = f"{dtype}[{b},{s},{h},{hkv},{dh}]"
+        wide = torch.randn((b, s, h, 2 * dh), generator=gen, device=dev).to(dtype)
+        q = wide[..., :dh]  # strided: no copy
+        k = torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(dtype)
+        dout = torch.randn((b, s, h, dh), generator=gen, device=dev).to(dtype)
+        out, lse = at._forward(q, k, v, with_lse=True)
+        grads = at.causal_attention_backward(q, k, v, out, dout, lse)
+        ref = at.causal_attention_backward_reference(q, k, v, out, dout, lse)
+        torch.cuda.synchronize()
+        tol = f32_tol if dtype == torch.float32 else bf16_tol
+        case = {}
+        for g_name, ours, want in zip(("dq", "dk", "dv"), grads, ref):
+            require(ours.shape == want.shape and bool(torch.isfinite(ours.float()).all()),
+                    f"attention backward {name}: {g_name} shape or non-finite")
+            case[g_name] = float((ours.float() - want.float()).abs().max())
+            require(torch.allclose(ours.float(), want.float(), **tol),
+                    f"attention backward {name}: {g_name} differs by {case[g_name]}")
+        errs[name] = case
+        if dtype == torch.bfloat16 and dh == 64:  # the event net's training shape
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+            gt = dout.transpose(1, 2)
+
+            def library():
+                o = sdpa(qt, kt, vt, is_causal=True)
+                o.backward(gt)
+
+            pairs = b * h * s * (s + 1) // 2  # causal (query, key) pairs
+            result = {
+                "ms": time_ms(lambda: at.causal_attention_backward(q, k, v, out, dout, lse), 5),
+                "plain_ms": time_ms(lambda: at.causal_attention_backward_reference(
+                    q, k, v, out, dout, lse), 2),
+                "library_ms": time_ms(library, 10),
+                "library_forward_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 10),
+                "forward_ms": time_ms(lambda: at._forward(q, k, v, with_lse=False), 5),
+                "forward_with_lse_ms": time_ms(lambda: at._forward(q, k, v, with_lse=True), 5),
+                # q, k, v, out, dout read, dq, dk, dv written, lse read; five
+                # products over the causal pairs (the recomputed scores, dv, dp, dq, dk)
+                **bound(2 * 8 * b * s * h * dh + 4 * b * h * s, 5 * 2 * dh * pairs, "bf16")}
+        if dh == 256 and dtype == torch.bfloat16:
+            errs[name]["ms"] = time_ms(
+                lambda: at.causal_attention_backward(q, k, v, out, dout, lse), 5)
+        del wide, q, k, v, dout, out, lse, grads, ref
+        torch.cuda.empty_cache()
+    result["max_abs_err"] = max(max(c[g] for g in ("dq", "dk", "dv"))
+                                for n, c in errs.items() if "float32" in n)
+    emit({"phase": "kernel", "name": "causal_attention_bwd", "by_case": errs, **result,
+          "card": card})
     return result
 
 
@@ -1076,31 +1310,35 @@ def phase_slice(card: str) -> dict:
 
     # the main path, once per decode path, each with the launch counts read
     # from exactly its own run: the default (fused at bf16: 259 events = 32
-    # event-loop launches and a 3-event per-event tail), then the split path
-    # and generate(kv_int8=True), which takes the split path on int8 pools
+    # event-loop launches and a 3-event per-event tail), the split path, then
+    # generate(kv_int8=True) by default (the per-event pair: the token row
+    # and the whole step's int8 form, every event) and on the split path
+    split_kernels = {"sampler", "paged_decode", "paged_decode_int8", "paged_decode_stream"}
     launches = {}
-    for fused, kv_int8, max_len, kernels in (
-            (None, False, 260, ("event_loop", "token_row", "fused_step", "causal_attention")),
+    for fused, kv_int8, max_len, kernels, never in (
+            (None, False, 260, ("event_loop", "token_row", "fused_step", "causal_attention"),
+             split_kernels),
             (False, False, 260, ("sampler", "paged_decode", "paged_decode_stream",
-                                 "causal_attention")),
-            (None, True, 40, ("sampler", "paged_decode_int8", "causal_attention"))):
+                                 "causal_attention"), {"token_row", "fused_step"}),
+            (None, True, 40, ("token_row", "fused_step_int8", "causal_attention"),
+             split_kernels | {"event_loop", "fused_step"}),
+            (False, True, 40, ("sampler", "paged_decode_int8", "causal_attention"),
+             {"paged_decode", "token_row", "fused_step", "fused_step_int8"})):
         _build.LAUNCHES.clear()
         rows = generate(model, config, batch_size=batch, max_len=max_len, temp=1.0,
                         top_p=0.98, top_k=20, seed=0, fused=fused, kv_int8=kv_int8)
         torch.cuda.synchronize()
         counts = dict(_build.LAUNCHES)
-        path = ("split, int8 pools" if kv_int8 else
-                "fused (default)" if fused is None else "split")
+        path = ("fused (default)" if fused is None else "split") + (
+            ", int8 pools" if kv_int8 else "")
         require(rows.shape[0] == batch and 1 < rows.shape[1] <= max_len, f"rows {rows.shape}")
         check_rows(rows[:, 1:], table, tokenizer, f"generate bs=32, {path} path")
         for name in kernels:
             require(counts.get(name, 0) > 0, f"{path} path never launched {name}: {counts}")
-        if fused is None and not kv_int8:
-            require("sampler" not in counts and "paged_decode" not in counts,
-                    f"the default bf16 path took the split path: {counts}")
-        if kv_int8:
-            require("paged_decode" not in counts and "fused_step" not in counts,
-                    f"the int8 path ran a bf16 kernel: {counts}")
+        require(not set(counts) & never, f"the {path} path ran {set(counts) & never}: {counts}")
+        if fused is None and kv_int8:  # one token row and one int8 whole step per event
+            require(counts["token_row"] == counts["fused_step_int8"] == rows.shape[1] - 1,
+                    f"int8 pair launches {counts} over {rows.shape[1] - 1} events")
         launches = {**counts, **launches}
         emit({"phase": "slice_generate", "path": path, "batch": batch,
               "rows_shape": list(rows.shape), "launches": counts, "card": card})
@@ -1115,14 +1353,17 @@ def phase_slice(card: str) -> dict:
     gen.manual_seed(42)
 
     # per_event: the fused path with one token-row and one whole-step launch
-    # per event (blocks of one event: no event-loop launch)
-    paths = {"event_loop": (True, el.EVENTS_PER_LAUNCH), "per_event": (True, 1),
-             "split": (False, el.EVENTS_PER_LAUNCH)}
+    # per event (blocks of one event: no event-loop launch); the int8 pools'
+    # per-event pair (their default) and split path
+    paths = {"event_loop": (True, el.EVENTS_PER_LAUNCH, False),
+             "per_event": (True, 1, False), "split": (False, el.EVENTS_PER_LAUNCH, False),
+             "int8_pair": (True, el.EVENTS_PER_LAUNCH, True),
+             "int8_split": (False, el.EVENTS_PER_LAUNCH, True)}
 
     def run(n, path, state=None):
-        fused, el.EVENTS_PER_LAUNCH = paths[path]
+        fused, el.EVENTS_PER_LAUNCH, kv_int8 = paths[path]
         if state is None:
-            state = prefill(model, config, prompt, 1 + n_events)
+            state = prefill(model, config, prompt, 1 + n_events, kv_int8=kv_int8)
         return decode_events(model, config, state, masks, n, 1.0, 0.98, 20, gen,
                              fused=fused)
 
@@ -1178,13 +1419,15 @@ def phase_slice(card: str) -> dict:
     return launches
 
 
-def phase_batcher(card: str, kv_int8: bool) -> dict:
+def phase_batcher(card: str, kv_int8: bool, fused=None):
     """The continuous batcher at tv2o-medium's full width, bf16 weights:
     32 slots, max_seq 2048, chunk 16, a queue of requests with prompts of
     16-1024 events and budgets of 64-512 events admitted as slots free up,
     some with their own temp / top_p / top_k, some with banned channels.
     bf16 pools run the ragged event loop (one launch per chunk); ``kv_int8``
-    the split scan (token-row kernel, streaming int8 paged kernel).  The
+    by default the per-event pair (token-row kernel, the whole step's int8
+    form), with ``fused=False`` the split scan (token-row kernel, streaming
+    int8 paged kernel).  The
     queue runs twice: with eos enabled (random weights end a request on eos
     after a few events, so that run is mostly admissions), then with eos
     disabled, every request decoding its whole budget (budget retirement,
@@ -1209,7 +1452,8 @@ def phase_batcher(card: str, kv_int8: bool) -> dict:
     config = MIDIModelConfig.from_name("tv2o-medium")
     tok = config.tokenizer
     model = init_model(config, seed=5, dtype=torch.bfloat16, device=dev)
-    kw = dict(n_slots=32, max_seq=2048, chunk=16, kv_int8=kv_int8, seed=11)
+    kw = dict(n_slots=32, max_seq=2048, chunk=16, kv_int8=kv_int8, seed=11, fused=fused)
+    path = "split" if fused is False else "pair" if kv_int8 else "event_loop"
     rng = np.random.default_rng(21 if kv_int8 else 20)
     n_req = 48 if kv_int8 else 64
     banned = [2, 9]
@@ -1234,8 +1478,8 @@ def phase_batcher(card: str, kv_int8: bool) -> dict:
         """The whole queue through one batcher; its metrics and launches."""
         table = build_mask_table(tok, disable_eos=disable_eos)
         batcher = ContinuousBatcher(model, config, disable_eos=disable_eos, **kw)
-        require(batcher.fused != kv_int8 and batcher.pipeline,
-                f"batcher path: fused={batcher.fused}, pipeline={batcher.pipeline}")
+        require(batcher.path == path and batcher.pipeline,
+                f"batcher path: {batcher.path}, pipeline={batcher.pipeline}")
         groups = []  # (size, bucket, start event, stop event) of each admission forward
         prefill_group = batcher._prefill_group
 
@@ -1284,10 +1528,17 @@ def phase_batcher(card: str, kv_int8: bool) -> dict:
                             f"request {rid}: a banned channel")
             events += len(fin.rows) + (fin.reason == "eos")
         n_chunks = len(dispatched)
-        if kv_int8:
+        if path == "pair":
+            require(counts.get("token_row", 0) > 0
+                    and counts.get("token_row") == counts.get("fused_step_int8")
+                    and not {"event_loop_ragged", "paged_decode_stream",
+                             "paged_decode_int8", "fused_step"} & set(counts),
+                    f"int8 batcher (pair) launches: {counts}")
+        elif path == "split":
             require(counts.get("token_row", 0) > 0 and counts.get("paged_decode_stream", 0) > 0
-                    and "event_loop_ragged" not in counts and "paged_decode_int8" not in counts,
-                    f"int8 batcher launches: {counts}")
+                    and not {"event_loop_ragged", "paged_decode_int8",
+                             "fused_step_int8"} & set(counts),
+                    f"int8 batcher (split) launches: {counts}")
         else:
             require(counts.get("event_loop_ragged", 0) == n_chunks and "token_row" not in counts
                     and "paged_decode_stream" not in counts and "fused_step" not in counts,
@@ -1370,10 +1621,189 @@ def phase_batcher(card: str, kv_int8: bool) -> dict:
                                       "identical": same, "first_differing_event": first_diff}
         require(slot_a != slot_b and same and len(rows_a) == 48,
                 f"seeded resubmit: {metrics['seeded_resubmit']}")
-    emit({"phase": "batcher_int8" if kv_int8 else "batcher_bf16", **metrics, "card": card})
+    emit({"phase": f"batcher_int8_{path}" if kv_int8 else "batcher_bf16", **metrics,
+          "card": card})
     del model
     torch.cuda.empty_cache()
-    return counts
+    return counts, metrics["full_occupancy"]["events_per_s"]
+
+
+def phase_train(card: str) -> int:
+    """Training at tv2o-medium's full width on a corpus written from
+    ``tests/golden/codec.pkl`` (under ``build/``, gitignored):
+
+    - step 0 on one microbatch (bs 1, 512 events, f32): the loss and a
+      sample of gradients through the attention kernels (forward with its
+      log-sum-exp, backward) against the same step with the plain attention
+      (``attention_reference`` under torch's autograd) — loss within rtol
+      1e-5, each sampled gradient within 1e-4 of its largest value (f32
+      sums in another order over 511 rows and 15 layers);
+    - ``train.cli.main``: bf16 compute with f32 master weights,
+      ``--batch-size-train 2 --acc-grad 2 --max-len 2048``, 5 optimizer
+      steps, one validation, one checkpoint, the best-val export and the
+      example pieces; the backward kernel launched (12 + 3 layers) x 2
+      microbatches x 5 steps times, counted from the run; every logged loss
+      finite; ``model.safetensors`` read back by the port's reader equals
+      the final weights; then ``--resume`` takes one more step from the
+      checkpoint (step 5 -> 6);
+    - 10 steps of the same shape on one fixed batch: the loss falls; ms per
+      optimizer step, training tokens/s and peak device memory; one step
+      under ``torch.profiler``: the attention kernels' share of its device
+      time.
+
+    Returns the backward kernel's launches in the CLI run."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from midi_model_tpu_torch.interop import load_state_dict
+    from midi_model_tpu_torch.models import MIDIModelConfig
+    from midi_model_tpu_torch.models import llama
+    from midi_model_tpu_torch.ops import _build
+    from midi_model_tpu_torch.ops import attention as at
+    from midi_model_tpu_torch.train import MidiDataset, cli, find_midi_files
+    from midi_model_tpu_torch.train import trainer as tr
+
+    dev = torch.device("cuda")
+    config = MIDIModelConfig.from_name("tv2o-medium")
+    n_layers = config.net.num_layers + config.net_token.num_layers
+    work = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    corpus = work / "corpus"
+    corpus.mkdir(parents=True)
+    goldens = pickle.loads((ROOT / "tests/golden/codec.pkl").read_bytes())
+    for name, g in goldens.items():
+        if not name.startswith("bad_"):
+            (corpus / f"{name}.mid").write_bytes(g["bytes"])
+    files = find_midi_files(str(corpus))
+
+    def batch_of(n, max_len, seed):
+        ds = MidiDataset(files, config.tokenizer, max_len=max_len, aug=False,
+                         rand_start=False, seed=seed)
+        return ds.collate([ds[i] for i in range(n)], pad_to=max_len)
+
+    # -- step 0, kernel against plain attention (f32, bs 1, 512 events)
+    params = tr.init_params(config, seed=3, device=dev)
+    mb = torch.as_tensor(batch_of(1, 512, 0), device=dev)
+    sample = ["net.layers.0.self_attn.q_proj.weight", "net.layers.11.self_attn.k_proj.weight",
+              "net.layers.5.mlp.down_proj.weight", "net_token.layers.0.self_attn.v_proj.weight",
+              "net.embed_tokens.weight", "lm_head.weight"]
+
+    def step0():
+        p = {n: t.clone().requires_grad_(True) for n, t in params.items()}
+        loss, _ = tr.loss_fn(p, config, mb, compute_dtype=torch.float32)
+        loss.backward()
+        return float(loss.detach()), {n: p[n].grad for n in sample}
+
+    _build.LAUNCHES.clear()
+    loss_k, grads_k = step0()
+    kernel_counts = dict(_build.LAUNCHES)
+    kernel_attention = llama.causal_attention
+    llama.causal_attention = lambda q, k, v: at.attention_reference(
+        q, k, v, at.causal_bias(q.shape[1], q.device))
+    try:
+        _build.LAUNCHES.clear()
+        loss_p, grads_p = step0()
+        plain_counts = dict(_build.LAUNCHES)
+    finally:
+        llama.causal_attention = kernel_attention
+    torch.cuda.synchronize()
+    grad_err = {n: float((grads_k[n] - grads_p[n]).abs().max() / grads_p[n].abs().max())
+                for n in sample}
+    require(kernel_counts.get("causal_attention_bwd") == n_layers and not plain_counts,
+            f"step 0 launches: kernel path {kernel_counts}, plain path {plain_counts}")
+    require(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and max(grad_err.values()) <= 1e-4,
+            f"step 0: loss {loss_k} vs {loss_p}, gradient errors {grad_err}")
+    del params, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # -- the CLI: 5 steps, validation, checkpoint, export, examples; then resume
+    out = work / "run"
+    argv = ["--data", str(corpus), "--config", "tv2o-medium", "--data-val-split", "2",
+            "--max-len", "2048", "--batch-size-train", "2", "--acc-grad", "2",
+            "--batch-size-val", "2", "--max-step", "5", "--val-step", "5", "--warmup-step", "2",
+            "--workers-train", "2", "--batch-size-gen-example", "2", "--out-dir", str(out)]
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    state = cli.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    logs = [json.loads(line) for line in (out / "logs" / "metrics.jsonl").read_text().splitlines()]
+    cli_losses = [r["train/loss"] for r in logs if "train/loss" in r]
+    val = [r for r in logs if "val/loss" in r]
+    require(state.step == 5 and len(cli_losses) == 5 and all(np.isfinite(cli_losses))
+            and len(val) == 1 and np.isfinite(val[0]["val/loss"]),
+            f"cli run: step {state.step}, losses {cli_losses}, val {val}")
+    require(counts.get("causal_attention_bwd") == n_layers * 2 * 5,
+            f"cli run: backward launches {counts} (expected {n_layers * 2 * 5})")
+    ckpt = out / "checkpoints"
+    require((ckpt / "step_5.pt").exists() and list((out / "sample" / "5").glob("*.mid")),
+            "cli run: no checkpoint or no example pieces")
+    exported = load_state_dict(str(ckpt / "model.safetensors"))
+    require(sorted(exported) == sorted(state.params) and all(
+        np.array_equal(exported[n], p.detach().cpu().numpy()) for n, p in state.params.items()),
+        "model.safetensors differs from the final weights")
+    del state, exported
+    torch.cuda.empty_cache()
+    argv[argv.index("--max-step") + 1] = "6"
+    resumed = cli.main(argv + ["--resume", "1", "--gen-example-interval", "0"])
+    require(resumed.step == 6 and resumed.opt_state.count == 6,
+            f"resume: step {resumed.step}, updates {resumed.opt_state.count}")
+    del resumed
+    torch.cuda.empty_cache()
+
+    # -- 10 steps on one fixed batch of the CLI's shape; then one step profiled
+    batch = batch_of(4, 2048, 1).reshape(2, 2, 2048, -1)
+    opt = tr.make_optimizer(lr=3e-4, warmup_steps=0, total_steps=1000)
+    step = tr.make_train_step(config, opt, accum_steps=2)
+    state = tr.init_train_state(tr.init_params(config, seed=4, device=dev), opt)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        times.append(time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"fixed batch: the loss did not fall: {losses}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_us = sum(t for _, t in kernels)
+    bwd_us = sum(t for k, t in kernels if any(
+        x in k for x in ("dkdv_kernel", "dq_kernel", "delta_kernel")))
+    fwd_us = sum(t for k, t in kernels if "causal_attention_kernel" in k)
+    step_ms = float(np.mean(times[2:])) * 1e3
+    tokens = int(np.prod(batch.shape))  # microbatches x B x events x 8 tokens
+    emit({"phase": "train", "config": "tv2o-medium", "compute": "bf16, f32 master",
+          "step0_f32_bs1_512": {"loss_kernel": loss_k, "loss_plain": loss_p,
+                                "grad_err_rel_to_leaf_max": grad_err},
+          "cli": {"steps": 5, "seconds": cli_s, "losses": cli_losses, "val": val[0],
+                  "launches": counts},
+          "fixed_batch_losses": losses, "ms_per_step": step_ms,
+          "ms_per_step_runs": [t * 1e3 for t in times],
+          "train_tokens_per_s": tokens / step_ms * 1e3, "peak_memory_gb": peak_gb,
+          "profiled_step": {"wall_ms": profiled_ms, "device_ms": device_us / 1e3,
+                            "device_busy_share": device_us / 1e3 / profiled_ms,
+                            "attention_bwd_ms": bwd_us / 1e3,
+                            "attention_fwd_ms": fwd_us / 1e3,
+                            "attention_bwd_share": bwd_us / device_us,
+                            "top_kernels_ms": sorted(((k[:60], t / 1e3) for k, t in kernels),
+                                                     key=lambda kt: -kt[1])[:8]},
+          "card": card})
+    del state
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts["causal_attention_bwd"]
 
 
 SOURCES = {
@@ -1394,6 +1824,10 @@ SOURCES = {
                             "midi_model_tpu/ops/paged_allheads.py:408"),
     "event_loop_ragged": ("midi_model_tpu_torch/csrc/event_loop.cu",
                           "midi_model_tpu/ops/event_loop.py:1162"),
+    "fused_step_int8": ("midi_model_tpu_torch/csrc/fused_step.cu",
+                        "midi_model_tpu/ops/fused_step.py:81"),
+    "causal_attention_bwd": ("midi_model_tpu_torch/csrc/causal_attention_bwd.cu",
+                             "midi_model_tpu/ops/attention.py:131"),
 }
 
 
@@ -1422,10 +1856,17 @@ def main() -> int:
     phase_oracle(card)
     launches = phase_slice(card)
     # each batcher path's launches from its own run
-    launches.update({k: v for k, v in phase_batcher(card, kv_int8=False).items()
-                     if k == "event_loop_ragged"})
-    launches.update({k: v for k, v in phase_batcher(card, kv_int8=True).items()
-                     if k == "paged_decode_stream"})
+    counts, _ = phase_batcher(card, kv_int8=False)
+    launches["event_loop_ragged"] = counts["event_loop_ragged"]
+    _, pair_rate = phase_batcher(card, kv_int8=True)  # the int8 default: the per-event pair
+    counts, split_rate = phase_batcher(card, kv_int8=True, fused=False)
+    launches["paged_decode_stream"] = counts["paged_decode_stream"]
+    emit({"phase": "batcher_int8_default", "default": "pair",
+          "full_occupancy_events_per_s": {"pair": pair_rate, "split": split_rate},
+          "card": card})
+    require(pair_rate > split_rate, f"the int8 batcher's default (the per-event pair, "
+            f"{pair_rate} events/s) is not the faster path (split scan {split_rate})")
+    launches["causal_attention_bwd"] = phase_train(card)
     require("jax" not in sys.modules, "jax was imported")
     require(not any(m == "midi_model_tpu" or m.startswith("midi_model_tpu.")
                     for m in sys.modules), "the JAX package was imported")

@@ -8,7 +8,10 @@
 // * Dh**-0.5) @ v[b, t, hk, :] with hk = h / (H / Hkv), inputs [B, S, H, Dh]
 // given by strides (no transpose copy), any S, Dh 64 (the event net) or 256
 // (the token net, in its cacheless forward; its tiles fill 214 KB of shared
-// memory), bf16 or f32 in and out.
+// memory), bf16 or f32 in and out.  When the caller passes an lse buffer
+// (training: the backward, causal_attention_bwd.cu, recomputes the softmax
+// from it) each row's f32 log-sum-exp of its scaled scores goes there too,
+// [B, H, S].
 //
 // What bounds it on an H100: at prefill shapes (S in the thousands, Dh = 64)
 // it is compute: 4 * S^2 * Dh / 2 flops per (batch, head) against 4 * S * Dh
@@ -42,7 +45,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 causal_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ out, int S, int H, int groups,
+                        const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+                        int S, int H, int groups,
                         long long qsb, long long qss, long long qsh, long long ksb,
                         long long kss, long long ksh, long long vsb, long long vss,
                         long long vsh, float scale) {
@@ -137,12 +141,14 @@ causal_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* ob = out + ((static_cast<size_t>(b) * S + qi) * H + h) * DH;
 #pragma unroll
     for (int e = 0; e < DPT; ++e) ob[sub + 4 * e] = mm::from_f32<T>(acc[e] * inv);
+    if (lse != nullptr && sub == 0)  // the row's m and l: every real row saw key 0
+      lse[(static_cast<size_t>(b) * H + h) * S + qi] = m_i + logf(l_i);
   }
 }
 
 template <typename T, int DH>
-int launch_dh(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-              int Hkv, const long long* st, cudaStream_t stream) {
+int launch_dh(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
+              int H, int Hkv, const long long* st, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   cudaError_t e = cudaFuncSetAttribute(causal_attention_kernel<T, DH>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -151,18 +157,19 @@ int launch_dh(const void* q, const void* k, const void* v, void* out, int B, int
   const dim3 grid(B * H, (S + kBlockQ - 1) / kBlockQ);
   causal_attention_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, H, H / Hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      static_cast<T*>(out), lse, S, H, H / Hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], 1.0f / sqrtf(static_cast<float>(DH)));
   return mm::last_error();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-           int Hkv, int Dh, const long long* st, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, int B, int S,
+           int H, int Hkv, int Dh, const long long* st, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (Dh) {
-    case 64: return launch_dh<T, 64>(q, k, v, out, B, S, H, Hkv, st, s);    // event net
-    case 256: return launch_dh<T, 256>(q, k, v, out, B, S, H, Hkv, st, s);  // token net
+    case 64: return launch_dh<T, 64>(q, k, v, out, l, B, S, H, Hkv, st, s);    // event net
+    case 256: return launch_dh<T, 256>(q, k, v, out, l, B, S, H, Hkv, st, s);  // token net
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -170,15 +177,16 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 }  // namespace
 
 // strides: [q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h] in elements; the
-// last dim of each input is contiguous; out is a contiguous [B, S, H, Dh].
+// last dim of each input is contiguous; out is a contiguous [B, S, H, Dh];
+// lse: null, or a contiguous f32 [B, H, S] for the rows' log-sum-exp.
 extern "C" int mm_causal_attention_f32(const void* q, const void* k, const void* v, void* out,
-                                       int B, int S, int H, int Hkv, int Dh,
+                                       void* lse, int B, int S, int H, int Hkv, int Dh,
                                        const long long* strides, void* stream) {
-  return launch<float>(q, k, v, out, B, S, H, Hkv, Dh, strides, stream);
+  return launch<float>(q, k, v, out, lse, B, S, H, Hkv, Dh, strides, stream);
 }
 
 extern "C" int mm_causal_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                                        int B, int S, int H, int Hkv, int Dh,
+                                        void* lse, int B, int S, int H, int Hkv, int Dh,
                                         const long long* strides, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, B, S, H, Hkv, Dh, strides, stream);
+  return launch<__nv_bfloat16>(q, k, v, out, lse, B, S, H, Hkv, Dh, strides, stream);
 }

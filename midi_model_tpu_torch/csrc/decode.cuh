@@ -85,6 +85,14 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
   }
 }
 
+// Eight int8 pool values (8-byte aligned) as floats, each exact.
+__device__ __forceinline__ void load8(const signed char* p, float* out) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const signed char* c = reinterpret_cast<const signed char*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(c[i]);
+}
+
 // The staged tile: 8 values of T at p, from or to floats.
 __device__ __forceinline__ void store8(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);

@@ -8,11 +8,17 @@
 // attention with the f32 self-term merge, the append, o-proj and SwiGLU,
 // on the residual stream x [B, D] in place.
 //
+// Four forms: bf16 or f32 weights, over pools of the weights' dtype (updated
+// in place) or over int8 pools with their bf16 scale pool (read only; the
+// fresh rows leave as [L, B, W] outputs for the wrapper to quantize and
+// scatter, as the TPU kernel's quantized form does).
+//
 // What bounds it on an H100: bytes.  The per-layer weights (tv2o-medium:
 // q/k/v 3M, o 1M, gate/up 8M, down 4M parameters, 33.5 MB in bf16) are read
 // once per event, 403 MB at 12 layers — 0.12 ms at 3.35 TB/s — plus the
 // cached rows each slot attends over (2 * len * H * dh * sizeof(T) per
-// slot and layer).  This first version is far from that floor (~4 ms at
+// slot and layer; int8 pools: 1 byte a value plus 4 bytes of scales a row
+// and head).  This first version is far from that floor (~4 ms at
 // bs=32): its 60 phases per event pay staging, CUDA-core FMA and barrier
 // latency (PERF.md).
 //
@@ -22,33 +28,43 @@
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(mm::kDecThreads, 1) fused_step_kernel(mm::StepParams<T> p) {
+template <typename T, typename KV>
+__global__ void __launch_bounds__(mm::kDecThreads, 1) fused_step_kernel(mm::StepParams<T, KV> p) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);  // gemv2's staged tile; attention scores
   __shared__ float rs[mm::kMaxBatch];
-  mm::fused_step_body<T>(p, 0, xs, rs);
+  mm::fused_step_body<T, KV>(p, 0, xs, rs);
 }
 
 // The packed host arrays of mm::fill_step_params.
-template <typename T>
+template <typename T, typename KV>
 int launch(const void* const* ptrs, const int* ints, const float* floats, void* stream) {
-  mm::StepParams<T> p;
+  mm::StepParams<T, KV> p;
   if (!mm::fill_step_params(p, ptrs, ints, floats))
     return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&p};
-  return mm::launch_cooperative(fused_step_kernel<T>, mm::kDecThreads, mm::kGemvSmem, 1 << 20,
-                                args, stream);
+  return mm::launch_cooperative(fused_step_kernel<T, KV>, mm::kDecThreads, mm::kGemvSmem,
+                                1 << 20, args, stream);
 }
 
 }  // namespace
 
 extern "C" int mm_fused_step_f32(const void* const* ptrs, const int* ints, const float* floats,
                                  void* stream) {
-  return launch<float>(ptrs, ints, floats, stream);
+  return launch<float, float>(ptrs, ints, floats, stream);
 }
 
 extern "C" int mm_fused_step_bf16(const void* const* ptrs, const int* ints, const float* floats,
                                   void* stream) {
-  return launch<__nv_bfloat16>(ptrs, ints, floats, stream);
+  return launch<__nv_bfloat16, __nv_bfloat16>(ptrs, ints, floats, stream);
+}
+
+extern "C" int mm_fused_step_f32_int8(const void* const* ptrs, const int* ints,
+                                      const float* floats, void* stream) {
+  return launch<float, signed char>(ptrs, ints, floats, stream);
+}
+
+extern "C" int mm_fused_step_bf16_int8(const void* const* ptrs, const int* ints,
+                                       const float* floats, void* stream) {
+  return launch<__nv_bfloat16, signed char>(ptrs, ints, floats, stream);
 }

@@ -17,6 +17,17 @@
 // before P.V, the normalizer l and the merge stay f32.  The residual stream
 // x [B, D] is updated in place; the final norm stays outside.
 //
+// int8 pools (KV = signed char, the TPU kernel's `quantized` form): the
+// pools are READ ONLY.  A cached row dequantizes inside the attention math
+// from the bf16 scale pool [n_pages, page_size, 128] (k scales in lanes
+// [0:H], v scales in [H:2H]): score = (k_int8 . qsb) * k_scale, exact
+// products summed in f32; the v scale folds into the softmax weight, which
+// is rounded to bf16 before P.V (pexp * v_scale), while l sums pexp without
+// it.  Each layer's fresh k/v rows (in T) go to the [L, B, W] outputs
+// fresh_k / fresh_v instead of the pools: the wrapper quantizes them per
+// token and head and scatters them (ops/fused_step.py), as the TPU kernel's
+// wrapper does.
+//
 // Design: five phases per layer separated by a global-memory grid barrier:
 // norm + q/k/v (decode.cuh's gemv2), attention (one block per (slot, head),
 // one cached row per thread, the scores kept in shared memory — up to 16384
@@ -25,22 +36,31 @@
 // phase: at capacity the clipped write position is a row that phase reads.
 #pragma once
 
+#include <type_traits>
+
 #include "decode.cuh"
 
 namespace mm {
 
 constexpr int kStepMaxChunks = 4;  // head_dim <= 128
 constexpr int kStepMaxHeadDim = 32 * kStepMaxChunks;
+constexpr int kScaleLanes = 128;  // the int8 pools' scale row: k in [0:H], v in [H:2H]
 
-template <typename T>
+// KV: the pools' element type, T (updated in place) or signed char (int8,
+// read only).
+template <typename T, typename KV = T>
 struct StepParams {
+  static constexpr bool kQuant = std::is_same<KV, signed char>::value;
   const T *wqkv, *wo, *wgu, *wd, *ln;  // [L,3W,D], [L,D,W], [L,2F,D], [L,D,F], [L,2,D]
   const float *cos, *sin;              // [n_events, B, dh] at each slot's position
   const int *lengths, *wpos;           // [n_events, B]
-  T *k_pool, *v_pool;                  // [n_pages, page_size, W], updated in place
+  KV *k_pool, *v_pool;                 // [n_pages, page_size, W]
   T *x;                                // [B, D] residual stream, in place
-  T *qkv, *attn, *fresh_k, *gated;     // scratch
+  // scratch; fresh_k is [B, W] for T pools, the [L, B, W] output for int8 ones
+  T *qkv, *attn, *fresh_k, *gated;
   unsigned int* bar;                   // zeroed {count, generation}
+  const __nv_bfloat16* scales;         // int8 pools: [n_pages, page_size, 128]; else null
+  T* fresh_v;                          // int8 pools: [L, B, W] output; else null
   // The ragged event loop's per-slot alive mask [B] (null otherwise): a
   // retired slot attends over nothing, appends nothing and keeps its
   // residual frozen.
@@ -49,8 +69,8 @@ struct StepParams {
   float eps, scale;
 };
 
-template <typename T>
-__device__ __forceinline__ bool retired(const StepParams<T>& p, int b) {
+template <typename T, typename KV>
+__device__ __forceinline__ bool retired(const StepParams<T, KV>& p, int b) {
   return p.alive != nullptr && !p.alive[b];
 }
 
@@ -78,10 +98,13 @@ __device__ __forceinline__ void warp_sum64(float* v) {
 // maximum and rounded to T before P.V — the plain version's rounding point,
 // which an online softmax (weights against a running maximum) would move.
 // The per-thread P.V sums (64 dims at a time) reduce across lanes, then
-// across warps.
-template <typename T>
-__device__ void slot_head_attention(const StepParams<T>& p, int ev, int li, int b, int h,
+// across warps.  int8 pools: each row's k scale multiplies its score, its v
+// scale the softmax weight, which is then rounded to bf16 (the TPU kernel's
+// quantized form); the fresh rows go to the [L, B, W] outputs.
+template <typename T, typename KV>
+__device__ void slot_head_attention(const StepParams<T, KV>& p, int ev, int li, int b, int h,
                                     float* sc) {
+  constexpr bool kQuant = StepParams<T, KV>::kQuant;
   __shared__ float s_q[kStepMaxHeadDim];
   __shared__ float s_o[kStepMaxHeadDim];
   __shared__ float s_red[kDecWarps];
@@ -108,13 +131,13 @@ __device__ void slot_head_attention(const StepParams<T>& p, int ev, int li, int 
 
   const int len = retired(p, b) ? 0 : p.lengths[slot];
   const int base = (li * p.B + b) * p.pps;
-  auto row_at = [&](int t) {
-    return (static_cast<size_t>(base + t / p.page_size) * p.page_size + t % p.page_size) * W +
-           h * p.dh;
+  auto page_row = [&](int t) {
+    return static_cast<size_t>(base + t / p.page_size) * p.page_size + t % p.page_size;
   };
+  auto row_at = [&](int t) { return page_row(t) * W + h * p.dh; };
   float m = -CUDART_INF_F;
   for (int t = threadIdx.x; t < len; t += kDecThreads) {
-    const T* kr = p.k_pool + row_at(t);
+    const KV* kr = p.k_pool + row_at(t);
     float s = 0.f;
     for (int d = 0; d < p.dh; d += 8) {
       float kv[8];
@@ -122,6 +145,7 @@ __device__ void slot_head_attention(const StepParams<T>& p, int ev, int li, int 
 #pragma unroll
       for (int i = 0; i < 8; ++i) s += s_q[d + i] * kv[i];
     }
+    if constexpr (kQuant) s *= __bfloat162float(p.scales[page_row(t) * kScaleLanes + h]);
     sc[t] = s;
     m = fmaxf(m, s);
   }
@@ -139,9 +163,14 @@ __device__ void slot_head_attention(const StepParams<T>& p, int ev, int li, int 
     for (int d = 0; d < 64; ++d) acc[d] = 0.f;
     for (int t = threadIdx.x; t < len; t += kDecThreads) {
       const float pe = expf(sc[t] - big);
-      const float pv = round_to<T>(pe);  // P.V in the pool dtype
+      float pv;  // P.V in the pool dtype; int8: the v scale folded in, in bf16
+      if constexpr (kQuant)
+        pv = round_to<__nv_bfloat16>(
+            pe * __bfloat162float(p.scales[page_row(t) * kScaleLanes + p.H + h]));
+      else
+        pv = round_to<T>(pe);
       if (d0 == 0) l += pe;
-      const T* vr = p.v_pool + row_at(t) + d0;
+      const KV* vr = p.v_pool + row_at(t) + d0;
 #pragma unroll
       for (int d = 0; d < 64; d += 8) {
         float vv[8];
@@ -181,7 +210,8 @@ __device__ void slot_head_attention(const StepParams<T>& p, int ev, int li, int 
     const float wc = total * expf(big - m2);
     const float ws = expf(s_self - m2);
     T* out = p.attn + static_cast<size_t>(b) * W + h * p.dh;
-    T* fk = p.fresh_k + static_cast<size_t>(b) * W + h * p.dh;
+    // T pools: this layer's [B, W] scratch; int8: layer li's rows of the output
+    const size_t fresh = (kQuant ? (static_cast<size_t>(li) * p.B + b) : b) * W + h * p.dh;
 #pragma unroll
     for (int c = 0; c < kStepMaxChunks; ++c) {
       if (c < C) {
@@ -189,7 +219,8 @@ __device__ void slot_head_attention(const StepParams<T>& p, int ev, int li, int 
         const float o = total > 0.f ? s_o[d] / total : 0.f;
         const float v = to_f32(q[2 * W + d]);
         out[d] = from_f32<T>((wc * o + ws * v) / (wc + ws));
-        fk[d] = from_f32<T>(kr[c]);
+        p.fresh_k[fresh + d] = from_f32<T>(kr[c]);
+        if constexpr (kQuant) p.fresh_v[fresh + d] = q[2 * W + d];
       }
     }
   }
@@ -199,8 +230,8 @@ __device__ void slot_head_attention(const StepParams<T>& p, int ev, int li, int 
 // All L layers of event ev (its row of the cos/sin/lengths/wpos tables).
 // Every thread of every block calls it; it ends after the last layer's
 // down phase, without a grid barrier.
-template <typename T>
-__device__ void fused_step_body(const StepParams<T>& p, int ev, float* xs, float* rs) {
+template <typename T, typename KV>
+__device__ void fused_step_body(const StepParams<T, KV>& p, int ev, float* xs, float* rs) {
   const int B = p.B, D = p.D, W = p.H * p.dh, F = p.F;
   for (int li = 0; li < p.L; ++li) {
     const T* wqkv = p.wqkv + static_cast<size_t>(li) * 3 * W * D;
@@ -224,20 +255,23 @@ __device__ void fused_step_body(const StepParams<T>& p, int ev, float* xs, float
         xs);
     grid_barrier(p.bar);
     for (int item = blockIdx.x; item < B * p.H; item += gridDim.x)
-      slot_head_attention<T>(p, ev, li, item / p.H, item % p.H, xs);
+      slot_head_attention<T, KV>(p, ev, li, item / p.H, item % p.H, xs);
     grid_barrier(p.bar);
-    // append the fresh rows (every read of this layer's pages is done)
-    for (int i = blockIdx.x * kDecThreads + threadIdx.x; i < B * W;
-         i += gridDim.x * kDecThreads) {
-      const int b = i / W;
-      const int w = i - b * W;
-      if (retired(p, b)) continue;
-      const int pos = p.wpos[ev * B + b];
-      const size_t dst =
-          (static_cast<size_t>((li * B + b) * p.pps + pos / p.page_size) * p.page_size +
-           pos % p.page_size) * W + w;
-      p.k_pool[dst] = p.fresh_k[i];
-      p.v_pool[dst] = p.qkv[static_cast<size_t>(b) * 3 * W + 2 * W + w];
+    // append the fresh rows (every read of this layer's pages is done);
+    // int8 pools are read only: their rows left through fresh_k / fresh_v
+    if constexpr (!StepParams<T, KV>::kQuant) {
+      for (int i = blockIdx.x * kDecThreads + threadIdx.x; i < B * W;
+           i += gridDim.x * kDecThreads) {
+        const int b = i / W;
+        const int w = i - b * W;
+        if (retired(p, b)) continue;
+        const int pos = p.wpos[ev * B + b];
+        const size_t dst =
+            (static_cast<size_t>((li * B + b) * p.pps + pos / p.page_size) * p.page_size +
+             pos % p.page_size) * W + w;
+        p.k_pool[dst] = p.fresh_k[i];
+        p.v_pool[dst] = p.qkv[static_cast<size_t>(b) * 3 * W + 2 * W + w];
+      }
     }
     // o-proj + residual
     gemv2<T>(
@@ -281,12 +315,12 @@ __device__ void fused_step_body(const StepParams<T>& p, int ev, float* xs, float
 }
 
 // Fill p from the packed host arrays and advance the cursors.  ptrs: the
-// pointers of StepParams in declaration order up to `bar` (alive is left
-// null); ints: B, D, H, dh, F, L,
-// page_size, pages_per_slot; floats: eps, scale.  Returns false for shapes
-// the kernel does not take.
-template <typename T>
-bool fill_step_params(StepParams<T>& p, const void* const*& ptrs, const int*& ints,
+// pointers of StepParams in declaration order up to `fresh_v` (alive is
+// left null; scales and fresh_v are null for T pools); ints: B, D, H, dh,
+// F, L, page_size, pages_per_slot; floats: eps, scale.  Returns false for
+// shapes the kernel does not take.
+template <typename T, typename KV>
+bool fill_step_params(StepParams<T, KV>& p, const void* const*& ptrs, const int*& ints,
                       const float*& floats) {
   auto next = [&]() { return const_cast<void*>(*ptrs++); };
   for (const T** w : {&p.wqkv, &p.wo, &p.wgu, &p.wd, &p.ln}) *w = static_cast<const T*>(next());
@@ -294,15 +328,21 @@ bool fill_step_params(StepParams<T>& p, const void* const*& ptrs, const int*& in
   p.sin = static_cast<const float*>(next());
   p.lengths = static_cast<const int*>(next());
   p.wpos = static_cast<const int*>(next());
-  for (T** s : {&p.k_pool, &p.v_pool, &p.x, &p.qkv, &p.attn, &p.fresh_k, &p.gated})
-    *s = static_cast<T*>(next());
+  p.k_pool = static_cast<KV*>(next());
+  p.v_pool = static_cast<KV*>(next());
+  for (T** s : {&p.x, &p.qkv, &p.attn, &p.fresh_k, &p.gated}) *s = static_cast<T*>(next());
   p.bar = static_cast<unsigned int*>(next());
+  p.scales = static_cast<const __nv_bfloat16*>(next());
+  p.fresh_v = static_cast<T*>(next());
   p.alive = nullptr;
   for (int* f : {&p.B, &p.D, &p.H, &p.dh, &p.F, &p.L, &p.page_size, &p.pps}) *f = *ints++;
   p.eps = *floats++;
   p.scale = *floats++;
+  constexpr bool kQuant = StepParams<T, KV>::kQuant;
+  const bool quant_args = p.scales != nullptr && p.fresh_v != nullptr && 2 * p.H <= kScaleLanes;
   return p.dh <= kStepMaxHeadDim && p.dh % 64 == 0 && p.B <= kMaxBatch &&
-         static_cast<size_t>(p.page_size) * p.pps * sizeof(float) <= kGemvSmem;
+         static_cast<size_t>(p.page_size) * p.pps * sizeof(float) <= kGemvSmem &&
+         (kQuant ? quant_args : p.scales == nullptr && p.fresh_v == nullptr);
 }
 
 }  // namespace mm

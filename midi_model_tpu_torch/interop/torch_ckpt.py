@@ -15,16 +15,16 @@ import torch
 
 from ..models.config import MIDIModelConfig
 from ..models.midinet import MIDINet
+from . import safetensors_io
 
 
 def load_state_dict(path: str) -> Dict[str, np.ndarray]:
-    """Load a ``.safetensors`` or torch-pickle (``.bin``/``.ckpt``) checkpoint
-    into numpy arrays.  Pickles load with ``weights_only=True``."""
+    """Load a ``.safetensors`` (the port's own reader, ``safetensors_io``) or
+    torch-pickle (``.bin``/``.ckpt``) checkpoint into numpy arrays.  Pickles
+    load with ``weights_only=True``."""
     path = str(path)
     if path.endswith(".safetensors"):
-        from safetensors.numpy import load_file
-
-        return load_file(path)
+        return safetensors_io.load_file(path)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("state_dict", ckpt)
     return {k: v.float().numpy() for k, v in sd.items()
@@ -78,6 +78,30 @@ def from_jax_params(params_np: dict, config: MIDIModelConfig,
     sd["lm_head.weight"] = np.asarray(params_np["lm_head"]).T
     sd = {k: np.ascontiguousarray(v, dtype=np.float32) for k, v in sd.items()}
     return params_from_state_dict(sd, config, dtype=dtype, device=device)
+
+
+def to_jax_tree(named: Dict[str, torch.Tensor], config: MIDIModelConfig) -> dict:
+    """The inverse of :func:`from_jax_params` for any tree of the model's
+    shape — weights, gradients, optimizer moments: a dict keyed by the
+    port's parameter names (reference layout, torch ``[out, in]``) -> the
+    JAX package's nested layout (``[in, out]`` matrices stacked on a leading
+    layer axis), as f32 numpy arrays."""
+    def get(name):
+        return named[name].detach().float().cpu().numpy()
+
+    tree = {}
+    for prefix, cfg in (("net", config.net), ("net_token", config.net_token)):
+        layers = {ours: np.stack([get(f"{prefix}.layers.{i}.{theirs}").T
+                                  for i in range(cfg.num_layers)])
+                  for ours, theirs in _JAX_LAYER_NAMES.items()}
+        for ours, theirs in (("ln_attn", "input_layernorm.weight"),
+                             ("ln_mlp", "post_attention_layernorm.weight")):
+            layers[ours] = np.stack([get(f"{prefix}.layers.{i}.{theirs}")
+                                     for i in range(cfg.num_layers)])
+        tree[prefix] = {"embed": get(f"{prefix}.embed_tokens.weight"), "layers": layers,
+                        "final_norm": get(f"{prefix}.norm.weight")}
+    tree["lm_head"] = get("lm_head.weight").T
+    return tree
 
 
 def synthesize_state_dict(layout, seed: int = 0) -> Dict[str, np.ndarray]:

@@ -129,6 +129,19 @@ class MIDIModelConfig:
             "n_embd": self.n_embd,
         }
 
+    def save_pretrained(self, save_dir: str):
+        """Write ``config.json`` into ``save_dir`` (the reference layout)."""
+        import os
+
+        os.makedirs(save_dir, exist_ok=True)
+        with open(os.path.join(save_dir, "config.json"), "w") as f:
+            f.write(json.dumps(self.to_dict(), indent=2))
+
+    @staticmethod
+    def from_json_file(path) -> "MIDIModelConfig":
+        with open(path) as f:
+            return MIDIModelConfig.from_dict(json.load(f))
+
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "MIDIModelConfig":
         tok_d = d["tokenizer"]

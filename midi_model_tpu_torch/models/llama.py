@@ -15,8 +15,9 @@ loads with ``load_state_dict``.  Weights are torch ``[out, in]`` matrices.
 
 Three ways through the stack:
 
-- :meth:`LlamaStack.forward` — no cache (causal attention kernel on CUDA),
-  or a small dense cache (the 8-position token net);
+- :meth:`LlamaStack.forward` — no cache (causal attention kernel on CUDA,
+  differentiable: the training forward), or a small dense cache (the
+  8-position token net);
 - :meth:`LlamaStack.prefill_paged` — a whole prompt, K/V written straight
   into paged pools (``ops.paged_allheads`` layout);
 - :meth:`LlamaStack.decode_paged` — one token per slot over the pools, with
@@ -29,6 +30,8 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.func
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops import paged_allheads as pa
@@ -143,6 +146,26 @@ class LlamaLayer(nn.Module):
         x = x + self.self_attn.o_proj(attn)
         return x + self.mlp(self.post_attention_layernorm(x))
 
+    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+        """The cacheless layer: causal self-attention over x [B, S, D]."""
+        b, s, _ = x.shape
+        q, k, v = self.qkv(x, cos, sin)
+        return self.finish(x, causal_attention(q, k, v).reshape(b, s, -1))
+
+
+def _recomputed(layer: LlamaLayer, x: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor) -> torch.Tensor:
+    """``layer(x)`` under ``torch.utils.checkpoint``, recomputed in the
+    backward.  The layer's weights go in as inputs and the recompute binds
+    them again: under ``torch.func.functional_call`` (the trainer's cast
+    weights) they are not the module's own once the call has returned."""
+    names, weights = zip(*layer.named_parameters())
+
+    def run(x, *weights):
+        return torch.func.functional_call(layer, dict(zip(names, weights)), (x, cos, sin))
+
+    return torch.utils.checkpoint.checkpoint(run, x, *weights, use_reentrant=False)
+
 
 class DenseCache(NamedTuple):
     """Small dense KV cache ``k, v: [L, B, T, Hkv, Dh]`` with an aligned
@@ -173,32 +196,41 @@ class LlamaStack(nn.Module):
             LlamaLayer(cfg, dtype, device) for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype, device)
 
-    def forward(self, emb: torch.Tensor, cache: Optional[DenseCache] = None
-                ) -> Tuple[torch.Tensor, Optional[DenseCache]]:
+    def forward(self, emb: torch.Tensor, cache: Optional[DenseCache] = None,
+                remat: bool = False) -> Tuple[torch.Tensor, Optional[DenseCache]]:
         """``emb [B, S, D]`` -> (hidden after the final norm, cache).
 
-        Without a cache: causal self-attention over the S rows.  With one:
+        Without a cache: causal self-attention over the S rows — the
+        training forward (``causal_attention`` is differentiable; the pools
+        of the paged paths are written in place and are not).  With one:
         positions start at ``cache.index``, the new K/V are written into the
-        cache in place and attention spans all cached positions."""
+        cache in place and attention spans all cached positions.
+
+        ``remat`` (cacheless only): each layer runs under
+        ``torch.utils.checkpoint`` and is recomputed in the backward — the
+        JAX package's ``remat=True`` (``--remat full``)."""
         b, s, _ = emb.shape
         cfg = self.cfg
         start = 0 if cache is None else cache.index
         positions = torch.arange(start, start + s, device=emb.device)
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         if cache is not None:
+            if remat:
+                raise ValueError("remat applies to the cacheless forward only")
             k_pos = torch.arange(cache.k.shape[2], device=emb.device)
             bias = torch.where(k_pos[None, :] <= positions[:, None], 0.0,
                                -torch.inf)[None, None]
+
         x = emb
         for li, layer in enumerate(self.layers):
-            q, k, v = layer.qkv(x, cos, sin)
             if cache is None:
-                attn = causal_attention(q, k, v)
+                x = _recomputed(layer, x, cos, sin) if remat else layer(x, cos, sin)
             else:
+                q, k, v = layer.qkv(x, cos, sin)
                 cache.k[li, :, start:start + s] = k
                 cache.v[li, :, start:start + s] = v
                 attn = attention_reference(q, cache.k[li], cache.v[li], bias)
-            x = layer.finish(x, attn.reshape(b, s, -1))
+                x = layer.finish(x, attn.reshape(b, s, -1))
         if cache is not None:
             cache = cache._replace(index=start + s)
         return self.norm(x), cache

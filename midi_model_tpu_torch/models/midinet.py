@@ -9,13 +9,14 @@ Counterpart of ``midi_model_tpu/models/midinet.py``:
   hidden state at position 0;
 - one shared ``lm_head`` projects both nets' hidden states to the vocab.
 
-The module is inference-only in this package for now (parameters do not
-require grad); training comes with its own port.
+The module's own parameters do not require grad: the trainer
+(``train.trainer``) keeps f32 master weights of its own and runs the module
+on their compute-dtype copies (``torch.func.functional_call``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -56,14 +57,14 @@ class MIDINet(nn.Module):
         emb = self.net.embed_tokens(tokens.long())
         return emb.to(self.dtype).sum(dim=-2)
 
-    def forward(self, x: torch.Tensor, cache: Optional[DenseCache] = None
-                ) -> Tuple[torch.Tensor, Optional[DenseCache]]:
+    def forward(self, x: torch.Tensor, cache: Optional[DenseCache] = None,
+                remat: bool = False) -> Tuple[torch.Tensor, Optional[DenseCache]]:
         """Event net: ``x [B, L, T]`` -> (hidden ``[B, L, D]``, cache)."""
-        return self.net(self.embed_events(x), cache)
+        return self.net(self.embed_events(x), cache, remat=remat)
 
     def forward_token(self, hidden_state: Optional[torch.Tensor],
                       x: Optional[torch.Tensor],
-                      cache: Optional[DenseCache] = None
+                      cache: Optional[DenseCache] = None, remat: bool = False
                       ) -> Tuple[torch.Tensor, Optional[DenseCache]]:
         """Token net + lm_head.  hidden_state [B, D] (sequence position 0) or
         None when continuing from a cache; x [B, T] token ids or None.
@@ -74,12 +75,33 @@ class MIDINet(nn.Module):
         if x is not None:
             parts.append(self.net_token.embed_tokens(x.long()).to(self.dtype))
         seq = torch.cat(parts, dim=1)
-        h, cache = self.net_token(seq, cache)
+        h, cache = self.net_token(seq, cache, remat=remat)
         return self.logits(h), cache
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """The shared head in f32 (the JAX package's ``lm_head``)."""
         return self.lm_head(hidden).float()
+
+    def train_logits(self, batch: torch.Tensor) -> "TrainOutput":
+        """The training forward (``midinet.train_logits``): ``batch [B, L,
+        T]`` -> next-event prediction factorized per token.  The event net
+        summarizes rows 0..i; the token net, teacher-forced on row i+1's
+        tokens with the event hidden prepended, predicts each of them."""
+        x, y = batch[:, :-1], batch[:, 1:]
+        hidden, _ = self(x)
+        b, lm1, d = hidden.shape
+        y = y.reshape(b * lm1, y.shape[-1])
+        logits, _ = self.forward_token(hidden.reshape(b * lm1, d), y[:, :-1])
+        return TrainOutput(logits=logits, targets=y)
+
+
+class TrainOutput(NamedTuple):
+    logits: torch.Tensor  # [B*(L-1), T, vocab] float32
+    targets: torch.Tensor  # [B*(L-1), T]
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
 
 
 @torch.no_grad()

@@ -37,7 +37,8 @@ LAUNCHES: collections.Counter = collections.Counter()
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PAGED = [_P] * 14 + [_I] * 7 + [_P]
 _STREAM = [_P] * 16 + [_I] * 9 + [_P]
-_ATTN = [_P] * 4 + [_I] * 5 + [_P, _P]
+_ATTN = [_P] * 5 + [_I] * 5 + [_P, _P]
+_ATTN_BWD = [_P] * 10 + [_I] * 5 + [_P, _P]
 # the whole-step decode kernels take host arrays of pointers, ints and
 # floats (their parameter structs, filled on the C side) and the stream
 _PACKED = [_P] * 4
@@ -51,10 +52,14 @@ _SIGNATURES = {
     "mm_paged_decode_stream_int8": _STREAM,
     "mm_causal_attention_f32": _ATTN,
     "mm_causal_attention_bf16": _ATTN,
+    "mm_causal_attention_bwd_f32": _ATTN_BWD,
+    "mm_causal_attention_bwd_bf16": _ATTN_BWD,
     "mm_token_row_f32": _PACKED,
     "mm_token_row_bf16": _PACKED,
     "mm_fused_step_f32": _PACKED,
     "mm_fused_step_bf16": _PACKED,
+    "mm_fused_step_f32_int8": _PACKED,
+    "mm_fused_step_bf16_int8": _PACKED,
     "mm_event_loop_f32": _PACKED,
     "mm_event_loop_bf16": _PACKED,
     "mm_event_loop_ragged_f32": _PACKED,

@@ -1,10 +1,17 @@
-"""Attention: the plain dense version and the causal attention kernel.
+"""Attention: the plain dense version and the causal attention kernels.
 
 Counterpart of ``midi_model_tpu/ops/attention.py``.  :func:`causal_attention`
-runs the CUDA kernel (``csrc/causal_attention.cu``) on CUDA tensors, at
-every sequence length (one code path; the JAX package's 512-row threshold
-for its flash kernels was a TPU tuning), and :func:`attention_reference`
-under the causal bias on CPU tensors.
+runs the CUDA forward kernel (``csrc/causal_attention.cu``) on CUDA tensors,
+at every sequence length (one code path; the JAX package's 512-row
+threshold for its flash kernels was a TPU tuning), and
+:func:`attention_reference` under the causal bias on CPU tensors.
+
+Where a gradient is needed it is a ``torch.autograd.Function``: the forward
+also keeps each row's f32 log-sum-exp, and the backward is the CUDA kernel
+``csrc/causal_attention_bwd.cu`` on CUDA tensors (JAX trains through the
+splash kernel's fused dq/dkv backward) and
+:func:`causal_attention_backward_reference` — the same FlashAttention-2
+formulas in plain PyTorch — on CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,15 +30,26 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Counterpart of ``xla_attention``: f32 scores scaled by ``Dh**-0.5``, f32
     softmax, probabilities cast to the input dtype before P.V, which
     accumulates in f32; the output is in the input dtype."""
-    h, dh = q.shape[2], q.shape[3]
-    hkv = k.shape[2]
-    if hkv != h:
-        k = k.repeat_interleave(h // hkv, dim=2)
-        v = v.repeat_interleave(h // hkv, dim=2)
-    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * dh ** -0.5
-    probs = torch.softmax(scores + mask_bias, dim=-1).to(q.dtype)
-    out = torch.einsum("bhst,bthd->bshd", probs.float(), v.float())
-    return out.to(q.dtype)
+    return _reference_with_lse(q, k, v, mask_bias)[0]
+
+
+def _scores(q, k, h):
+    """f32 scores [B, H, S, T] scaled by ``Dh**-0.5``, k repeated over each
+    kv head's query heads."""
+    dh = q.shape[3]
+    k = k.float().repeat_interleave(h // k.shape[2], dim=2)
+    return torch.einsum("bshd,bthd->bhst", q.float(), k) * dh ** -0.5
+
+
+def _reference_with_lse(q, k, v, mask_bias):
+    """:func:`attention_reference` and each row's f32 log-sum-exp [B, H, S]."""
+    h = q.shape[2]
+    scores = _scores(q, k, h) + mask_bias
+    lse = torch.logsumexp(scores, dim=-1)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    v = v.float().repeat_interleave(h // v.shape[2], dim=2)
+    out = torch.einsum("bhst,bthd->bshd", probs.float(), v)
+    return out.to(q.dtype), lse
 
 
 def causal_bias(s: int, device: torch.device) -> torch.Tensor:
@@ -41,12 +59,37 @@ def causal_bias(s: int, device: torch.device) -> torch.Tensor:
     return bias[None, None]
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                     ) -> torch.Tensor:
-    """Causal self-attention, q: [B,S,H,Dh], k/v: [B,S,Hkv,Dh] (any strides
-    with a contiguous last dim); returns a contiguous [B,S,H,Dh]."""
-    if _build.on_cpu(q, k, v):
-        return attention_reference(q, k, v, causal_bias(q.shape[1], q.device))
+def causal_attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
+                                        v: torch.Tensor, out: torch.Tensor,
+                                        dout: torch.Tensor, lse: torch.Tensor):
+    """The plain version of the backward kernel: (dq, dk, dv) of causal
+    attention from the forward's inputs, its output, the output's gradient
+    and its f32 log-sum-exp ``lse [B, H, S]``, in FlashAttention-2 form:
+    ``D = rowsum(dout * out)``, ``P = exp(s - lse)``, ``dv = P_T^T dout``
+    with P rounded to the input dtype as the forward rounds it,
+    ``dS = P * (dout v^T - D)``, ``dq = dS k * scale``,
+    ``dk = dS^T q * scale``; a kv head's dk / dv sum over its query heads.
+    f32 math; the gradients in the inputs' dtypes."""
+    b, s, h, dh = q.shape
+    hkv = k.shape[2]
+    groups = h // hkv
+    scale = dh ** -0.5
+    kr = k.float().repeat_interleave(groups, dim=2)
+    vr = v.float().repeat_interleave(groups, dim=2)
+    g = dout.float()
+    causal = causal_bias(s, q.device) == 0
+    p = torch.where(causal, torch.exp(_scores(q, k, h) - lse[..., None]), 0.0)
+    delta = (g * out.float()).sum(dim=-1).transpose(1, 2)  # [B, H, S]
+    dv = torch.einsum("bhst,bshd->bthd", p.to(q.dtype).float(), g)
+    ds = p * (torch.einsum("bshd,bthd->bhst", g, vr) - delta[..., None])
+    dq = torch.einsum("bhst,bthd->bshd", ds, kr) * scale
+    dk = torch.einsum("bhst,bshd->bthd", ds, q.float()) * scale
+    dk = dk.view(b, s, hkv, groups, dh).sum(dim=3)
+    dv = dv.view(b, s, hkv, groups, dh).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(q, k, v):
     b, s, h, dh = q.shape
     hkv = k.shape[2]
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -59,13 +102,85 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                          f"v {tuple(v.shape)}: head_dim 64 or 256")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the head_dim axis must be contiguous")
+
+
+def _strides(q, k, v):
+    return (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool):
+    """(out, lse or None): the kernel on CUDA tensors, the plain version on
+    CPU tensors."""
+    if _build.on_cpu(q, k, v):
+        if not with_lse:
+            return attention_reference(q, k, v, causal_bias(q.shape[1], q.device)), None
+        return _reference_with_lse(q, k, v, causal_bias(q.shape[1], q.device))
+    _check(q, k, v)
+    b, s, h, dh = q.shape
     out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
-                                      *v.stride()[:3])
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    strides = _strides(q, k, v)
     name = ("mm_causal_attention_f32" if q.dtype == torch.float32
             else "mm_causal_attention_bf16")
     _build.call(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, s, h, hkv, dh, ctypes.cast(strides, ctypes.c_void_p),
-                _build.stream_ptr(q.device))
+                None if lse is None else lse.data_ptr(), b, s, h, k.shape[2], dh,
+                ctypes.cast(strides, ctypes.c_void_p), _build.stream_ptr(q.device))
     _build.LAUNCHES["causal_attention"] += 1
-    return out
+    return out, lse
+
+
+def causal_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor):
+    """(dq, dk, dv): the backward kernel on CUDA tensors (one wrapper call:
+    the row sums, the dk/dv pass and the dq pass), the plain version on CPU
+    tensors.  dq is [B, S, H, Dh], dk and dv [B, S, Hkv, Dh], contiguous."""
+    if _build.on_cpu(q, k, v, out, dout, lse):
+        return causal_attention_backward_reference(q, k, v, out, dout, lse)
+    _check(q, k, v)
+    b, s, h, dh = q.shape
+    hkv = k.shape[2]
+    dout = dout.contiguous()
+    _build.check(out, "out", q.dtype, (b, s, h, dh))
+    _build.check(dout, "dout", q.dtype, (b, s, h, dh))
+    _build.check(lse, "lse", torch.float32, (b, h, s))
+    dq = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, hkv, dh), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, s, hkv, dh), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    strides = _strides(q, k, v)
+    name = ("mm_causal_attention_bwd_f32" if q.dtype == torch.float32
+            else "mm_causal_attention_bwd_bf16")
+    _build.call(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), b, s, h, hkv, dh,
+                ctypes.cast(strides, ctypes.c_void_p), _build.stream_ptr(q.device))
+    _build.LAUNCHES["causal_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _CausalAttention(torch.autograd.Function):
+    """Causal attention with its backward kernel (or plain version)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = _forward(q, k, v, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return causal_attention_backward(q, k, v, out, dout, lse)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                     ) -> torch.Tensor:
+    """Causal self-attention, q: [B,S,H,Dh], k/v: [B,S,Hkv,Dh] (any strides
+    with a contiguous last dim); returns a contiguous [B,S,H,Dh].  Where
+    autograd records (a gradient enabled and an input that requires it)
+    the forward keeps its log-sum-exp and the backward runs
+    :func:`causal_attention_backward`."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _CausalAttention.apply(q, k, v)
+    return _forward(q, k, v, with_lse=False)[0]

@@ -46,20 +46,29 @@ from . import token_loop as tl
 EVENTS_PER_LAUNCH = 8  # the JAX package's EVENTS_PER_DISPATCH
 
 
-def why_not_fused(config, batch: int, capacity: int,
-                  pool_dtype: Optional[torch.dtype] = None) -> Optional[str]:
-    """Why the fused decode kernels (token row, whole step, event loop)
-    cannot take ``config`` at ``batch`` slots of ``capacity`` rows with
-    pools of ``pool_dtype``, or None when they can: the rule behind
+def why_not_fused(config, batch: int, capacity: int) -> Optional[str]:
+    """Why the per-event kernel pair (token row, then the whole step) cannot
+    take ``config`` at ``batch`` slots of ``capacity`` rows, or None when it
+    can — on bf16, f32 and int8 pools alike: the rule behind
     ``decode_events(fused=None)`` and the batcher's ``fused=None``."""
-    if pool_dtype == torch.int8:
-        return "fused step: int8 pools are not ported yet (B4 on int8 pools)"
     problem = (tl.kernel_limits(config, batch)
                or fs.kernel_limits(config.net, batch, capacity))
     if problem is None and config.net.hidden_size != config.net_token.hidden_size:
-        problem = (f"event loop: the event and token nets' widths differ "
+        problem = (f"fused kernels: the event and token nets' widths differ "
                    f"({config.net.hidden_size}, {config.net_token.hidden_size})")
     return problem
+
+
+def why_not_event_loop(config, batch: int, capacity: int,
+                       pool_dtype: torch.dtype) -> Optional[str]:
+    """Why the event-loop kernel (whole events per launch, aligned or
+    ragged) cannot take ``config`` at ``batch`` slots of ``capacity`` rows
+    with pools of ``pool_dtype``, or None when it can.  Pools of the weights'
+    dtype only, as the JAX package's event loop (``event_loop.py:921``,
+    ``:1099``, ``:1327``): int8 pools take the per-event pair."""
+    if pool_dtype == torch.int8:
+        return "event loop: bf16/f32 pools only (int8 pools take the per-event pair)"
+    return why_not_fused(config, batch, capacity)
 
 
 def event_embedding(model, row: torch.Tensor) -> torch.Tensor:
@@ -126,7 +135,7 @@ def decode_event_block(model, config, fused: fs.FusedWeights,
     if n_events < 1 or len0 < 0 or len0 + n_events > capacity:
         raise ValueError(f"event loop: {n_events} events from length {len0} "
                          f"do not fit a capacity of {capacity}")
-    problem = why_not_fused(config, b, capacity)
+    problem = why_not_event_loop(config, b, capacity, pools.k.dtype)
     if problem:
         raise ValueError(problem)
     dtype = model.dtype
@@ -148,7 +157,7 @@ def decode_event_block(model, config, fused: fs.FusedWeights,
     _build.check(emb_net, "event embedding", dtype,
                  (config.tokenizer.vocab_size, config.net.hidden_size))
     ev_acc = torch.empty((b, config.net.hidden_size), dtype=torch.float32, device=device)
-    sptrs, sints, sfloats, xs, skeep = fs.kernel_args(
+    sptrs, sints, sfloats, xs, _, skeep = fs.kernel_args(
         fused, config.net, hidden, pools, lengths, lengths, cos.contiguous(),
         sin.contiguous(), page_size=page_size, pages_per_slot=pages_per_slot, bar=bar)
     _build.check(fused.final_norm, "final_norm", dtype, (config.net.hidden_size,))
@@ -241,7 +250,7 @@ def decode_event_block_ragged(model, config, fused: fs.FusedWeights,
     capacity = pages_per_slot * page_size
     if n_events < 1:
         raise ValueError(f"ragged event loop: {n_events} events")
-    problem = why_not_fused(config, b, capacity, pools.k.dtype)
+    problem = why_not_event_loop(config, b, capacity, pools.k.dtype)
     if problem:
         raise ValueError(problem)
     dtype = model.dtype
@@ -265,7 +274,7 @@ def decode_event_block_ragged(model, config, fused: fs.FusedWeights,
                  (config.tokenizer.vocab_size, config.net.hidden_size))
     ev_acc = torch.empty((b, config.net.hidden_size), dtype=torch.float32, device=device)
     # the residual starts at zero: a slot dead at entry keeps it
-    sptrs, sints, sfloats, xs, skeep = fs.kernel_args(
+    sptrs, sints, sfloats, xs, _, skeep = fs.kernel_args(
         fused, config.net, torch.zeros_like(hidden, dtype=dtype), pools, lengths, wpos,
         cos.contiguous(), sin.contiguous(), page_size=page_size,
         pages_per_slot=pages_per_slot, bar=bar)

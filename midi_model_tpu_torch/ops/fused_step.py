@@ -12,10 +12,22 @@ one (``qs32``); the softmax weights are rounded to the pool dtype before
 P.V while their sum ``l`` and the merge stay f32.
 
 MHA only, with packed pages (``head_stride == head_dim``); bf16 or f32
-pools of the weights' dtype.  Ragged ``index`` and an ``active`` mask are
-supported: an inactive slot attends over nothing, and — as in the TPU
-kernel — every slot's fresh row is written at ``clip(index, 0, cap-1)``.
-The pools are updated IN PLACE (the returned pools are the same tensors).
+pools of the weights' dtype, or int8 pools with their bf16 scale pool
+(``fused_step.py:466-660``, the TPU kernel's quantized form).  Ragged
+``index`` and an ``active`` mask are supported: an inactive slot attends
+over nothing.  As in the TPU kernel, every slot's fresh row is written at
+``clip(index, 0, cap-1)`` on bf16/f32 pools, but only the active slots' rows
+on int8 pools.  The pools are updated IN PLACE (the returned pools are the
+same tensors).
+
+On int8 pools the kernel reads the pools and never writes them.  A cached
+row dequantizes in the attention math: its score is ``(k_int8 . qsb) *
+k_scale``, and its softmax weight times its v scale is rounded to bf16
+before P.V, while ``l`` sums the weights without the v scale.  The kernel
+returns each layer's fresh rows ``[L, B, W]``; :func:`_append_int8` then
+quantizes them per token and head (``quantize_packed``) and scatters them
+with their scale rows, as the JAX wrapper does outside its kernel.  The
+self term uses the unquantized fresh row in f32, as on bf16 pools.
 """
 
 from __future__ import annotations
@@ -27,7 +39,7 @@ import torch.nn.functional as F
 
 from ..models.llama import LlamaStack, apply_rope, rms_norm, rope_cos_sin
 from . import _build
-from .paged_allheads import PagedPools, head_stride
+from .paged_allheads import LANE, PagedPools, combine_scales, head_stride, quantize_packed
 
 
 class FusedWeights(NamedTuple):
@@ -92,9 +104,8 @@ def _slot_tables(index, active, b, capacity, device):
 
 def _check_shapes(fused: FusedWeights, cfg, pools: PagedPools, b: int,
                   page_size: int, pages_per_slot: int):
-    if pools.k.dtype == torch.int8:
-        raise NotImplementedError("fused step: int8 pools are not ported yet "
-                                  "(B4 on int8 pools)")
+    if (pools.k.dtype == torch.int8) != pools.quantized:
+        raise TypeError(f"pools: {pools.k.dtype} with scales: {pools.quantized}")
     if not _packed_mha(cfg):
         raise ValueError("fused step: MHA event net with head_stride == "
                          "head_dim required")
@@ -130,12 +141,16 @@ def fused_decode_step_reference(fused: FusedWeights, cfg, x: torch.Tensor,
              < lengths.long()[:, None, None])  # [B, 1, cap]
     slot_k = pools.k.view(n_layers * b, capacity, h, dh)
     slot_v = pools.v.view(n_layers * b, capacity, h, dh)
+    if pools.quantized:  # per (row, head) k and v scales: [L*B, cap, H]
+        slot_s = pools.scales.view(n_layers * b, capacity, LANE).float()
+        slot_ks, slot_vs = slot_s[..., :h], slot_s[..., h:2 * h]
     slots = torch.arange(b, device=x.device)
     write_pages = slots * pages_per_slot + wpos.long() // page_size
     write_offs = wpos.long() % page_size
     appends = slots
     if not append_inactive and active is not None:
         appends = slots[active.to(device=x.device, dtype=torch.bool)]
+    fresh = []  # int8 pools: each layer's fresh (k, v) rows, appended at the end
 
     x = x.to(dtype)
     for li in range(n_layers):
@@ -146,14 +161,21 @@ def fused_decode_step_reference(fused: FusedWeights, cfg, x: torch.Tensor,
         v = v[:, 0]
         qs32 = qr.float() * scale
         qsb = qs32.to(dtype).float()
-        kc = slot_k[li * b:(li + 1) * b].float()  # [B, cap, H, dh]
-        vc = slot_v[li * b:(li + 1) * b]
-        scores = torch.where(valid, torch.einsum("bhd,bthd->bht", qsb, kc),
-                             -torch.inf)
+        layer = slice(li * b, (li + 1) * b)
+        kc = slot_k[layer].float()  # [B, cap, H, dh]
+        vc = slot_v[layer]
+        scores = torch.einsum("bhd,bthd->bht", qsb, kc)
+        if pools.quantized:  # exact int8 x bf16 products, then the row's k scale
+            scores = scores * slot_ks[layer].transpose(1, 2)
+        scores = torch.where(valid, scores, -torch.inf)
         m = scores.max(dim=-1).values  # [B, H]; -inf for an empty slot
         pexp = torch.where(valid, torch.exp(scores - m[..., None]), 0.0)
         l = pexp.sum(dim=-1)
-        acc = torch.einsum("bht,bthd->bhd", pexp.to(vc.dtype).float(), vc.float())
+        if pools.quantized:  # the v scale folds into the weight, rounded to bf16
+            weights = (pexp * slot_vs[layer].transpose(1, 2)).to(torch.bfloat16)
+        else:
+            weights = pexp.to(vc.dtype)
+        acc = torch.einsum("bht,bthd->bhd", weights.float(), vc.float())
         o = acc / torch.clamp(l, min=1e-30)[..., None]
         s_self = torch.sum(qs32 * kr.float(), dim=-1)
         m2 = torch.maximum(m, s_self)
@@ -161,15 +183,50 @@ def fused_decode_step_reference(fused: FusedWeights, cfg, x: torch.Tensor,
         w_self = torch.exp(s_self - m2)
         attn = ((w_cache[..., None] * o + w_self[..., None] * v.float())
                 / (w_cache + w_self)[..., None])
-        # append after every read of this layer's pages
-        pages = li * b * pages_per_slot + write_pages[appends]
-        pools.k[pages, write_offs[appends]] = kr.reshape(b, w)[appends].to(pools.k.dtype)
-        pools.v[pages, write_offs[appends]] = v.reshape(b, w)[appends].to(pools.v.dtype)
+        if pools.quantized:
+            fresh.append((kr.reshape(b, w), v.reshape(b, w)))
+        else:  # append after every read of this layer's pages
+            pages = li * b * pages_per_slot + write_pages[appends]
+            pools.k[pages, write_offs[appends]] = kr.reshape(b, w)[appends].to(pools.k.dtype)
+            pools.v[pages, write_offs[appends]] = v.reshape(b, w)[appends].to(pools.v.dtype)
         x = x + F.linear(attn.reshape(b, w).to(dtype), fused.wo[li])
         gate, up = F.linear(rms_norm(x, fused.ln[li, 1], eps),
                             fused.wgu[li]).split(f, dim=-1)
         x = x + F.linear(F.silu(gate) * up, fused.wd[li])
+    if pools.quantized:
+        kn, vn = (torch.stack(t) for t in zip(*fresh))
+        _append_int8(pools, kn, vn, wpos, active, cfg, page_size=page_size,
+                     pages_per_slot=pages_per_slot)
     return rms_norm(x, fused.final_norm, eps), pools
+
+
+def _append_int8(pools: PagedPools, kn: torch.Tensor, vn: torch.Tensor,
+                 wpos: torch.Tensor, active: Optional[torch.Tensor], cfg, *,
+                 page_size: int, pages_per_slot: int) -> None:
+    """Quantize every layer's fresh rows kn / vn [L, B, W] per token and head
+    and write them, with their combined scale rows, at each ACTIVE slot's
+    (page, wpos % page_size) of its layer (``fused_step.py:642-660``: an
+    inactive slot's update is dropped), in place.  An inactive slot's row is
+    written back with what it held: selecting the active slots would read
+    the mask on the host and stall the stream every event."""
+    n_layers, b, w = kn.shape
+    h, dh = cfg.num_heads, cfg.head_dim
+    device = kn.device
+    kq, k_scale = quantize_packed(kn.view(n_layers, b, h, dh), h, dh)
+    vq, v_scale = quantize_packed(vn.view(n_layers, b, h, dh), h, dh)
+    srow = combine_scales(k_scale, v_scale, h)  # [L, B, 128]
+    wpos = wpos.long()
+    pages = ((torch.arange(n_layers, device=device)[:, None] * b
+              + torch.arange(b, device=device)) * pages_per_slot
+             + wpos // page_size).flatten()  # [L*B], distinct: a slot's pages are its own
+    offs = (wpos % page_size).repeat(n_layers)
+    keep = (None if active is None else
+            ~active.to(device=device, dtype=torch.bool).repeat(n_layers)[:, None])
+    for pool, rows in ((pools.k, kq), (pools.v, vq), (pools.scales, srow)):
+        rows = rows.reshape(n_layers * b, -1)
+        if keep is not None:
+            rows = torch.where(keep, pool[pages, offs], rows)
+        pool[pages, offs] = rows
 
 
 def fused_decode_step(fused: FusedWeights, cfg, x: torch.Tensor,
@@ -184,8 +241,7 @@ def fused_decode_step(fused: FusedWeights, cfg, x: torch.Tensor,
     [B, D] after the final norm, pools updated in place).  CPU tensors run
     the plain version, CUDA tensors the kernel (one launch) or raise."""
     tensors = [x, pools.k, pools.v, index, fused.wqkv]
-    if active is not None:
-        tensors.append(active)
+    tensors += [t for t in (pools.scales, active) if t is not None]
     if _build.on_cpu(*tensors):
         return fused_decode_step_reference(
             fused, cfg, x, pools, index, active, page_size=page_size,
@@ -197,14 +253,18 @@ def fused_decode_step(fused: FusedWeights, cfg, x: torch.Tensor,
     # the geometry of one event: [1, B] tables, [1, B, dh] RoPE rows
     cos, sin = rope_cos_sin(index[None, :], cfg.head_dim, cfg.rope_theta)
     bar = torch.zeros(2, dtype=torch.int32, device=x.device)
-    ptrs, ints, floats, xs, keep = kernel_args(
+    ptrs, ints, floats, xs, fresh, keep = kernel_args(
         fused, cfg, x, pools, lengths[None], wpos[None], cos.contiguous(),
         sin.contiguous(), page_size=page_size, pages_per_slot=pages_per_slot,
         bar=bar)
-    name = ("mm_fused_step_f32" if fused.wqkv.dtype == torch.float32
-            else "mm_fused_step_bf16")
+    name = "mm_fused_step_" + ("f32" if fused.wqkv.dtype == torch.float32 else "bf16")
+    if pools.quantized:
+        name += "_int8"
     _build.call_packed(name, ptrs, ints, floats, x.device)
-    _build.LAUNCHES["fused_step"] += 1
+    _build.LAUNCHES["fused_step_int8" if pools.quantized else "fused_step"] += 1
+    if pools.quantized:
+        _append_int8(pools, *fresh, wpos, active, cfg, page_size=page_size,
+                     pages_per_slot=pages_per_slot)
     del keep
     return rms_norm(xs, fused.final_norm, cfg.rms_norm_eps), pools
 
@@ -217,14 +277,16 @@ def kernel_args(fused: FusedWeights, cfg, x: torch.Tensor, pools: PagedPools,
     host arrays (``csrc/fused_step.cuh`` ``fill_step_params``).  The
     geometry has one row per event: lengths / wpos int32 [E, B], cos / sin
     f32 [E, B, dh]; bar: a zeroed int32 pair.  Returns (ptrs, ints, floats,
-    xs, keep): xs [B, D] is the residual stream the kernel updates in place
-    (starting from x); the tensors in ``keep`` must outlive the launch."""
+    xs, fresh, keep): xs [B, D] is the residual stream the kernel updates in
+    place (starting from x); fresh is None, or for int8 pools the kernel's
+    fresh-row outputs (k, v) [L, B, W]; the tensors in ``keep`` must outlive
+    the launch."""
     b, d = x.shape
     _check_shapes(fused, cfg, pools, b, page_size, pages_per_slot)
     dtype = fused.wqkv.dtype
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused step: no kernel for {dtype}")
-    if pools.k.dtype != dtype:
+    if pools.k.dtype != dtype and not pools.quantized:
         raise TypeError(f"fused step: pools {pools.k.dtype}, weights {dtype}")
     problem = kernel_limits(cfg, b, pages_per_slot * page_size)
     if problem:
@@ -239,8 +301,11 @@ def kernel_args(fused: FusedWeights, cfg, x: torch.Tensor, pools: PagedPools,
     _build.check(fused.wgu, "wgu", dtype, (n_layers, 2 * f, d))
     _build.check(fused.wd, "wd", dtype, (n_layers, d, f))
     _build.check(fused.ln, "ln", dtype, (n_layers, 2, d))
-    _build.check(pools.k, "pools.k", dtype)
-    _build.check(pools.v, "pools.v", dtype)
+    _build.check(pools.k, "pools.k", pools.k.dtype)
+    _build.check(pools.v, "pools.v", pools.k.dtype, pools.k.shape)
+    if pools.quantized:
+        _build.check(pools.scales, "pools.scales", torch.bfloat16,
+                     (*pools.k.shape[:2], LANE))
     _build.check(lengths, "lengths", torch.int32, (n_events, b))
     _build.check(wpos, "wpos", torch.int32, (n_events, b))
     _build.check(cos, "cos", torch.float32, (n_events, b, dh))
@@ -251,10 +316,14 @@ def kernel_args(fused: FusedWeights, cfg, x: torch.Tensor, pools: PagedPools,
         return torch.empty(shape, dtype=dtype, device=device)
 
     xs = x.to(dtype=dtype, copy=True).contiguous()  # the residual stream
+    # int8 pools: every layer's fresh k and v rows come out; else the fresh k
+    # rows of one layer are scratch
+    fresh = (empty(n_layers, b, w), empty(n_layers, b, w)) if pools.quantized else None
     # scratch: qkv, attention output, fresh k rows, gated MLP input
-    scratch = [empty(b, 3 * w), empty(b, w), empty(b, w), empty(b, f)]
+    scratch = [empty(b, 3 * w), empty(b, w), fresh[0] if fresh else empty(b, w), empty(b, f)]
     tensors = [fused.wqkv, fused.wo, fused.wgu, fused.wd, fused.ln, cos, sin,
-               lengths, wpos, pools.k, pools.v, xs, *scratch, bar]
+               lengths, wpos, pools.k, pools.v, xs, *scratch, bar,
+               pools.scales, fresh[1] if fresh else None]
     ints = [b, d, h, dh, f, n_layers, page_size, pages_per_slot]
-    return ([t.data_ptr() for t in tensors], ints,
-            [cfg.rms_norm_eps, dh ** -0.5], xs, tensors)
+    return ([None if t is None else t.data_ptr() for t in tensors], ints,
+            [cfg.rms_norm_eps, dh ** -0.5], xs, fresh, tensors)

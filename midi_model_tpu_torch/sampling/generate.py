@@ -13,21 +13,23 @@ Counterpart of ``midi_model_tpu/sampling/generate.py``:
     kernels take the model's shapes (``ops.event_loop.why_not_fused``: an
     MHA event net with packed pages, ``head_stride == head_dim``, as in the
     JAX package's ``usable`` rules without their TPU clauses, and the CUDA
-    kernels' own limits).  Whole blocks of ``EVENTS_PER_LAUNCH`` (8) events run
-    as one launch each (``ops.event_loop``); the rest of a chunk (its
-    remainder, the rows near capacity) runs one token-row launch
+    kernels' own limits).  On bf16 pools whole blocks of
+    ``EVENTS_PER_LAUNCH`` (8) events run as one launch each
+    (``ops.event_loop``); the rest of a chunk (its remainder, the rows near
+    capacity) — and every event on int8 pools, whose event loop the JAX
+    package does not have either — runs one token-row launch
     (``ops.token_loop``) and one whole-step launch over all event-net layers
     (``ops.fused_step``) per event, with the same semantics;
   * the **split** path — the token net step by step with the sampler
     kernel, then the per-layer ``decode_paged`` with the per-slot paged
-    decode kernel — for everything else (fp32, GQA, int8 pools), and on
-    request;
+    decode kernel — for everything else (fp32, GQA), and on request;
 - a chunk stops at its end, when every row emits eos in the same event
   (per-event "end" state, the reference's quirk), or at capacity.
 
 ``kv_int8`` stores the event KV as int8 pages with per-token-per-head bf16
-scales (``ops.paged_allheads``); it takes the split path (the whole-step
-kernel's int8 form is not ported yet).
+scales (``ops.paged_allheads``); with bf16 weights it takes the per-event
+pair, whose whole step reads the int8 pools (``generate.py:303-313``'s
+choice in the JAX package).
 
 The loop runs eagerly from the host.  Every random draw comes from an
 explicit ``torch.Generator`` on the generation device, one
@@ -198,21 +200,17 @@ def decode_events(model: MIDINet, config: MIDIModelConfig, state: GenState,
     ``fused``: True takes the fused path, False the split path, None the
     fused path for bf16 weights when ``why_not_fused`` finds nothing in the
     way.  With True the kernels raise on shapes they cannot take, and the
-    plain versions (CPU tensors) need an MHA event net with packed pages;
-    int8 pools raise ``NotImplementedError`` (B4's int8 form is not ported).
-    The fused path decodes whole blocks of ``event_loop.EVENTS_PER_LAUNCH``
-    events in one launch each, the rest one event at a time."""
+    plain versions (CPU tensors) need an MHA event net with packed pages.
+    On bf16/f32 pools the fused path decodes whole blocks of
+    ``event_loop.EVENTS_PER_LAUNCH`` events in one launch each, the rest one
+    event at a time; on int8 pools every event runs the per-event pair."""
     b = state.hidden.shape[0]
     tokenizer = config.tokenizer
     device = state.hidden.device
     max_seq = state.capacity(config, b)
-    if fused and state.pools.quantized:
-        raise NotImplementedError("the fused decode path on int8 pools (B4 on "
-                                  "int8 pools) is not ported yet")
     if fused is None:
         fused = (model.dtype == torch.bfloat16
-                 and event_loop.why_not_fused(config, b, max_seq,
-                                              state.pools.k.dtype) is None)
+                 and event_loop.why_not_fused(config, b, max_seq) is None)
     weights = prepare_fused(model.net) if fused else None
     temp = per_row(temp, b, torch.float32, device)
     top_p = per_row(top_p, b, torch.float32, device)
@@ -221,7 +219,8 @@ def decode_events(model: MIDINet, config: MIDIModelConfig, state: GenState,
                       tokenizer.pad_id, dtype=torch.int32, device=device)
     eos_possible = bool(masks.first[tokenizer.eos_id])
     knobs = (temp, top_p, top_k, generator, greedy, eos_possible, weights)
-    e = event_loop.EVENTS_PER_LAUNCH
+    # the event loop reads pools of the weights' dtype only
+    e = 1 if state.pools.quantized else event_loop.EVENTS_PER_LAUNCH
     step = 0
     while (step < n_events_chunk and not state.all_eos
            and state.cur_len < max_seq):
@@ -279,8 +278,7 @@ def generate(model: MIDINet, config: MIDIModelConfig,
     reproducible on one device and independent of ``chunk_size``; it is not
     the JAX package's draw for the same seed.  ``event_callback(rows)``
     receives each decoded chunk as numpy.  ``fused`` picks the decode path
-    as in :func:`decode_events`; ``kv_int8`` stores int8 pools (the split
-    path)."""
+    as in :func:`decode_events`; ``kv_int8`` stores int8 pools."""
     device = _device(model, device)
     tokenizer = config.tokenizer
     prompt = normalize_prompt(tokenizer, prompt, batch_size)

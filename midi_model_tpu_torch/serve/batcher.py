@@ -10,11 +10,15 @@ Counterpart of ``midi_model_tpu/serve/batcher.py`` on one device (its
   one prefill forward through the causal attention kernel and writes their
   K/V straight into their slots' pages, quantized for int8 pools;
 - one :meth:`ContinuousBatcher.step` decodes a chunk of events for every
-  slot: the ragged event-loop kernel (one launch per chunk) when the fused
-  kernels take the model (bf16 weights and pools, ``why_not_fused``), else
-  the split scan — the token-row kernel and ``decode_paged`` with the
-  streaming paged kernel, one event at a time.  An ``alive`` mask on the
-  device retires a slot mid-chunk on its eos row or at capacity;
+  slot (:attr:`ContinuousBatcher.path`): when the fused kernels take the
+  model (bf16 weights, ``why_not_fused``), the ragged event-loop kernel
+  (one launch per chunk) on bf16 pools, or the per-event pair — the
+  token-row kernel, then the whole-step kernel over the int8 pools — one
+  event at a time on int8 pools (the JAX package's ``_step_impl`` fused
+  branch, ``batcher.py:335-340``); else the split scan — the token-row
+  kernel and ``decode_paged`` with the streaming paged kernel, one event at
+  a time.  An ``alive`` mask on the device retires a slot mid-chunk on its
+  eos row or at capacity;
 - the host collects each slot's rows, retires slots on an eos row, budget
   or capacity, and reuses them for queued requests at once.
 
@@ -41,7 +45,7 @@ from ..models.config import MIDIModelConfig
 from ..models.midinet import MIDINet
 from ..ops import event_loop
 from ..ops import token_loop
-from ..ops.fused_step import prepare_fused
+from ..ops.fused_step import fused_decode_step, prepare_fused
 from ..ops.paged_allheads import alloc_pools
 from ..ops.sampler import sample_top_p_k
 from ..sampling.generate import mask_tensors
@@ -83,12 +87,16 @@ class ContinuousBatcher:
 
         ``max_seq`` is rounded up to a multiple of 4 pages: the capacity at
         which slots retire.  ``fused``: True runs each chunk through the
-        ragged event-loop kernel, False through the split scan, None the
-        former for bf16 weights and pools when
-        ``ops.event_loop.why_not_fused`` finds nothing in the way.
-        ``pipeline``: dispatch chunk N+1 before reading chunk N's rows
-        (default: on for a CUDA device, off on the CPU); per-request rows
-        are the same either way."""
+        fused kernels — the ragged event loop on bf16/f32 pools, the
+        per-event pair (token row, whole step) on int8 pools —, False
+        through the split scan, None the former for bf16 weights when
+        ``ops.event_loop.why_not_fused`` finds nothing in the way.  On int8
+        pools the JAX package keeps its fused branch off after a v5e
+        measurement (``batcher.py:590-604``); on the H100 the pair decoded
+        faster than the split scan (``chip_smoke.py`` phase 5, PERF.md), so
+        None takes it there too.  ``pipeline``: dispatch chunk N+1 before
+        reading chunk N's rows (default: on for a CUDA device, off on the
+        CPU); per-request rows are the same either way."""
         self.model = model
         self.config = config
         self.tokenizer = config.tokenizer
@@ -107,14 +115,12 @@ class ContinuousBatcher:
         self._pools = alloc_pools(net.kv_heads, net.num_layers * n_slots * self.pages_per_slot,
                                   page_size, net.head_dim, model.dtype, self.device,
                                   quantized=kv_int8)
-        if fused and kv_int8:
-            raise NotImplementedError("the ragged event loop on int8 pools (B4 on int8 "
-                                      "pools) is not ported yet")
         if fused is None:
             fused = (model.dtype == torch.bfloat16
-                     and event_loop.why_not_fused(config, n_slots, self.max_seq,
-                                                  self._pools.k.dtype) is None)
+                     and event_loop.why_not_fused(config, n_slots, self.max_seq) is None)
         self.fused = bool(fused)
+        # a chunk's decode: "event_loop" (one launch), "pair" or "split" (per event)
+        self.path = ("split" if not self.fused else "pair" if kv_int8 else "event_loop")
         self._weights = prepare_fused(model.net) if self.fused else None
         # the split scan's token row: the kernel where it takes the token net
         self._token_kernel = token_loop.kernel_limits(config, n_slots) is None
@@ -303,7 +309,7 @@ class ContinuousBatcher:
                      + torch.arange(self.chunk, dtype=torch.int32, device=self.device)[:, None])
         gumbel = None if self.greedy else slot_gumbel(kn["seed"], positions, t_max)
         knobs = (kn["temp"], kn["top_p"], kn["top_k"])
-        if self.fused:
+        if self.path == "event_loop":
             rows, self._hidden, self._pools = event_loop.decode_event_block_ragged(
                 self.model, self.config, self._weights, self._hidden, self._pools,
                 self._index, kn["active"], self.masks, *knobs, gumbel, kn["allow"],
@@ -314,7 +320,7 @@ class ContinuousBatcher:
             self._index = self._index + (rows[:, :, 0] != self.tokenizer.pad_id).sum(
                 0, dtype=torch.int32)
         else:
-            rows = self._split_chunk(kn, knobs, gumbel)
+            rows = self._per_event_chunk(kn, knobs, gumbel)
         rows = rows.transpose(0, 1)
         if self.device.type != "cuda":
             return rows.numpy(), None, snap
@@ -324,15 +330,17 @@ class ContinuousBatcher:
         ready.record()
         return host, ready, snap
 
-    def _split_chunk(self, kn: dict, knobs: tuple, gumbel):
+    def _per_event_chunk(self, kn: dict, knobs: tuple, gumbel):
         """The chunk one event at a time: the token row (kernel or plain,
         forced pad for retired slots), the summed event embedding, and the
-        event net's ``decode_paged`` over the streaming kernel with the
-        retired slots inactive.  Returns rows [chunk, B, T]."""
+        event-net step with the retired slots inactive — the whole-step
+        kernel (the pair) or ``decode_paged`` over the streaming kernel (the
+        split scan).  Returns rows [chunk, B, T]."""
         model, config = self.model, self.config
         capacity = self.max_seq
         eos_id = self.tokenizer.eos_id
         index, hidden, alive = self._index, self._hidden, kn["active"].clone()
+        geometry = dict(page_size=self.page_size, pages_per_slot=self.pages_per_slot)
         rows = []
         for e in range(self.chunk):
             noise = None if gumbel is None else gumbel[e]
@@ -344,9 +352,13 @@ class ContinuousBatcher:
                 row, _ = token_loop.decode_token_row_reference(
                     model, config, hidden, self.masks, *knobs, noise, greedy=self.greedy,
                     forced_pad=~alive, allow=kn["allow"], sample=sample_top_p_k)
-            h, self._pools = model.net.decode_paged(
-                model.embed_events(row[:, None, :])[:, 0], self._pools, index, alive,
-                page_size=self.page_size, pages_per_slot=self.pages_per_slot)
+            emb = model.embed_events(row[:, None, :])[:, 0]
+            if self.path == "pair":
+                h, self._pools = fused_decode_step(self._weights, config.net, emb,
+                                                   self._pools, index, alive, **geometry)
+            else:
+                h, self._pools = model.net.decode_paged(emb, self._pools, index, alive,
+                                                        **geometry)
             new_index = torch.where(alive, (index + 1).clamp(max=capacity), index)
             hidden = torch.where(alive[:, None], h, hidden)
             # mid-chunk retirement: the eos row went through the event net,

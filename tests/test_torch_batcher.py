@@ -291,9 +291,9 @@ def test_capacity_retirement_invariant_to_the_chunk(merged_model, pipeline):
 
 
 def test_fused_rule_and_int8(tiny, merged_model):
-    """``fused=None`` takes the ragged event loop for bf16 weights where
-    the kernels take the model, never for f32 weights or int8 pools; the
-    ragged event loop on int8 pools is not ported."""
+    """``fused=None`` takes the fused kernels for bf16 weights where they
+    take the model, never for f32 weights: the ragged event loop on bf16
+    pools, the per-event pair on int8 pools; the pair needs packed MHA."""
     _, cfg, _, model = tiny
     assert not ContinuousBatcher(model, cfg, n_slots=2, max_seq=64).fused
     mcfg = merged_model[0]
@@ -305,9 +305,41 @@ def test_fused_rule_and_int8(tiny, merged_model):
     wide = MIDIModelConfig.get_config("v2", True, n_layer=1, n_head=8, n_embd=512, n_inner=64)
     fused = ContinuousBatcher(init_model(wide, dtype=torch.bfloat16, device="cpu"), wide,
                               n_slots=2, max_seq=64)
-    assert fused.fused and fused._weights is not None
-    with pytest.raises(NotImplementedError):
-        ContinuousBatcher(model, cfg, n_slots=2, max_seq=64, kv_int8=True, fused=True)
+    assert fused.fused and fused._weights is not None and fused.path == "event_loop"
+    pair = ContinuousBatcher(init_model(wide, dtype=torch.bfloat16, device="cpu"), wide,
+                             n_slots=2, max_seq=64, kv_int8=True)
+    assert pair.fused and pair.path == "pair"
+    unpacked = ContinuousBatcher(model, cfg, n_slots=2, max_seq=64, kv_int8=True, fused=True)
+    unpacked.submit(bos_prompt(cfg.tokenizer), 4)
+    with pytest.raises(ValueError, match="head_stride"):  # 4 heads x 16: stride 32
+        unpacked.step()
     assert bt.PREFILL_BUCKETS == (16, 64, 256, 1024, 4096)
     b = ContinuousBatcher(model, cfg, n_slots=2, max_seq=100)
     assert b.max_seq == 256 and b.pages_per_slot == 4  # rounded to 4 pages of 64
+
+
+@pytest.mark.parametrize("chunk", [3, 5])
+def test_int8_pair_matches_generate(merged_model, chunk):
+    """int8 pools through the per-event pair (``fused=True``; token row,
+    then the whole step over the int8 pools, f32 weights): one greedy
+    request's rows equal ``generate(kv_int8=True, fused=True)``'s — the same
+    plain versions —, at either chunk size, and two staggered requests
+    beside it finish with the rows they decode alone."""
+    cfg, model = merged_model
+    tok = cfg.tokenizer
+    prompt = bos_prompt(tok, 1)
+    kw = dict(n_slots=2, max_seq=64, chunk=chunk, greedy=True, kv_int8=True, fused=True)
+    ref = generate(model, cfg, prompt=prompt.astype(np.int64), batch_size=1, max_len=10,
+                   greedy=True, kv_int8=True, fused=True)[0, 2:]
+    b = ContinuousBatcher(model, cfg, **kw)
+    assert b.path == "pair"
+    rid = b.submit(prompt, max_events=8)
+    got = b.run_all()[rid].rows
+    n = min(len(got), len(ref))
+    assert n > 0
+    np.testing.assert_array_equal(got[:n], ref[:n])
+    plan = [(0, bos_prompt(tok, 1), 8, {}), (1, bos_prompt(tok, 2), 6, {})]
+    together, ids = drive(model, cfg, plan, **kw)
+    np.testing.assert_array_equal(together[ids[0]].rows, got)
+    alone, _ = drive(model, cfg, plan[1:], **kw)
+    np.testing.assert_array_equal(together[ids[1]].rows, next(iter(alone.values())).rows)

@@ -6,7 +6,17 @@ pages of 16, bf16 weights and pools).
 Hidden states and the appended pool rows agree within 3e-2 (the bound the
 JAX package holds its kernel to; the two sides round their bf16 products
 and softmax weights at the same points but sum in another order); every
-other pool row is bit-identical to what it was."""
+other pool row is bit-identical to what it was.
+
+On int8 pools (the kernel's quantized form, as ``tests/test_fused_step.py``
+holds it): hidden within 3e-2; the appended rows' scales within rtol 2e-2
+and their dequantized values within 3e-2 plus one quantization step — the
+bf16 rows' tolerance above, and half a step of rounding on each side (a
+raw int8 comparison would not do: where the two sides' bf16 rows round a
+row's absmax, and so its scale, one bf16 step apart, a value near the
+absmax moves by two int8 steps for the same value); inactive slots append
+nothing and every other row, scale rows included, is bit-identical to what
+it was."""
 
 import numpy as np
 import pytest
@@ -91,6 +101,60 @@ def test_fused_step_matches_pallas_kernel(case, setup):
         np.testing.assert_array_equal(ref[~written], orig[~written])
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_fused_step_int8_matches_pallas_kernel(case, setup):
+    jcfg, cfg, params, model = setup
+    lengths, active = CASES[case]
+    b = len(lengths)
+    net = cfg.net
+    w = net.num_heads * net.head_dim
+    rng = np.random.default_rng(10 + len(case))
+    n_pages = net.num_layers * b * PPS
+    k0, v0 = (rng.integers(-127, 128, (n_pages, PS, w)).astype(np.int8) for _ in range(2))
+    s0 = (rng.random((n_pages, PS, pa.LANE)) * 0.05 + 1e-3).astype(np.float32)
+    s0 = torch.from_numpy(s0).to(torch.bfloat16)
+    x = rng.normal(size=(b, net.hidden_size)).astype(np.float32)
+    index = np.asarray(lengths, np.int32)
+
+    jpools = jpa.PagedPools(k=jnp.asarray(k0), v=jnp.asarray(v0),
+                            scales=jnp.asarray(s0.float().numpy(), jnp.bfloat16))
+    ref_h, ref_pools = jfs.fused_decode_step(
+        jfs.prepare_fused(params["net"]), jcfg.net, jnp.asarray(x), jpools,
+        jnp.asarray(index), None if active is None else jnp.asarray(active),
+        page_size=PS, pages_per_slot=PPS, interpret=True)
+
+    pools = pa.PagedPools(torch.from_numpy(k0.copy()), torch.from_numpy(v0.copy()), s0.clone())
+    h, out = fs.fused_decode_step(
+        fs.prepare_fused(model.net), net, torch.from_numpy(x), pools,
+        torch.from_numpy(index), None if active is None else torch.tensor(active),
+        page_size=PS, pages_per_slot=PPS)
+    assert out.k is pools.k and out.scales is pools.scales  # updated in place
+    np.testing.assert_allclose(h.float().numpy(), np.asarray(ref_h, np.float32), **TOL)
+
+    # rows the step appends: each ACTIVE slot of every layer at clip(index, 0, cap-1)
+    wpos = np.clip(index, 0, CAP - 1)
+    live = np.ones(b, bool) if active is None else np.asarray(active)
+    written = np.zeros((n_pages, PS), bool)
+    for li in range(net.num_layers):
+        slots = np.arange(b)[live]
+        written[(li * b + slots) * PPS + wpos[slots] // PS, wpos[slots] % PS] = True
+    h_n, dh = net.num_heads, net.head_dim
+    scales = (out.scales.float().numpy(), np.asarray(ref_pools.scales, np.float32))
+    np.testing.assert_allclose(scales[0][written], scales[1][written], rtol=2e-2, atol=1e-5)
+    for j, (ours, ref, orig) in enumerate(((out.k, ref_pools.k, k0), (out.v, ref_pools.v, v0))):
+        ours, ref = ours.float().numpy(), np.asarray(ref, np.float32)
+        orig = orig.astype(np.float32)
+        # dequantized: [rows, H, dh] values times their head's scale
+        deq = [(t[written].reshape(-1, h_n, dh)
+                * sc[written][:, j * h_n:(j + 1) * h_n, None]) for t, sc in zip((ours, ref), scales)]
+        step = np.maximum(*(sc[written][:, j * h_n:(j + 1) * h_n, None] for sc in scales))
+        assert np.all(np.abs(deq[0] - deq[1]) <= TOL["atol"] + step)
+        np.testing.assert_array_equal(ours[~written], orig[~written])
+        np.testing.assert_array_equal(ref[~written], orig[~written])
+    for sc in scales:
+        np.testing.assert_array_equal(sc[~written], s0.float().numpy()[~written])
+
+
 def test_prepare_fused_shapes(setup):
     _, cfg, _, model = setup
     fused = fs.prepare_fused(model.net)
@@ -106,14 +170,20 @@ def test_prepare_fused_shapes(setup):
 
 
 def test_unsupported_pools_and_heads_raise(setup):
+    """int8 pools need their scale pool; GQA is outside the kernel (MHA only)."""
     _, cfg, _, model = setup
     fused = fs.prepare_fused(model.net)
     w = cfg.net.num_heads * cfg.net.head_dim
     kw = dict(page_size=PS, pages_per_slot=PPS)
     x, index = torch.zeros((2, cfg.net.hidden_size)), torch.zeros(2, dtype=torch.int32)
     int8 = torch.zeros((cfg.net.num_layers * 2 * PPS, PS, w), dtype=torch.int8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         fs.fused_decode_step(fused, cfg.net, x, pa.PagedPools(int8, int8), index, **kw)
+    scales = torch.zeros((*int8.shape[:2], pa.LANE), dtype=torch.bfloat16)
+    x1 = torch.from_numpy(np.random.default_rng(1).normal(size=x.shape).astype(np.float32))
+    h, _ = fs.fused_decode_step(fused, cfg.net, x1, pa.PagedPools(int8, int8.clone(), scales),
+                                index, **kw)
+    assert h.shape == x.shape and bool(int8.any())  # the int8 form runs and appends
     gqa = MIDIModelConfig.get_config("v2", True, **GEOMETRY).net
     gqa = type(gqa)(**{**gqa.__dict__, "num_kv_heads": 2})
     pools = pa.PagedPools(int8.to(torch.bfloat16), int8.to(torch.bfloat16))

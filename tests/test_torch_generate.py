@@ -161,10 +161,11 @@ def test_normalize_prompt_matches_jax(prompt, models):
 
 
 def test_unported_options_raise(models):
-    """int8 pools run the split path; the fused path on them (B4 on int8
-    pools) is not ported and raises."""
+    """The fused path on int8 pools needs what it needs on bf16 pools — an
+    MHA event net with packed pages (4 heads x 16 pack into a stride of 32)
+    — and a device the model is not on raises."""
     cfg, model = models[1], models[3]
-    with pytest.raises(NotImplementedError, match="B4"):
+    with pytest.raises(ValueError, match="head_stride"):
         generate(model, cfg, max_len=4, kv_int8=True, fused=True)
     with pytest.raises(ValueError):
         generate(model, cfg, max_len=4, device="meta")
@@ -245,6 +246,71 @@ def test_fused_path_greedy_matches_jax_kernels(bf16_models):
                                       err_msg=f"event {event}")
         np.testing.assert_allclose(state.hidden.float().numpy(),
                                    np.asarray(jhidden, np.float32), atol=3e-2, rtol=3e-2)
+
+
+def test_fused_int8_path_greedy_matches_jax_kernels(bf16_models):
+    """``kv_int8``: 6 greedy events at B=4 through ``decode_events(fused=True)``
+    (the per-event pair: the whole step reads the int8 pools; this
+    geometry's 1-head token net is outside the token-row kernel's limits, so
+    ``fused=None`` would keep the split path here) against the JAX per-event
+    step composed from its Pallas kernels
+    (interpret mode) on the same int8 pools — ``generate.py:303-313``'s
+    choice.  Rows token-identical; hidden within 3e-2; the int8 rows and
+    scales each step appends within the bounds of
+    ``test_torch_fused_step.py``'s int8 case."""
+    import jax.numpy as jnp
+
+    from midi_model_tpu.models import midinet as jmidinet
+    from midi_model_tpu.ops import fused_step as jfs
+    from midi_model_tpu.ops import paged_allheads as jpa
+    from midi_model_tpu.ops import token_loop as jtl
+    from midi_model_tpu_torch.ops import _build
+    from midi_model_tpu_torch.sampling import decode_events, mask_tensors, prefill
+
+    jcfg, cfg, params, model = bf16_models
+    tok = cfg.tokenizer
+    b, n_events = 4, 6
+    prompt = np.random.default_rng(8).integers(3, 20, (b, 5, tok.max_token_seq))
+    state = prefill(model, cfg, prompt, 5 + n_events, kv_int8=True)
+    n_pages, ps, _ = state.pools.k.shape
+    pps = n_pages // (cfg.net.num_layers * b)
+    table = build_mask_table(tok)
+    masks = mask_tensors(table, "cpu")
+    jmasks = tuple(jnp.asarray(m) for m in (table.first, table.steps, table.pad_only))
+    jpools = jpa.PagedPools(k=jnp.asarray(state.pools.k.numpy()),
+                            v=jnp.asarray(state.pools.v.numpy()),
+                            scales=jnp.asarray(state.pools.scales.float().numpy(), jnp.bfloat16))
+    jhidden = jnp.asarray(state.hidden.float().numpy(), jnp.bfloat16)
+    jfused = jfs.prepare_fused(params["net"])
+    _build.LAUNCHES.clear()
+    for event in range(n_events):
+        jrow, _ = jtl.decode_token_row(params, jcfg, jhidden, jmasks, 1.0, 0.98, 20,
+                                       None, greedy=True, interpret=True)
+        emb = jmidinet.embed_events(params, jrow[:, None, :])[:, 0]
+        index = jnp.full((b,), state.cur_len, jnp.int32)
+        jhidden, jpools = jfs.fused_decode_step(
+            jfused, jcfg.net, emb, jpools, index, page_size=ps, pages_per_slot=pps,
+            interpret=True)
+        pos = state.cur_len
+        state, rows, n_done = decode_events(model, cfg, state, masks, 1, 1.0, 0.98,
+                                            20, None, greedy=True, fused=True)
+        assert n_done == 1
+        np.testing.assert_array_equal(rows[:, 0].numpy(), np.asarray(jrow),
+                                      err_msg=f"event {event}")
+        np.testing.assert_allclose(state.hidden.float().numpy(),
+                                   np.asarray(jhidden, np.float32), atol=3e-2, rtol=3e-2)
+        # the appended rows of every layer: dequantized within 3e-2 + one step
+        pages = (np.arange(cfg.net.num_layers * b) * pps + pos // ps)
+        h_n = cfg.net.num_heads
+        ours_s = state.pools.scales[pages, pos % ps].float().numpy()
+        ref_s = np.asarray(jpools.scales, np.float32)[pages, pos % ps]
+        np.testing.assert_allclose(ours_s, ref_s, rtol=2e-2, atol=1e-5)
+        for j, (ours, ref) in enumerate(((state.pools.k, jpools.k), (state.pools.v, jpools.v))):
+            sc = [x[:, j * h_n:(j + 1) * h_n, None] for x in (ours_s, ref_s)]
+            deq = [np.asarray(t, np.float32)[pages, pos % ps].reshape(len(pages), h_n, -1) * c
+                   for t, c in ((ours.float().numpy(), sc[0]), (ref, sc[1]))]
+            assert np.all(np.abs(deq[0] - deq[1]) <= 3e-2 + np.maximum(*sc))
+    assert not _build.LAUNCHES  # CPU tensors: the plain versions, no launches
 
 
 def test_fused_and_split_paths_sample_grammatical_rows(bf16_models):

@@ -23,7 +23,8 @@ from midi_model_tpu_torch.sampling import build_mask_table, mask_tensors
 
 ROOT = Path(__file__).resolve().parent.parent
 KERNELS = ["sampler.cu", "paged_decode.cu", "paged_decode_stream.cu",
-           "causal_attention.cu", "token_loop.cu", "fused_step.cu", "event_loop.cu"]
+           "causal_attention.cu", "causal_attention_bwd.cu", "token_loop.cu",
+           "fused_step.cu", "event_loop.cu"]
 # MHA with packed pages (4 heads x 32 = 128 lanes): the fused path's shapes
 SMALL = MIDIModelConfig.get_config("v2", True, n_layer=4, n_head=4, n_embd=128,
                                    n_inner=128)
@@ -57,13 +58,17 @@ def test_import_whole_port_without_jax():
         loaded = sorted(m for m in sys.modules if m.startswith("midi_model_tpu.")
                         or (m == "midi_model_tpu" and sys.modules[m] is not None))
         assert not loaded, loaded
-        assert "triton" not in sys.modules
+        assert "triton" not in sys.modules and "safetensors" not in sys.modules
+        for new in ("train.cli", "train.trainer", "train.data", "train.checkpoint",
+                    "train.metrics", "train.sched", "midi.codec", "midi.utils",
+                    "interop.safetensors_io", "ops.attention"):
+            assert "midi_model_tpu_torch." + new in names, new
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 32
 
 
 def test_chip_smoke_imports_nothing_of_jax():
@@ -187,6 +192,14 @@ def test_wrappers_raise_on_non_cpu_tensors():
     # mixing devices raises too
     with pytest.raises(ValueError):
         at.causal_attention(torch.zeros((1, 4, 2, 32)), q, q)
+    lse = torch.empty((1, 2, 4), **meta)
+    with pytest.raises(ValueError):  # the backward kernel's wrapper
+        at.causal_attention_backward(q, q, q, q, q, lse)
+    int8 = pa.PagedPools(*(torch.empty((4 * 2, 16, 128), dtype=torch.int8, **meta)
+                           for _ in range(2)),
+                         torch.empty((4 * 2, 16, 128), dtype=torch.bfloat16, **meta))
+    with pytest.raises(ValueError):  # the whole step's int8 form
+        fs.fused_decode_step(fused, SMALL.net, hidden, int8, index, **kw)
     assert not _build.LAUNCHES
 
 
@@ -194,6 +207,9 @@ def test_plain_versions_do_not_count_launches():
     _build.LAUNCHES.clear()
     q = torch.randn((1, 5, 2, 32))
     at.causal_attention(q, q, q)
+    qg = q.clone().requires_grad_(True)
+    at.causal_attention(qg, qg, qg).sum().backward()  # the plain backward
+    assert qg.grad is not None
     sp.sample_top_p_k(torch.rand((2, 16)), torch.full((2,), 0.9),
                       torch.full((2,), 4, dtype=torch.int32),
                       torch.zeros((2, 8)))

@@ -105,8 +105,9 @@ def test_pool_helpers_match_jax(h, hkv, d):
 
 
 def test_int8_pools_not_ported():
-    """int8 pools are ported for the paged decode kernels; the whole-step
-    kernel's int8 form (B4 on int8 pools) is not, and says so."""
+    """int8 pools are ported for the paged decode kernels and for the
+    whole-step kernel's int8 form, which reads the pools and appends each
+    active slot's quantized row with its scale row."""
     from midi_model_tpu_torch.models import MIDIModelConfig
     from midi_model_tpu_torch.models.midinet import init_model
     from midi_model_tpu_torch.ops import fused_step as fs
@@ -117,10 +118,14 @@ def test_int8_pools_not_ported():
     cfg = MIDIModelConfig.get_config("v2", True, n_layer=1, n_head=4, n_embd=512,
                                      n_inner=256)
     model = init_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="B4"):
-        fs.fused_decode_step(fs.prepare_fused(model.net), cfg.net,
-                             torch.zeros((2, 512)), pa.alloc_pools(
-                                 4, 2 * 4, PS, 128, torch.float32, torch.device("cpu"),
-                                 quantized=True),
-                             torch.zeros(2, dtype=torch.int32), page_size=PS,
-                             pages_per_slot=4)
+    pools = pa.alloc_pools(4, 2 * 4, PS, 128, torch.float32, torch.device("cpu"),
+                           quantized=True)
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 512)).astype(np.float32))
+    h, out = fs.fused_decode_step(fs.prepare_fused(model.net), cfg.net, x, pools,
+                                  torch.tensor([3, 0], dtype=torch.int32),
+                                  torch.tensor([True, False]), page_size=PS,
+                                  pages_per_slot=4)
+    assert h.shape == (2, 512) and bool(torch.isfinite(h).all())
+    # slot 0 appended at row 3 of its first page; slot 1 (inactive) nothing
+    assert out.k[0, 3].any() and out.scales[0, 3, :8].all()
+    assert not out.k[4:].any() and not out.scales[4:].any()
