@@ -4,7 +4,10 @@ Counterpart of ``midi_model_tpu/ops/attention.py``.  :func:`causal_attention`
 runs the CUDA forward kernel (``csrc/causal_attention.cu``) on CUDA tensors,
 at every sequence length (one code path; the JAX package's 512-row
 threshold for its flash kernels was a TPU tuning), and
-:func:`attention_reference` under the causal bias on CPU tensors.
+:func:`attention_reference` under the causal bias on CPU tensors.  bf16
+runs on the tensor cores at head_dim 64 (TMA + ``wgmma`` forward,
+``mma.sync`` backward) and as packed rows at 256; f32 keeps the CUDA-core
+kernels, whose f32 products the parity checks rely on.
 
 Where a gradient is needed it is a ``torch.autograd.Function``: the forward
 also keeps each row's f32 log-sum-exp, and the backward is the CUDA kernel
@@ -104,8 +107,40 @@ def _check(q, k, v):
         raise ValueError("the head_dim axis must be contiguous")
 
 
+def _kernel_strides(x: torch.Tensor):
+    """x's (batch, position, head) strides in elements; a size-1 axis, whose
+    stride is never applied, gets the stride it would have if it were
+    contiguous over the axes inside it."""
+    b, s, h, dh = x.shape
+    sh = x.stride(2) if h > 1 else dh
+    ss = x.stride(1) if s > 1 else sh * h
+    sb = x.stride(0) if b > 1 else ss * s
+    return sb, ss, sh
+
+
+def _vector_ready(x: torch.Tensor) -> bool:
+    """Whether the bf16 kernels can read x as it lies: they move 16 bytes at
+    a time (TMA tensor maps at head_dim 64, 16-byte loads elsewhere), so the
+    base is 16-byte aligned, every stride a multiple of 8 elements, and the
+    strides do not decrease from head to position to batch (the layout a
+    tensor map describes: each axis steps over the whole of the axes inside
+    it)."""
+    sb, ss, sh = _kernel_strides(x)
+    _, s, h, dh = x.shape
+    return (x.data_ptr() % 16 == 0 and sb % 8 == 0 and ss % 8 == 0 and sh % 8 == 0
+            and sh >= dh and ss >= sh * h and sb >= ss * s)
+
+
+def _vector_operand(x: torch.Tensor) -> torch.Tensor:
+    """x, or a contiguous copy of it where :func:`_vector_ready` says the
+    bf16 kernels cannot read it as it lies (the model's q, k and v, views of
+    projections, are read in place)."""
+    return x if _vector_ready(x) else x.clone(memory_format=torch.contiguous_format)
+
+
 def _strides(q, k, v):
-    return (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    return (ctypes.c_longlong * 9)(*_kernel_strides(q), *_kernel_strides(k),
+                                   *_kernel_strides(v))
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool):
@@ -116,6 +151,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool):
             return attention_reference(q, k, v, causal_bias(q.shape[1], q.device)), None
         return _reference_with_lse(q, k, v, causal_bias(q.shape[1], q.device))
     _check(q, k, v)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_vector_operand(x) for x in (q, k, v))
     b, s, h, dh = q.shape
     out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -141,6 +178,8 @@ def causal_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, h, dh = q.shape
     hkv = k.shape[2]
     dout = dout.contiguous()
+    if q.dtype == torch.bfloat16:
+        q, k, v, dout = (_vector_operand(x) for x in (q, k, v, dout))
     _build.check(out, "out", q.dtype, (b, s, h, dh))
     _build.check(dout, "dout", q.dtype, (b, s, h, dh))
     _build.check(lse, "lse", torch.float32, (b, h, s))

@@ -13,6 +13,7 @@ import torch
 import jax.numpy as jnp
 
 from midi_model_tpu.ops.attention import xla_attention
+from midi_model_tpu_torch.ops import attention as at
 from midi_model_tpu_torch.ops.attention import (attention_reference,
                                                 causal_attention, causal_bias)
 
@@ -35,7 +36,12 @@ def _jax(x, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,s,h,hkv,dh", [(2, 37, 4, 4, 16), (1, 130, 8, 2, 32),
-                                          (2, 64, 16, 16, 64)])
+                                          (2, 64, 16, 16, 64),
+                                          # the token net: many 8-row sequences, Dh 256
+                                          (96, 8, 4, 4, 256),
+                                          # the event net's training length (a ragged
+                                          # last tile), small B and H
+                                          (1, 2047, 2, 2, 64)])
 def test_causal_attention_matches_xla(b, s, h, hkv, dh, dtype):
     q, k, v = _qkv(b, s, h, hkv, dh, seed=s)
     pos = np.arange(s)
@@ -80,3 +86,33 @@ def test_cache_bias_matches_xla(dtype):
                                torch.from_numpy(bias))
     np.testing.assert_allclose(ours.float().numpy(), np.asarray(ref, np.float32),
                                **TOL[dtype])
+
+
+def test_vector_operands():
+    """The bf16 kernels read 16 bytes at a time: the wrapper passes the
+    model's layouts (contiguous, or q, k, v as views of a wider projection)
+    as they lie, and copies an input with a misaligned base, a stride that is
+    not a multiple of 8 elements, or heads laid out outside positions."""
+    wide = torch.zeros(2, 5, 4, 128, dtype=torch.bfloat16)
+    contiguous = torch.zeros(2, 5, 4, 64, dtype=torch.bfloat16)
+    for x in (contiguous, wide[..., :64], wide[..., 64:]):
+        assert at._vector_ready(x) and at._vector_operand(x) is x
+    heads_outside = torch.zeros(2, 4, 5, 64, dtype=torch.bfloat16).transpose(1, 2)
+    odd_stride = torch.zeros(2, 5, 4, 68, dtype=torch.bfloat16)[..., :64]
+    misaligned = wide[..., 4:68]
+    for x in (heads_outside, odd_stride, misaligned):
+        assert not at._vector_ready(x)
+        y = at._vector_operand(x)
+        assert y.is_contiguous() and at._vector_ready(y) and torch.equal(y, x)
+
+
+def test_kernel_strides_of_unit_axes():
+    """A size-1 axis's stride is never applied; the kernels get the stride it
+    would have over the axes inside it (a tensor map wants a whole step)."""
+    x = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16)
+    assert at._kernel_strides(x) == (64, 64, 64)
+    y = torch.zeros(3, 7, 2, 64, dtype=torch.bfloat16)[:1, :, :1]
+    assert at._kernel_strides(y) == (7 * 128, 128, 64)
+    assert at._vector_ready(y)
+    z = torch.zeros(2, 9, 4, 256)
+    assert at._kernel_strides(z) == z.stride()[:3]
