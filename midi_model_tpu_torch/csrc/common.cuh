@@ -40,11 +40,21 @@ inline int last_error() { return static_cast<int>(cudaGetLastError()); }
 // the count and bumps the generation, the others spin on the generation.
 // Global-memory only, so it needs no relocatable device code.  The fences
 // make every write before the barrier visible to every block after it.
-__device__ __forceinline__ void grid_barrier(unsigned int* bar) {
+// With `arrive`, each block also raises *arrive to the %globaltimer of its
+// arrival (the phase clock: the last block's arrival ends the phase's work).
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void grid_barrier(unsigned int* bar,
+                                             unsigned long long* arrive = nullptr) {
   __syncthreads();
   if (threadIdx.x == 0) {
     volatile unsigned int* gen = bar + 1;
     const unsigned int g = *gen;  // read before arriving: cannot move on yet
+    if (arrive != nullptr) atomicMax(arrive, global_ns());
     __threadfence();
     if (atomicAdd(bar, 1u) == gridDim.x - 1) {
       atomicExch(bar, 0u);

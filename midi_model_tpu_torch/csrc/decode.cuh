@@ -1,23 +1,46 @@
 // Building blocks of the whole-step decode kernels (token_loop.cu,
 // fused_step.cu and event_loop.cu, through token_row.cuh and
 // fused_step.cuh): phases of one cooperative grid, separated by
-// mm::grid_barrier.
+// mm::grid_barrier (PhaseSync, with the optional phase clock).
 //
-// gemv2 computes a [rows, K] x [K, N] product for a handful of activation
-// rows against weights in torch's [out, in] layout, so one output column is
-// one contiguous weight row.  Decode has few rows (the batch) and large
-// weights, so bytes would bound an ideal kernel; this simple one is bound
-// by latency (about 21 us per round of units on an H100, PERF.md).  Every
-// warp of the grid takes a unit of two output columns, streams their two
-// weight rows once (16-byte loads), and multiplies them against all rows of
-// the activation tile staged in shared memory, keeping 2 x kRowTile f32
-// sums in registers.  The activations are staged K-chunk by K-chunk, so
-// any K fits.  CUDA cores, f32 accumulation, one rounding of the sum by the
-// caller's epilogue: the plain versions' "matmul output in the weight
-// dtype" rule.
+// A matrix phase computes out[b, n] = sum_k act[b, k] * W[n, k] for a
+// handful of activation rows (the batch) against weights in torch's
+// [out, in] layout.  Decode has few rows and large weights, so bytes bound
+// it; what a phase has to hide is latency.  Two forms:
+//
+// * bf16 (tc_phase): tensor cores.  The weight is mma.sync's M side
+//   (m16n8k16: 16 weight rows x 16 k), the batch rows its N side (padded
+//   to 8, 32 rows a pass), f32 accumulators.  A phase's output columns are
+//   cut into items of 16 columns (two 16-row m-tiles for gate/up, whose
+//   epilogue needs both) over the whole of K; item i belongs to block
+//   i % gridDim.  An item streams as chunks of 16 rows x 512 k (16 KB: 8
+//   TMA boxes of 16 x 64, 128-byte swizzled, from a 2-d tensor map over
+//   each weight) through an 8-slot ring in shared memory; warp w takes box
+//   w of every chunk, so it sums k = 64w .. 64w+63 of each 512 in order.
+//   The eight warps' partial sums then reduce in shared memory in warp
+//   order: every output's bits depend on the shapes only, never on
+//   gridDim (the event loop and the per-event kernels get different block
+//   counts and must agree bit for bit).  No weight depends on the previous
+//   phase, so each block issues its first chunks of the NEXT phase
+//   (tc_begin) before it arrives at the grid barrier: HBM streams while the
+//   grid synchronises.  The activation segment (32 rows x 1024 k, normed
+//   where the phase starts with an RMSNorm) is staged once per block per
+//   pass, with a 16-byte XOR swizzle so ldmatrix reads are conflict-free.
+// * f32 (gemv2): CUDA cores, unchanged from the first version (tensor cores
+//   would mean TF32 and break the f32 checks).  Every warp of the grid takes
+//   a unit of two output columns, streams their two weight rows once
+//   (16-byte loads), and multiplies them against all rows of the
+//   activation tile staged in shared memory, keeping 2 x kRowTile f32 sums
+//   in registers.
+//
+// Both: f32 accumulation, one rounding of the sum by the caller's epilogue
+// (the plain versions' "matmul output in the weight dtype" rule).
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace mm {
 
@@ -34,10 +57,6 @@ template <> struct Vec<float> {
   static constexpr int n = 4;
   static constexpr int chunk = 512;
 };
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int n = 8;
-  static constexpr int chunk = 1024;
-};
 
 // Weight vectors (read-only for the whole kernel: the read-only path).
 __device__ __forceinline__ void load_vec(const float* p, float* out) {
@@ -46,17 +65,6 @@ __device__ __forceinline__ void load_vec(const float* p, float* out) {
   out[1] = v.y;
   out[2] = v.z;
   out[3] = v.w;
-}
-
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
 }
 
 // Round through T and back: the value a T tensor would hold.
@@ -111,10 +119,6 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
 __device__ __forceinline__ void load_staged(const float* p, float* out) {
   const float4 x = *reinterpret_cast<const float4*>(p);
   out[0] = x.x, out[1] = x.y, out[2] = x.z, out[3] = x.w;
-}
-
-__device__ __forceinline__ void load_staged(const __nv_bfloat16* p, float* out) {
-  load8(p, out);
 }
 
 // For every unit u < n_units (spread over all warps of the grid) and row
@@ -273,5 +277,502 @@ __device__ __forceinline__ void rope_head(const T* __restrict__ src, const float
 }
 
 __device__ __forceinline__ float silu_f32(float g) { return g / (1.f + expf(-g)); }
+
+// ---- the phase clock ----------------------------------------------------------
+
+// Grid barriers of one launch, counted.  With a clock buffer ([2 n + 2]
+// u64, zeroed), entry 2i is when phase i started (block 0 leaves the
+// barrier before it, or enters the kernel for i = 0) and entry 2i + 1 the
+// last block's arrival at the barrier that ends it (or at the end of the
+// body, for the last phase): the phase's work is the difference, the
+// barrier's wait the gap to entry 2i + 2.  %globaltimer, in ns.
+struct PhaseSync {
+  unsigned int* bar;
+  unsigned long long* clock;
+  int tick;
+
+  __device__ void start() {
+    tick = 0;
+    if (clock != nullptr && blockIdx.x == 0 && threadIdx.x == 0) clock[0] = global_ns();
+  }
+  __device__ void barrier() {
+    grid_barrier(bar, clock != nullptr ? clock + 2 * tick + 1 : nullptr);
+    ++tick;
+    if (clock != nullptr && blockIdx.x == 0 && threadIdx.x == 0) clock[2 * tick] = global_ns();
+  }
+  // the end of the last phase (no barrier follows)
+  __device__ void end() {
+    if (clock == nullptr) return;
+    __syncthreads();
+    if (threadIdx.x == 0) atomicMax(clock + 2 * tick + 1, global_ns());
+  }
+};
+
+// ---- matrix phases -------------------------------------------------------------
+
+template <typename T>
+constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+
+constexpr int kTcRows = 32;                      // activation rows a pass (N)
+constexpr int kTcNTiles = kTcRows / 8;           // mma n-tiles a pass
+constexpr int kTcBoxK = 64;                      // k of a TMA box: one 128-byte swizzle row
+constexpr int kTcBoxRows = 16;                   // weight rows of a box: one m-tile
+constexpr int kTcChunkK = kTcBoxK * kDecWarps;   // k of a chunk: one box a warp
+constexpr uint32_t kTcBoxBytes = kTcBoxRows * kTcBoxK * 2;
+constexpr uint32_t kTcChunkBytes = kTcBoxBytes * kDecWarps;  // one ring slot
+constexpr int kTcStages = 8;                     // ring slots
+constexpr int kTcSegK = 1024;                    // k of a staged activation segment
+constexpr int kTcMaxMT = 2;                      // m-tiles an item (gate and up)
+constexpr size_t kTcRingBytes = static_cast<size_t>(kTcChunkBytes) * kTcStages;
+constexpr size_t kTcActBytes = static_cast<size_t>(kTcRows) * kTcSegK * 2;
+constexpr size_t kTcRedBytes = static_cast<size_t>(kDecWarps) * kTcBoxRows * kTcRows * 4;
+constexpr size_t kTcResBytes = static_cast<size_t>(kTcMaxMT) * kTcBoxRows * kTcRows * 4;
+constexpr size_t kTcNormBytes = static_cast<size_t>(kTcSegK) * 2;  // a norm weight
+// + 1024: the swizzle wants 1024-byte aligned slots; the ring's mbarriers and the norm's
+constexpr size_t kTcSmem = 1024 + kTcRingBytes + kTcActBytes + kTcRedBytes + kTcResBytes +
+                           kTcNormBytes + 8 * (kTcStages + 1);
+static_assert(kTcActBytes >= kGemvSmem, "the staged segment doubles as the phases' scratch");
+static_assert(kTcSegK % kTcChunkK == 0, "a chunk lies in one staged segment");
+static_assert(kTcRedBytes >= kTcActBytes / 16 * 4, "a staged 8-vector's sum of squares fits");
+static_assert(kTcRows % kDecWarps == 0 && kTcRows / kDecWarps <= 32, "rows a warp norms");
+
+// Dynamic shared memory of a decode kernel over weights of type T.
+template <typename T>
+constexpr size_t decode_smem() {
+  return kTensorCores<T> ? kTcSmem : kGemvSmem;
+}
+
+// Rows [row0, row0 + n) of a weight [rows, K]: a pointer at row0 (CUDA
+// cores) and a tensor map over the whole weight (tensor cores).
+template <typename T>
+struct Src {
+  const T* ptr;
+  const CUtensorMap* map;
+  int row0;
+};
+
+// One matrix phase's weights.  MT == 1: the output columns are the rows
+// of up to three segments of seg_rows rows each (q | k | v), concatenated.
+// MT == 2: column u pairs row u of seg[0] with row u of pair (gate, up).
+// With norm, the phase starts with an RMSNorm of its activations x [B, K]:
+// T(norm * T(x * rs)), rs = rsqrt(mean(x^2) + eps).
+template <typename T>
+struct Plan {
+  Src<T> seg[3];
+  Src<T> pair;
+  const T* norm;
+  float eps;
+  int seg_rows, n_cols, K, mt;
+};
+
+template <typename T>
+__device__ __forceinline__ Plan<T> plan_of(int K, int n_cols, int mt, const T* norm, float eps,
+                                           Src<T> a, Src<T> b = {}, Src<T> c = {},
+                                           int seg_rows = 0) {
+  Plan<T> p;
+  p.norm = norm;
+  p.eps = eps;
+  p.seg[0] = a;
+  p.seg[1] = mt == 1 ? b : Src<T>{};
+  p.seg[2] = c;
+  p.pair = mt == 2 ? b : Src<T>{};
+  p.seg_rows = seg_rows > 0 ? seg_rows : n_cols;
+  p.n_cols = n_cols;
+  p.K = K;
+  p.mt = mt;
+  return p;
+}
+
+// This block's items of a phase with n_items items (item i: block i % grid).
+__device__ __forceinline__ int block_items(int n_items) {
+  return n_items > static_cast<int>(blockIdx.x)
+             ? (n_items - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1
+             : 0;
+}
+
+__device__ __forceinline__ int tc_items(int n_cols) {
+  return (n_cols + kTcBoxRows - 1) / kTcBoxRows;
+}
+__device__ __forceinline__ int tc_kchunks(int K) { return (K + kTcChunkK - 1) / kTcChunkK; }
+__device__ __forceinline__ int tc_passes(int B) { return (B + kTcRows - 1) / kTcRows; }
+
+// The block's weight ring and the phase whose chunks it holds.  Chunks are
+// numbered over the whole launch (head: issued, tail: consumed); chunk q
+// sits in slot q % kTcStages, whose mbarrier completes its (q / kTcStages)-th
+// phase when the chunk lands.  Every thread keeps the same counters; thread
+// 0 alone issues the copies.  A phase's chunks run pass by pass, item by
+// item, k-chunk by k-chunk, m-tile by m-tile.
+template <typename T>
+struct Tc {
+  uint32_t ring, bars;
+  uint32_t norm_bar;  // the norm weight's copy into `norm`
+  unsigned norm_uses;
+  uint8_t *act, *norm;
+  float *red, *res;
+  unsigned head, tail, base, n;
+  bool primed;  // the ring holds (the first chunks of) the next phase
+  Plan<T> plan;
+  int rows;
+
+  __device__ void init(uint8_t* smem) {
+    head = tail = base = n = norm_uses = 0;
+    primed = false;
+    if constexpr (kTensorCores<T>) {
+      const uint32_t raw = sm90::smem_u32(smem);
+      const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
+      uint8_t* b = smem + pad;
+      ring = raw + pad;
+      act = b + kTcRingBytes;
+      red = reinterpret_cast<float*>(act + kTcActBytes);
+      res = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(red) + kTcRedBytes);
+      norm = reinterpret_cast<uint8_t*>(res) + kTcResBytes;
+      bars = sm90::smem_u32(norm + kTcNormBytes);
+      norm_bar = bars + 8u * kTcStages;
+      if (threadIdx.x == 0) {
+        for (int s = 0; s <= kTcStages; ++s) sm90::mbar_init(bars + 8u * s, 1);
+        sm90::fence_barrier_init();
+      }
+      __syncthreads();
+    } else {
+      act = smem;
+    }
+  }
+
+  // the scratch of the phases that are not products (attention scores,
+  // the sampler's work[V]): the staged segment's space
+  __device__ float* scratch() const { return reinterpret_cast<float*>(act); }
+
+  __device__ void issue() {
+    const int my = block_items(tc_items(plan.n_cols));
+    const int nkc = tc_kchunks(plan.K);
+    const int per_item = nkc * plan.mt;
+    const int c = static_cast<int>(head - base) % (my * per_item);  // the pass does not matter
+    const int il = c / per_item;
+    const int kc = (c % per_item) / plan.mt;
+    const int mt = c % plan.mt;
+    const int col = kTcBoxRows * (static_cast<int>(blockIdx.x) + il * static_cast<int>(gridDim.x));
+    const int s = mt ? 0 : col / plan.seg_rows;
+    const Src<T>& src = mt ? plan.pair : plan.seg[s];
+    const int row = src.row0 + col - s * plan.seg_rows;
+    if (threadIdx.x == 0) {  // one copy: 8 boxes of 16 rows x 64 k (past K: zeros)
+      const unsigned slot = head % kTcStages;
+      const uint32_t bar = bars + 8u * slot;
+      sm90::mbar_expect_tx(bar, kTcChunkBytes);
+      sm90::tma_load_3d(ring + slot * kTcChunkBytes, src.map, bar, 0, row, kc * kDecWarps);
+    }
+    ++head;
+  }
+};
+
+// Queue the phase `plan` over `rows` activation rows on the block's ring and
+// issue its norm weight's copy (when it has one that the staged segment
+// spans) and as many of its chunks as there are free slots.  Called right
+// after the previous phase's products, before its grid barrier: the norm
+// weight goes first, ahead of the weights' traffic.
+template <typename T>
+__device__ void tc_begin(Tc<T>& tc, const Plan<T>& plan, int rows) {
+  if constexpr (kTensorCores<T>) {
+    if (plan.norm != nullptr && plan.K <= kTcSegK) {
+      if (threadIdx.x == 0) {
+        sm90::mbar_expect_tx(tc.norm_bar, plan.K * 2);
+        sm90::bulk_load(sm90::smem_u32(tc.norm), plan.norm, plan.K * 2, tc.norm_bar);
+      }
+      ++tc.norm_uses;
+    }
+    tc.plan = plan;
+    tc.rows = rows;
+    tc.base = tc.head;
+    tc.n = static_cast<unsigned>(tc_passes(rows) * block_items(tc_items(plan.n_cols)) *
+                                 tc_kchunks(plan.K) * plan.mt);
+    while (tc.head - tc.base < tc.n && tc.head - tc.tail < kTcStages) tc.issue();
+    tc.primed = true;
+  }
+}
+
+// Byte offset of the 16-byte unit u (k = 8u .. 8u+7 of the segment) of row
+// n in the staged segment: units XOR-swizzled by n % 8, so the 8 rows an
+// ldmatrix 8x8 matrix reads sit in 8 distinct bank groups.
+__device__ __forceinline__ int act_offset(int n, int u) {
+  return n * kTcSegK * 2 + ((u ^ (n & 7)) << 4);
+}
+
+// Stage rows r0 .. r0+31, k = k0 .. of the segment of x [B, K] (rows past
+// B and k past K are zeros), as bf16 in the swizzled layout.  Every
+// thread's 16-byte loads are all in flight before the first store.  With the
+// plan's norm: when the segment holds whole rows (K <= kTcSegK), the rows'
+// sums of squares are taken from the staged values here — per 8-vector
+// partial sums (in tc.red) added per row in a fixed order — and the norm
+// weight is the copy tc_begin started (tc.norm); else rs[] comes from
+// row_scales and the weight from global memory.  Then the staged values are
+// normed in place.
+__device__ inline void stage_segment(Tc<__nv_bfloat16>& tc, const __nv_bfloat16* x, int B,
+                                     int r0, int k0, float* rs) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kIn = 8;  // 16-byte loads in flight a thread
+  const Plan<bf16>& pl = tc.plan;
+  const int K = pl.K;
+  const int kn = min(kTcSegK, (K + kTcBoxK - 1) / kTcBoxK * kTcBoxK - k0);
+  const int units = kn / 8;  // 8-vectors a row
+  const bool whole = pl.norm != nullptr && K <= kTcSegK;
+  uint8_t* act = tc.act;
+  // this thread's 8-vectors e = tid, tid + kDecThreads, ..: (row n, unit u),
+  // stepped without divisions
+  const int sn = kDecThreads / units, su = kDecThreads % units;
+  int n = threadIdx.x / units, u = threadIdx.x % units;
+  auto step = [&](int& nn, int& uu) {
+    uu += su;
+    nn += sn;
+    if (uu >= units) {
+      uu -= units;
+      ++nn;
+    }
+  };
+#pragma unroll 1
+  while (n < kTcRows) {
+    uint4 raw[kIn];
+    int ns[kIn], us[kIn];
+#pragma unroll
+    for (int i = 0; i < kIn; ++i) {
+      ns[i] = n;
+      us[i] = u;
+      raw[i] = make_uint4(0, 0, 0, 0);
+      if (n < kTcRows && r0 + n < B && k0 + 8 * u < K)
+        raw[i] = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(r0 + n) * K + k0 + 8 * u);
+      step(n, u);
+    }
+#pragma unroll
+    for (int i = 0; i < kIn; ++i) {
+      if (ns[i] < kTcRows) {
+        *reinterpret_cast<uint4*>(act + act_offset(ns[i], us[i])) = raw[i];
+        if (whole) {
+          float v[8];
+          sm90::unpack8(raw[i], v);
+          float ss = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) ss += v[j] * v[j];
+          tc.red[ns[i] * units + us[i]] = ss;
+        }
+      }
+    }
+  }
+  if (pl.norm == nullptr) return;
+  __syncthreads();
+  if (whole) {  // a warp per 4 rows: lane l adds units l, l+32, .. in order, then the butterfly
+    constexpr int kPer = kTcRows / kDecWarps;
+    const int lane = threadIdx.x & 31, n0 = (threadIdx.x >> 5) * kPer;
+    float ss[kPer];
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      ss[r] = 0.f;
+      for (int v = lane; v < units; v += 32) ss[r] += tc.red[(n0 + r) * units + v];
+    }
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) ss[r] = warp_sum(ss[r]);
+    if (lane < kPer) {
+      float mine = ss[0];
+#pragma unroll
+      for (int r = 1; r < kPer; ++r) mine = lane == r ? ss[r] : mine;
+      rs[r0 + n0 + lane] = rsqrtf(mine / static_cast<float>(K) + pl.eps);
+    }
+    sm90::mbar_wait(tc.norm_bar, (tc.norm_uses - 1) & 1u);
+    __syncthreads();
+  }
+  const bf16* w = whole ? reinterpret_cast<const bf16*>(tc.norm) : pl.norm + k0;
+  n = threadIdx.x / units;
+  u = threadIdx.x % units;
+#pragma unroll 2
+  for (; n < kTcRows; step(n, u)) {
+    if (r0 + n < B && k0 + 8 * u < K) {
+      uint4* p = reinterpret_cast<uint4*>(act + act_offset(n, u));
+      uint4 xw = *p;
+      const uint4 wr = *reinterpret_cast<const uint4*>(w + 8 * u);
+      __nv_bfloat162* xh = reinterpret_cast<__nv_bfloat162*>(&xw);
+      const __nv_bfloat162* wh = reinterpret_cast<const __nv_bfloat162*>(&wr);
+      const float r = rs[r0 + n];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // T(x * rs), then the weight multiply in T: the bf16 product of two
+        // bf16 values is their exact product rounded once, as in f32
+        const float2 f = __bfloat1622float2(xh[j]);
+        xh[j] = __hmul2(wh[j], __floats2bfloat162_rn(f.x * r, f.y * r));
+      }
+      *p = xw;
+    }
+  }
+}
+
+// The queued phase (tc_begin) on tensor cores.  stage(r0, k0, act) stages
+// the segment of pass r0 that starts at k0; epi(col, b, v) gets output
+// column col of row b, v[m] from the item's m-tile m.  Every thread of every
+// block calls it (it holds block barriers).
+template <int MT, class StageFn, class EpiFn>
+__device__ void tc_phase(Tc<__nv_bfloat16>& tc, StageFn stage, EpiFn epi) {
+  using namespace sm90;
+  const Plan<__nv_bfloat16>& pl = tc.plan;
+  const int B = tc.rows, K = pl.K;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int my = block_items(tc_items(pl.n_cols));
+  const int nkc = tc_kchunks(K);
+  const uint32_t act = smem_u32(tc.act);
+  // ldmatrix lane roles: matrix i = lane / 8, its row lane % 8
+  const int mi = lane >> 3, mr = lane & 7;
+  int staged = -1;
+  for (int pass = 0; pass < tc_passes(B); ++pass) {
+    const int r0 = pass * kTcRows;
+    const int nt = min(kTcNTiles, (B - r0 + 7) / 8);
+    for (int il = 0; il < my; ++il) {
+      float acc[MT][kTcNTiles][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < kTcNTiles; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
+#pragma unroll 1
+      for (int kc = 0; kc < nkc; ++kc) {
+        const int seg = kc * kTcChunkK / kTcSegK;
+        if (pass * 4096 + seg != staged) {
+          __syncthreads();  // every warp is done with the previous segment
+          stage(r0, seg * kTcSegK, tc.act);
+          __syncthreads();
+          staged = pass * 4096 + seg;
+        }
+        const int k0 = kc * kTcChunkK + warp * kTcBoxK;  // this warp's box
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const unsigned slot = tc.tail % kTcStages;
+          if (k0 < K) {
+            mbar_wait(tc.bars + 8u * slot, (tc.tail / kTcStages) & 1u);
+            const uint32_t box = tc.ring + slot * kTcChunkBytes + warp * kTcBoxBytes;
+            const int ku = (k0 - seg * kTcSegK) / 8;  // the box's first unit in the segment
+#pragma unroll
+            for (int kk = 0; kk < kTcBoxK / 16; ++kk) {
+              // A: weight rows (mi & 1) * 8 + mr, k units 2kk + mi / 2 of the swizzled box
+              const int ar = (mi & 1) * 8 + mr;
+              uint32_t a[4];
+              ldmatrix_x4(a, box + ar * 128 + (((2 * kk + (mi >> 1)) ^ (ar & 7)) << 4));
+#pragma unroll
+              for (int j = 0; j < kTcNTiles; j += 2) {
+                if (j < nt) {
+                  // B: rows 8(j + mi / 2) + mr, k units ku + 2kk + (mi & 1)
+                  const int bn = 8 * (j + (mi >> 1)) + mr;
+                  uint32_t b[4];
+                  ldmatrix_x4(b, act + act_offset(bn, ku + 2 * kk + (mi & 1)));
+                  mma_16816(acc[m][j], a, b[0], b[1]);
+                  if (j + 1 < nt) mma_16816(acc[m][j + 1], a, b[2], b[3]);
+                }
+              }
+            }
+          }
+          ++tc.tail;
+          if (tc.head - tc.base < tc.n) {  // refill the slot once every warp is done with it
+            __syncthreads();
+            tc.issue();
+          }
+        }
+      }
+      // the warps' partial sums, in warp order; then the epilogue
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        float* red = tc.red + warp * kTcBoxRows * kTcRows;
+#pragma unroll
+        for (int j = 0; j < kTcNTiles; ++j) {
+          const int row = lane >> 2, col = 8 * j + 2 * (lane & 3);
+          red[row * kTcRows + col] = acc[m][j][0];
+          red[row * kTcRows + col + 1] = acc[m][j][1];
+          red[(row + 8) * kTcRows + col] = acc[m][j][2];
+          red[(row + 8) * kTcRows + col + 1] = acc[m][j][3];
+        }
+        __syncthreads();
+        for (int e = threadIdx.x; e < kTcBoxRows * kTcRows; e += kDecThreads) {
+          float sum = tc.red[e];
+#pragma unroll
+          for (int w = 1; w < kDecWarps; ++w) sum += tc.red[w * kTcBoxRows * kTcRows + e];
+          tc.res[m * kTcBoxRows * kTcRows + e] = sum;
+        }
+        __syncthreads();
+      }
+      const int col0 =
+          kTcBoxRows * (static_cast<int>(blockIdx.x) + il * static_cast<int>(gridDim.x));
+      for (int e = threadIdx.x; e < kTcBoxRows * kTcRows; e += kDecThreads) {
+        const int m = e % kTcBoxRows, n = e / kTcBoxRows;
+        if (col0 + m < pl.n_cols && r0 + n < B) {
+          float v[MT];
+#pragma unroll
+          for (int t = 0; t < MT; ++t) v[t] = tc.res[(t * kTcBoxRows + m) * kTcRows + n];
+          epi(col0 + m, r0 + n, v);
+        }
+      }
+    }
+  }
+  tc.primed = false;
+}
+
+// One matrix phase over `rows` rows of the activations x [rows, K]: bf16
+// on tensor cores (the plan queued by tc_begin), f32 on CUDA cores
+// (row_scales into rs, then gemv2 over column pairs; MT == 2 pairs row u of
+// the plan's seg[0] and pair).  epi(col, b, v) as in tc_phase.
+template <int MT, typename T, class EpiFn>
+__device__ void matmul(Tc<T>& tc, const Plan<T>& pl, int rows, const T* x, float* rs, EpiFn epi) {
+  const int K = pl.K;
+  if (pl.norm != nullptr && (!kTensorCores<T> || K > kTcSegK))
+    row_scales<T>(x, rows, K, pl.eps, rs);
+  if constexpr (kTensorCores<T>) {
+    tc_phase<MT>(
+        tc, [&](int r0, int k0, uint8_t*) { stage_segment(tc, x, rows, r0, k0, rs); }, epi);
+  } else {
+    auto load = [&](int b, int k, float* out) {
+      if (pl.norm != nullptr) norm8<T>(x, pl.norm, rs, K, b, k, out);
+      else load8(x + static_cast<size_t>(b) * K + k, out);
+    };
+    if constexpr (MT == 1) {
+      gemv2<T>(
+          rows, K, (pl.n_cols + 1) / 2,
+          [&](int u, int c) -> const T* {
+            const int n = 2 * u + c;
+            if (n >= pl.n_cols) return nullptr;
+            const int s = n / pl.seg_rows;
+            return pl.seg[s].ptr + static_cast<size_t>(n - s * pl.seg_rows) * K;
+          },
+          load,
+          [&](int u, int b, float a0, float a1) {
+            epi(2 * u, b, &a0);
+            if (2 * u + 1 < pl.n_cols) epi(2 * u + 1, b, &a1);
+          },
+          tc.act);
+    } else {
+      gemv2<T>(
+          rows, K, pl.n_cols,
+          [&](int u, int c) {
+            return (c ? pl.pair.ptr : pl.seg[0].ptr) + static_cast<size_t>(u) * K;
+          },
+          load,
+          [&](int u, int b, float a0, float a1) {
+            const float v[2] = {a0, a1};
+            epi(u, b, v);
+          },
+          tc.act);
+    }
+  }
+}
+
+// Host: a tensor map over a bf16 weight [rows, K] (K % 64 == 0) as 3-d
+// (64 k, rows, K / 64 blocks of k), so that one copy of a box of 64 x 16 x 8
+// brings a chunk (16 rows x 512 k) as 8 blocks of 16 rows x 64 k, each
+// 128-byte swizzled; reads past the last row or the last block are zeros.
+// False when K does not divide or the encoder refuses the map.
+inline bool make_rows_map(CUtensorMap* map, const void* base, long long rows, int K) {
+  const sm90::EncodeTiled encode = sm90::encode_tiled();
+  if (encode == nullptr || base == nullptr || K % kTcBoxK != 0) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(kTcBoxK), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(K / kTcBoxK)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(K) * 2, kTcBoxK * 2};
+  const cuuint32_t box[3] = {kTcBoxK, kTcBoxRows, kDecWarps};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
 
 }  // namespace mm

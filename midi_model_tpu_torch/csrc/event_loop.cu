@@ -19,12 +19,13 @@
 // final norm.
 //
 // What bounds it on an H100: bytes, as its two bodies (token_loop.cu,
-// fused_step.cu): about 408 + 403 MB of weights per event at tv2o-medium in
-// bf16, 0.24 ms at 3.35 TB/s, plus the cached rows.  This first version
-// runs the two bodies' phases unchanged (66 ms per 8-event launch at bs=32
-// and 1000 cached rows, PERF.md); what one launch per E events removes is
-// the host's work between them: the launches, the embedding gather and the
-// per-event geometry tables.
+// fused_step.cu): about 51 (L2-resident at best) + 403 MB of weights per
+// event at tv2o-medium in bf16, plus the cached rows; what it has to hide
+// is the latency of its ~170 phases an event.  What one launch per E
+// events removes, next to the per-event kernels, is the host's work
+// between them: the launches, the embedding gather and the per-event
+// geometry tables; and the weight ring carries each body's first weights
+// across the other's last barrier.
 //
 // The ragged form (the plain version is decode_event_block_ragged_reference
 // in the same module) gives every slot its own length and RoPE position
@@ -60,13 +61,19 @@ struct LoopParams {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(mm::kDecThreads, 1) event_loop_kernel(LoopParams<T> p) {
+__global__ void __launch_bounds__(mm::kDecThreads, 1)
+    event_loop_kernel(const __grid_constant__ LoopParams<T> p) {
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // staged tiles, work[V], attention scores
   __shared__ float rs[mm::kMaxBatch];
   __shared__ float red[mm::kDecWarps];
   __shared__ mm::ArgmaxScratch<mm::kDecThreads> am;
+  mm::Tc<T> tc;  // the weight ring and staged activations; work[V], attention scores
+  tc.init(reinterpret_cast<uint8_t*>(smem4));
+  mm::PhaseSync sync{p.step.bar, p.step.clock, 0};
+  sync.start();
   const int B = p.step.B, D = p.step.D;
+  const mm::Plan<T> step_first = mm::step_qkv_plan(p.step, 0);
+  const mm::Plan<T> tok_first = mm::tok_qkv_plan(p.tok, 0);
   for (int e = 0; e < p.n_events; ++e) {
     if (e > 0) {  // the token net's input: the final norm of the residual
       if (p.alive && blockIdx.x == 0) {  // retire after event e-1: eos row or capacity
@@ -88,13 +95,15 @@ __global__ void __launch_bounds__(mm::kDecThreads, 1) event_loop_kernel(LoopPara
         mm::norm8<T>(p.step.x, p.fnorm, rs, D, b, i - b * D, v);
         mm::store8(p.tok.x + i, v);
       }
-      mm::grid_barrier(p.step.bar);
+      sync.barrier();
     }
-    mm::token_row_body<T>(p.tok, e, xs, rs, red, am);  // writes the embedding to step.x
-    mm::grid_barrier(p.step.bar);
-    mm::fused_step_body<T>(p.step, e, xs, rs);
-    if (e + 1 < p.n_events) mm::grid_barrier(p.step.bar);
+    // the token row writes the event embedding to step.x
+    mm::token_row_body<T>(p.tok, e, tc, sync, rs, red, am, &step_first);
+    sync.barrier();
+    mm::fused_step_body<T>(p.step, e, tc, sync, rs, e + 1 < p.n_events ? &tok_first : nullptr);
+    if (e + 1 < p.n_events) sync.barrier();
   }
+  sync.end();
 }
 
 // ptrs: mm::fill_token_params's pointers, then emb_net [V, D] and ev_acc
@@ -121,8 +130,8 @@ int launch(const void* const* ptrs, const int* ints, const float* floats, void* 
       p.n_events < 1 || (ragged && !p.alive))
     return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&p};
-  return mm::launch_cooperative(event_loop_kernel<T>, mm::kDecThreads, mm::kGemvSmem, 1 << 20,
-                                args, stream);
+  return mm::launch_cooperative(event_loop_kernel<T>, mm::kDecThreads, mm::decode_smem<T>(),
+                                1 << 20, args, stream);
 }
 
 }  // namespace

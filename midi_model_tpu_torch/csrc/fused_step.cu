@@ -18,22 +18,29 @@
 // once per event, 403 MB at 12 layers — 0.12 ms at 3.35 TB/s — plus the
 // cached rows each slot attends over (2 * len * H * dh * sizeof(T) per
 // slot and layer; int8 pools: 1 byte a value plus 4 bytes of scales a row
-// and head).  This first version is far from that floor (~4 ms at
-// bs=32): its 60 phases per event pay staging, CUDA-core FMA and barrier
-// latency (PERF.md).
+// and head).  What it has to hide is latency: 60 phases a step.
 //
-// Design (simple first version): one cooperative persistent grid, the
-// phases of fused_step.cuh separated by a global-memory grid barrier.
+// Design: one cooperative persistent grid, one block per SM, the phases of
+// fused_step.cuh separated by a global-memory grid barrier; bf16 products
+// on tensor cores (mma.sync), each phase's weights streamed by TMA into a
+// ring that the block fills for the next phase before the barrier
+// (decode.cuh); f32 products on CUDA cores.  With p.clock set, block 0
+// stamps each phase (decode.cuh PhaseSync).
 #include "fused_step.cuh"
 
 namespace {
 
 template <typename T, typename KV>
-__global__ void __launch_bounds__(mm::kDecThreads, 1) fused_step_kernel(mm::StepParams<T, KV> p) {
+__global__ void __launch_bounds__(mm::kDecThreads, 1)
+    fused_step_kernel(const __grid_constant__ mm::StepParams<T, KV> p) {
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // gemv2's staged tile; attention scores
   __shared__ float rs[mm::kMaxBatch];
-  mm::fused_step_body<T, KV>(p, 0, xs, rs);
+  mm::Tc<T> tc;  // the weight ring and staged activations; attention scores
+  tc.init(reinterpret_cast<uint8_t*>(smem4));
+  mm::PhaseSync sync{p.bar, p.clock, 0};
+  sync.start();
+  mm::fused_step_body<T, KV>(p, 0, tc, sync, rs, nullptr);
+  sync.end();
 }
 
 // The packed host arrays of mm::fill_step_params.
@@ -43,8 +50,8 @@ int launch(const void* const* ptrs, const int* ints, const float* floats, void* 
   if (!mm::fill_step_params(p, ptrs, ints, floats))
     return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&p};
-  return mm::launch_cooperative(fused_step_kernel<T, KV>, mm::kDecThreads, mm::kGemvSmem,
-                                1 << 20, args, stream);
+  return mm::launch_cooperative(fused_step_kernel<T, KV>, mm::kDecThreads,
+                                mm::decode_smem<T>(), 1 << 20, args, stream);
 }
 
 }  // namespace

@@ -29,11 +29,17 @@
 // wrapper does.
 //
 // Design: five phases per layer separated by a global-memory grid barrier:
-// norm + q/k/v (decode.cuh's gemv2), attention (one block per (slot, head),
-// one cached row per thread, the scores kept in shared memory — up to 16384
-// rows per slot), o-proj + the append, norm + gate/up + SiLU, down.  The
-// append runs only after the barrier that ends the layer's attention
-// phase: at capacity the clipped write position is a row that phase reads.
+// norm + q/k/v; attention (one block per (slot, head), the longest slots
+// first, one cached row per thread, the scores kept in shared memory — up
+// to 16384 rows per slot, in the space of the staged activation segment),
+// then the item's append of its fresh row's head slice (only the item
+// reads that slice, so at capacity, where the clipped write position is a
+// row the item reads, the write follows the item's last read); o-proj;
+// norm + gate/up + SiLU; down.  The matrix phases are decode.cuh's: bf16 on
+// tensor cores with each phase's weights (tensor maps over the stacked
+// [L * rows, K] weights) prefetched by TMA before the barrier that
+// precedes it — the o-proj weights land during the attention phase —, f32
+// on CUDA cores.
 #pragma once
 
 #include <type_traits>
@@ -51,12 +57,14 @@ constexpr int kScaleLanes = 128;  // the int8 pools' scale row: k in [0:H], v in
 template <typename T, typename KV = T>
 struct StepParams {
   static constexpr bool kQuant = std::is_same<KV, signed char>::value;
+  // bf16: tensor maps over wqkv [L*3W, D], wo [L*D, W], wgu [L*2F, D], wd [L*D, F]
+  CUtensorMap tm_qkv, tm_o, tm_gu, tm_d;
   const T *wqkv, *wo, *wgu, *wd, *ln;  // [L,3W,D], [L,D,W], [L,2F,D], [L,D,F], [L,2,D]
   const float *cos, *sin;              // [n_events, B, dh] at each slot's position
   const int *lengths, *wpos;           // [n_events, B]
   KV *k_pool, *v_pool;                 // [n_pages, page_size, W]
   T *x;                                // [B, D] residual stream, in place
-  // scratch; fresh_k is [B, W] for T pools, the [L, B, W] output for int8 ones
+  // scratch; fresh_k: int8 pools' [L, B, W] output (unused for T pools)
   T *qkv, *attn, *fresh_k, *gated;
   unsigned int* bar;                   // zeroed {count, generation}
   const __nv_bfloat16* scales;         // int8 pools: [n_pages, page_size, 128]; else null
@@ -65,6 +73,7 @@ struct StepParams {
   // retired slot attends over nothing, appends nothing and keeps its
   // residual frozen.
   const unsigned char* alive;
+  unsigned long long* clock;  // the phase clock (PhaseSync) or null
   int B, D, H, dh, F, L, page_size, pps;
   float eps, scale;
 };
@@ -91,16 +100,17 @@ __device__ __forceinline__ void warp_sum64(float* v) {
 }
 
 // Attention of slot b, head h over its cached rows plus its own fresh row,
-// at event ev's geometry.  One cached row per thread (the block's 256
-// threads walk the rows in turn, each row's head slice read with 16-byte
-// loads), in two passes: the scores go to shared memory (sc, one float per
-// row) with their maximum, then each softmax weight is taken against that
-// maximum and rounded to T before P.V — the plain version's rounding point,
-// which an online softmax (weights against a running maximum) would move.
-// The per-thread P.V sums (64 dims at a time) reduce across lanes, then
-// across warps.  int8 pools: each row's k scale multiplies its score, its v
-// scale the softmax weight, which is then rounded to bf16 (the TPU kernel's
-// quantized form); the fresh rows go to the [L, B, W] outputs.
+// at event ev's geometry, then the append of the fresh row's head slice.
+// One cached row per thread (the block's 256 threads walk the rows in turn,
+// each row's head slice read with 16-byte loads), in two passes: the scores
+// go to shared memory (sc, one float per row) with their maximum, then each
+// softmax weight is taken against that maximum and rounded to T before P.V
+// — the plain version's rounding point, which an online softmax (weights
+// against a running maximum) would move.  The per-thread P.V sums (64 dims
+// at a time) reduce across lanes, then across warps.  int8 pools: each
+// row's k scale multiplies its score, its v scale the softmax weight, which
+// is then rounded to bf16 (the TPU kernel's quantized form); the fresh rows
+// go to the [L, B, W] outputs.
 template <typename T, typename KV>
 __device__ void slot_head_attention(const StepParams<T, KV>& p, int ev, int li, int b, int h,
                                     float* sc) {
@@ -139,11 +149,13 @@ __device__ void slot_head_attention(const StepParams<T, KV>& p, int ev, int li, 
   for (int t = threadIdx.x; t < len; t += kDecThreads) {
     const KV* kr = p.k_pool + row_at(t);
     float s = 0.f;
-    for (int d = 0; d < p.dh; d += 8) {
-      float kv[8];
-      load8(kr + d, kv);
+    for (int d0 = 0; d0 < p.dh; d0 += 64) {
+      // 64 dims of the row's head slice are loaded before the first product
+      float kv[64];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) s += s_q[d + i] * kv[i];
+      for (int d = 0; d < 64; d += 8) load8(kr + d0 + d, kv + d);
+#pragma unroll
+      for (int d = 0; d < 64; ++d) s += s_q[d0 + d] * kv[d];
     }
     if constexpr (kQuant) s *= __bfloat162float(p.scales[page_row(t) * kScaleLanes + h]);
     sc[t] = s;
@@ -210,8 +222,16 @@ __device__ void slot_head_attention(const StepParams<T, KV>& p, int ev, int li, 
     const float wc = total * expf(big - m2);
     const float ws = expf(s_self - m2);
     T* out = p.attn + static_cast<size_t>(b) * W + h * p.dh;
-    // T pools: this layer's [B, W] scratch; int8: layer li's rows of the output
-    const size_t fresh = (kQuant ? (static_cast<size_t>(li) * p.B + b) : b) * W + h * p.dh;
+    // T pools: the append of the fresh row's head slice at wpos — only this
+    // item reads the slice, and every read of it is behind the block
+    // barrier above; int8 pools (read only): layer li's rows of the outputs
+    size_t fresh = (static_cast<size_t>(li) * p.B + b) * W + h * p.dh;
+    if constexpr (!kQuant) {
+      const int pos = p.wpos[slot];
+      fresh = (static_cast<size_t>(base + pos / p.page_size) * p.page_size + pos % p.page_size) *
+                  W + h * p.dh;
+    }
+    const bool append = kQuant || !retired(p, b);
 #pragma unroll
     for (int c = 0; c < kStepMaxChunks; ++c) {
       if (c < C) {
@@ -219,104 +239,118 @@ __device__ void slot_head_attention(const StepParams<T, KV>& p, int ev, int li, 
         const float o = total > 0.f ? s_o[d] / total : 0.f;
         const float v = to_f32(q[2 * W + d]);
         out[d] = from_f32<T>((wc * o + ws * v) / (wc + ws));
-        p.fresh_k[fresh + d] = from_f32<T>(kr[c]);
-        if constexpr (kQuant) p.fresh_v[fresh + d] = q[2 * W + d];
+        if (append) {
+          if constexpr (kQuant) {
+            p.fresh_k[fresh + d] = from_f32<T>(kr[c]);
+            p.fresh_v[fresh + d] = q[2 * W + d];
+          } else {
+            p.k_pool[fresh + d] = from_f32<T>(kr[c]);
+            p.v_pool[fresh + d] = q[2 * W + d];
+          }
+        }
       }
     }
   }
   __syncthreads();  // the shared buffers are reused by the block's next item
 }
 
+// The matrix phases of layer li.
+template <typename T, typename KV>
+__device__ Plan<T> step_qkv_plan(const StepParams<T, KV>& p, int li) {
+  const int W = p.H * p.dh;
+  return plan_of<T>(p.D, 3 * W, 1, p.ln + static_cast<size_t>(li) * 2 * p.D, p.eps,
+                    Src<T>{p.wqkv + static_cast<size_t>(li) * 3 * W * p.D, &p.tm_qkv, li * 3 * W});
+}
+
+template <typename T, typename KV>
+__device__ Plan<T> step_o_plan(const StepParams<T, KV>& p, int li) {
+  const int W = p.H * p.dh;
+  return plan_of<T>(W, p.D, 1, nullptr, 0.f,
+                    Src<T>{p.wo + static_cast<size_t>(li) * p.D * W, &p.tm_o, li * p.D});
+}
+
+template <typename T, typename KV>
+__device__ Plan<T> step_gu_plan(const StepParams<T, KV>& p, int li) {
+  const size_t gate = static_cast<size_t>(li) * 2 * p.F;
+  return plan_of<T>(p.D, p.F, 2, p.ln + (static_cast<size_t>(li) * 2 + 1) * p.D, p.eps,
+                    Src<T>{p.wgu + gate * p.D, &p.tm_gu, li * 2 * p.F},
+                    Src<T>{p.wgu + (gate + p.F) * p.D, &p.tm_gu, li * 2 * p.F + p.F});
+}
+
+template <typename T, typename KV>
+__device__ Plan<T> step_down_plan(const StepParams<T, KV>& p, int li) {
+  return plan_of<T>(p.F, p.D, 1, nullptr, 0.f,
+                    Src<T>{p.wd + static_cast<size_t>(li) * p.D * p.F, &p.tm_d, li * p.D});
+}
+
 // All L layers of event ev (its row of the cos/sin/lengths/wpos tables).
 // Every thread of every block calls it; it ends after the last layer's
-// down phase, without a grid barrier.
+// down phase, without a grid barrier, with `after` (the caller's next
+// phase, or null) queued on the ring.
 template <typename T, typename KV>
-__device__ void fused_step_body(const StepParams<T, KV>& p, int ev, float* xs, float* rs) {
+__device__ void fused_step_body(const StepParams<T, KV>& p, int ev, Tc<T>& tc, PhaseSync& sync,
+                                float* rs, const Plan<T>* after) {
   const int B = p.B, D = p.D, W = p.H * p.dh, F = p.F;
-  for (int li = 0; li < p.L; ++li) {
-    const T* wqkv = p.wqkv + static_cast<size_t>(li) * 3 * W * D;
-    const T* wo = p.wo + static_cast<size_t>(li) * D * W;
-    const T* wgu = p.wgu + static_cast<size_t>(li) * 2 * F * D;
-    const T* wd = p.wd + static_cast<size_t>(li) * D * F;
-    const T* ln_attn = p.ln + static_cast<size_t>(li) * 2 * D;
-    const T* ln_mlp = ln_attn + D;
-
-    // norm + q/k/v: unit u = columns 2u, 2u+1
-    row_scales<T>(p.x, B, D, p.eps, rs);
-    gemv2<T>(
-        B, D, 3 * W / 2,
-        [&](int u, int c) { return wqkv + static_cast<size_t>(2 * u + c) * D; },
-        [&](int b, int k, float* out) { norm8<T>(p.x, ln_attn, rs, D, b, k, out); },
-        [&](int u, int b, float a0, float a1) {
-          T* o = p.qkv + static_cast<size_t>(b) * 3 * W + 2 * u;
-          o[0] = from_f32<T>(a0);
-          o[1] = from_f32<T>(a1);
-        },
-        xs);
-    grid_barrier(p.bar);
-    for (int item = blockIdx.x; item < B * p.H; item += gridDim.x)
-      slot_head_attention<T, KV>(p, ev, li, item / p.H, item % p.H, xs);
-    grid_barrier(p.bar);
-    // append the fresh rows (every read of this layer's pages is done);
-    // int8 pools are read only: their rows left through fresh_k / fresh_v
-    if constexpr (!StepParams<T, KV>::kQuant) {
-      for (int i = blockIdx.x * kDecThreads + threadIdx.x; i < B * W;
-           i += gridDim.x * kDecThreads) {
-        const int b = i / W;
-        const int w = i - b * W;
-        if (retired(p, b)) continue;
-        const int pos = p.wpos[ev * B + b];
-        const size_t dst =
-            (static_cast<size_t>((li * B + b) * p.pps + pos / p.page_size) * p.page_size +
-             pos % p.page_size) * W + w;
-        p.k_pool[dst] = p.fresh_k[i];
-        p.v_pool[dst] = p.qkv[static_cast<size_t>(b) * 3 * W + 2 * W + w];
-      }
+  auto residual = [&](int col, int b, const float* v) {
+    if (retired(p, b)) return;  // the residual stays frozen
+    T* o = p.x + static_cast<size_t>(b) * D + col;
+    *o = from_f32<T>(to_f32(*o) + round_to<T>(v[0]));
+  };
+  if (!tc.primed) tc_begin(tc, step_qkv_plan(p, 0), B);
+  // the slots by decreasing length (ties: by slot), for the attention phases
+  __shared__ int by_length[kMaxBatch];
+  for (int b = threadIdx.x; b < B; b += kDecThreads) {
+    const int len = p.lengths[ev * B + b];
+    int rank = 0;
+    for (int o = 0; o < B; ++o) {
+      const int lo = p.lengths[ev * B + o];
+      rank += lo > len || (lo == len && o < b);
     }
+    by_length[rank] = b;
+  }
+  __syncthreads();
+  for (int li = 0; li < p.L; ++li) {
+    // norm + q/k/v
+    matmul<1>(
+        tc, step_qkv_plan(p, li), B, p.x, rs,
+        [&](int col, int b, const float* v) {
+          p.qkv[static_cast<size_t>(b) * 3 * W + col] = from_f32<T>(v[0]);
+        });
+    tc_begin(tc, step_o_plan(p, li), B);
+    sync.barrier();
+    // (slot, head) items, the longest slots first: consecutive items go to
+    // consecutive blocks, so no block takes two of the longest
+    for (int item = blockIdx.x; item < B * p.H; item += gridDim.x)
+      slot_head_attention<T, KV>(p, ev, li, by_length[item / p.H], item % p.H, tc.scratch());
+    sync.barrier();
     // o-proj + residual
-    gemv2<T>(
-        B, W, D / 2,
-        [&](int u, int c) { return wo + static_cast<size_t>(2 * u + c) * W; },
-        [&](int b, int k, float* out) { load8(p.attn + static_cast<size_t>(b) * W + k, out); },
-        [&](int u, int b, float a0, float a1) {
-          if (retired(p, b)) return;  // the residual stays frozen
-          T* o = p.x + static_cast<size_t>(b) * D + 2 * u;
-          o[0] = from_f32<T>(to_f32(o[0]) + round_to<T>(a0));
-          o[1] = from_f32<T>(to_f32(o[1]) + round_to<T>(a1));
-        },
-        xs);
-    grid_barrier(p.bar);
-    // norm + gate/up + SiLU: unit u = (gate row u, up row F + u)
-    row_scales<T>(p.x, B, D, p.eps, rs);
-    gemv2<T>(
-        B, D, F,
-        [&](int u, int c) { return wgu + static_cast<size_t>(c * F + u) * D; },
-        [&](int b, int k, float* out) { norm8<T>(p.x, ln_mlp, rs, D, b, k, out); },
-        [&](int u, int b, float a0, float a1) {
-          const float g = round_to<T>(silu_f32(round_to<T>(a0)));
-          p.gated[static_cast<size_t>(b) * F + u] = from_f32<T>(g * round_to<T>(a1));
-        },
-        xs);
-    grid_barrier(p.bar);
+    matmul<1>(tc, step_o_plan(p, li), B, p.attn, rs, residual);
+    tc_begin(tc, step_gu_plan(p, li), B);
+    sync.barrier();
+    // norm + gate/up + SiLU
+    matmul<2>(
+        tc, step_gu_plan(p, li), B, p.x, rs,
+        [&](int u, int b, const float* v) {
+          const float g = round_to<T>(silu_f32(round_to<T>(v[0])));
+          p.gated[static_cast<size_t>(b) * F + u] = from_f32<T>(g * round_to<T>(v[1]));
+        });
+    tc_begin(tc, step_down_plan(p, li), B);
+    sync.barrier();
     // down + residual
-    gemv2<T>(
-        B, F, D / 2,
-        [&](int u, int c) { return wd + static_cast<size_t>(2 * u + c) * F; },
-        [&](int b, int k, float* out) { load8(p.gated + static_cast<size_t>(b) * F + k, out); },
-        [&](int u, int b, float a0, float a1) {
-          if (retired(p, b)) return;  // the residual stays frozen
-          T* o = p.x + static_cast<size_t>(b) * D + 2 * u;
-          o[0] = from_f32<T>(to_f32(o[0]) + round_to<T>(a0));
-          o[1] = from_f32<T>(to_f32(o[1]) + round_to<T>(a1));
-        },
-        xs);
-    if (li + 1 < p.L) grid_barrier(p.bar);
+    matmul<1>(tc, step_down_plan(p, li), B, p.gated, rs, residual);
+    if (li + 1 < p.L) {
+      tc_begin(tc, step_qkv_plan(p, li + 1), B);
+      sync.barrier();
+    } else if (after != nullptr) {
+      tc_begin(tc, *after, B);
+    }
   }
 }
 
 // Fill p from the packed host arrays and advance the cursors.  ptrs: the
 // pointers of StepParams in declaration order up to `fresh_v` (alive is
-// left null; scales and fresh_v are null for T pools); ints: B, D, H, dh,
+// left null; scales and fresh_v are null for T pools), then the phase clock
+// (or null); bf16: encodes the four tensor maps.  ints: B, D, H, dh,
 // F, L, page_size, pages_per_slot; floats: eps, scale.  Returns false for
 // shapes the kernel does not take.
 template <typename T, typename KV>
@@ -334,15 +368,26 @@ bool fill_step_params(StepParams<T, KV>& p, const void* const*& ptrs, const int*
   p.bar = static_cast<unsigned int*>(next());
   p.scales = static_cast<const __nv_bfloat16*>(next());
   p.fresh_v = static_cast<T*>(next());
+  p.clock = static_cast<unsigned long long*>(next());
   p.alive = nullptr;
   for (int* f : {&p.B, &p.D, &p.H, &p.dh, &p.F, &p.L, &p.page_size, &p.pps}) *f = *ints++;
   p.eps = *floats++;
   p.scale = *floats++;
   constexpr bool kQuant = StepParams<T, KV>::kQuant;
   const bool quant_args = p.scales != nullptr && p.fresh_v != nullptr && 2 * p.H <= kScaleLanes;
-  return p.dh <= kStepMaxHeadDim && p.dh % 64 == 0 && p.B <= kMaxBatch &&
-         static_cast<size_t>(p.page_size) * p.pps * sizeof(float) <= kGemvSmem &&
-         (kQuant ? quant_args : p.scales == nullptr && p.fresh_v == nullptr);
+  const bool ok = p.dh <= kStepMaxHeadDim && p.dh % 64 == 0 && p.B <= kMaxBatch &&
+                  static_cast<size_t>(p.page_size) * p.pps * sizeof(float) <= kGemvSmem &&
+                  (kQuant ? quant_args : p.scales == nullptr && p.fresh_v == nullptr);
+  if (!ok) return false;
+  if constexpr (kTensorCores<T>) {
+    const int W = p.H * p.dh;
+    const long long L = p.L;
+    return make_rows_map(&p.tm_qkv, p.wqkv, L * 3 * W, p.D) &&
+           make_rows_map(&p.tm_o, p.wo, L * p.D, W) &&
+           make_rows_map(&p.tm_gu, p.wgu, L * 2 * p.F, p.D) &&
+           make_rows_map(&p.tm_d, p.wd, L * p.D, p.F);
+  }
+  return true;
 }
 
 }  // namespace mm

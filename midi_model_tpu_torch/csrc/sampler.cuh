@@ -81,10 +81,15 @@ __device__ int sample_top_p_k_block(float* work, int V, float top_p, int n_iter,
   float best = -CUDART_INF_F;
   int bidx = 0;
   float texcl = 0.f;
+  // each extraction's noise is loaded one extraction ahead, so its latency
+  // hides behind the extraction before it
+  float gj = n_iter > 0 ? g[0] : 0.f;
   for (int j = 0; j < n_iter && texcl <= top_p; ++j) {
+    const float g_next = j + 1 < n_iter ? g[j + 1] : 0.f;
     const MaxIdx r = block_first_max<kThreads>(work, V, s);
     // kept: texcl <= top_p and j < top_k hold by the loop condition
-    const float score = logf(r.m) + g[j];
+    const float score = logf(r.m) + gj;
+    gj = g_next;
     if (score > best) {
       best = score;
       bidx = r.i;

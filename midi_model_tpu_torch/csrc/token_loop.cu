@@ -9,26 +9,35 @@
 // at step 0).
 //
 // What bounds it on an H100: bytes.  Every step reads all token-net and
-// lm_head weights once (tv2o-medium: 3 layers x 7M + 3.5M parameters,
-// about 51 MB in bf16), about 408 MB per event — 0.12 ms at 3.35 TB/s.
-// Activations are [B, <=3W] and fit in L2.  This first version is far from
-// that floor (~4 ms at bs=32): each of its 136 phases per event pays
-// staging, CUDA-core FMA and barrier latency (PERF.md).
+// lm_head weights (tv2o-medium: 3 layers x 7M + 3.5M parameters, about 51
+// MB in bf16): counted once (the weights stay in the 50 MB L2 across the 8
+// steps at best) that is 0.015 ms at 3.35 TB/s, counted once a step 0.12
+// ms.  Activations are [B, <=3W] and fit in L2.  What it has to hide is
+// latency: 14 phases a step (bf16), each a grid barrier.
 //
-// Design (simple first version): one cooperative persistent grid, the
-// phases of token_row.cuh separated by a global-memory grid barrier.
+// Design: one cooperative persistent grid, one block per SM, the phases of
+// token_row.cuh separated by a global-memory grid barrier.  bf16 products
+// on tensor cores (mma.sync) with each phase's weights streamed by TMA into
+// a ring that the block fills for the next phase before the barrier
+// (decode.cuh); f32 products on CUDA cores.  With p.clock set, block 0
+// stamps each phase (decode.cuh PhaseSync).
 #include "token_row.cuh"
 
 namespace {
 
 template <typename T>
-__global__ void __launch_bounds__(mm::kDecThreads, 1) token_row_kernel(mm::TokenParams<T> p) {
+__global__ void __launch_bounds__(mm::kDecThreads, 1)
+    token_row_kernel(const __grid_constant__ mm::TokenParams<T> p) {
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // gemv2's staged tile; the sampler's work[V]
   __shared__ float rs[mm::kMaxBatch];
   __shared__ float red[mm::kDecWarps];
   __shared__ mm::ArgmaxScratch<mm::kDecThreads> am;
-  mm::token_row_body<T>(p, 0, xs, rs, red, am);
+  mm::Tc<T> tc;  // the weight ring and staged activations; the sampler's work[V]
+  tc.init(reinterpret_cast<uint8_t*>(smem4));
+  mm::PhaseSync sync{p.bar, p.clock, 0};
+  sync.start();
+  mm::token_row_body<T>(p, 0, tc, sync, rs, red, am, nullptr);
+  sync.end();
 }
 
 // The packed host arrays of mm::fill_token_params.
@@ -38,8 +47,8 @@ int launch(const void* const* ptrs, const int* ints, const float* floats, void* 
   if (!mm::fill_token_params(p, ptrs, ints, floats))
     return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&p};
-  return mm::launch_cooperative(token_row_kernel<T>, mm::kDecThreads, mm::kGemvSmem, 1 << 20,
-                                args, stream);
+  return mm::launch_cooperative(token_row_kernel<T>, mm::kDecThreads, mm::decode_smem<T>(),
+                                1 << 20, args, stream);
 }
 
 }  // namespace

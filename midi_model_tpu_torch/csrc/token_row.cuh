@@ -17,15 +17,16 @@
 // of sampler.cuh with noise gumbel[j*B + b] (step-major, as the JAX kernel).
 //
 // Design: each step is a sequence of phases separated by a global-memory
-// grid barrier (5 per layer + 2 per step): norm + q/k/v, RoPE + attention
-// (one warp per (row, head)), o-proj + residual, norm + gate/up + SiLU,
-// down + residual, final norm + lm_head, then sampling + the next input's
-// embedding (one block per row).  The matrix phases are decode.cuh's gemv2
-// on CUDA cores.  The live K/V (at most T rows per row and head) and the
-// activations sit in global scratch, which stays in L2.  The rounding
-// points are the plain version's: matmul outputs, RoPE, the attention
-// probabilities (before P.V), the attention output, SiLU and the residual
-// adds round to T.
+// grid barrier (5 per layer + 2 per step): norm + q/k/v; RoPE + attention
+// (one warp per (row, head), 8 head dims a lane); o-proj + residual; norm +
+// gate/up + SiLU; down + residual; final norm + lm_head; then sampling +
+// the next input's embedding (one block per row).  The matrix phases are
+// decode.cuh's: tc_phase on tensor cores for bf16 (each phase's weights
+// prefetched across the barrier before it), gemv2 on CUDA cores for f32.
+// The live K/V (at most T rows per row and head) and the activations sit
+// in global scratch, which stays in L2.  The rounding points are the plain
+// version's: matmul outputs, RoPE, the attention probabilities (before
+// P.V), the attention output, SiLU and the residual adds round to T.
 #pragma once
 
 #include "decode.cuh"
@@ -42,8 +43,14 @@ struct TokenLayer {
   const T *wq, *wk, *wv, *wo, *wg, *wu, *wd, *ln_attn, *ln_mlp;
 };
 
+// a token layer's weights in TokenLayer order: q, k, v, o, gate, up, down
+constexpr int kTokMaps = 7;
+
 template <typename T>
 struct TokenParams {
+  // bf16: a tensor map over each weight (decode.cuh make_rows_map)
+  CUtensorMap tm[kTokMaxLayers][kTokMaps];
+  CUtensorMap tm_lm;
   TokenLayer<T> layer[kTokMaxLayers];
   const T *fnorm, *lm, *emb;         // [D], [V, D], [V, D]
   const float *cos, *sin;            // [T, dh]
@@ -69,77 +76,102 @@ struct TokenParams {
   // retired slot samples pad at every step, like a forced_pad row, and its
   // event embedding is not written (its residual stays frozen).
   const unsigned char* alive;
+  unsigned long long* clock;  // the phase clock (PhaseSync) or null
   int B, D, H, dh, F, V, L, n_steps, E, k_cap, eos_id, first_event_id, greedy;
   float eps, scale;
 };
 
-// RoPE + attention of the step's query over positions 0..j: one warp per
-// (row, head); lane owns dims lane + 32c, so it reads back only what it
-// wrote itself into the live K/V.
+// RoPE + attention of step j's query over positions 0..j of layer li: one
+// warp per (row, head), spread over the grid; lane l < dh/8 owns head dims
+// 8l .. 8l+7 (16-byte loads; RoPE's rotate-half partner is lane l -+
+// dh/16).  Writes the attention output [B, W] and the fresh k (after RoPE)
+// and v rows into the live K/V.  All of a pair's cached rows are loaded
+// before the first score is summed.
 template <typename T>
 __device__ void token_attention(const TokenParams<T>& p, int li, int j) {
   const int W = p.H * p.dh;
-  const int C = p.dh / 32;
+  const int nl = p.dh / 8, half = nl / 2;
   const int lane = threadIdx.x & 31;
-  const int gw = blockIdx.x * kDecWarps + (threadIdx.x >> 5);
-  const float* cs = p.cos + static_cast<size_t>(j) * p.dh;
-  const float* sn = p.sin + static_cast<size_t>(j) * p.dh;
-  for (int item = gw; item < p.B * p.H; item += gridDim.x * kDecWarps) {
-    const int b = item / p.H;
-    const int h = item % p.H;
-    const T* q = p.qkv + static_cast<size_t>(b) * 3 * W + h * p.dh;
-    float qr[kTokMaxChunks], kr[kTokMaxChunks];
-    rope_head<T, kTokMaxChunks>(q, cs, sn, C, qr);
-    rope_head<T, kTokMaxChunks>(q + W, cs, sn, C, kr);
-    // live K/V: [L, T, B, W]
-    const size_t here = ((static_cast<size_t>(li) * p.n_steps + j) * p.B + b) * W + h * p.dh;
-    const size_t step_stride = static_cast<size_t>(p.B) * W;
-    const size_t first = here - static_cast<size_t>(j) * step_stride;
+  const bool mine = lane < nl;
+  const int partner = lane < half ? lane + half : (lane < nl ? lane - half : lane);
+  const float* cs = p.cos + static_cast<size_t>(j) * p.dh + 8 * lane;
+  const float* sn = p.sin + static_cast<size_t>(j) * p.dh + 8 * lane;
+  const size_t step_stride = static_cast<size_t>(p.B) * W;
+  for (int item = blockIdx.x * kDecWarps + (threadIdx.x >> 5); item < p.B * p.H;
+       item += gridDim.x * kDecWarps) {
+    const int b = item / p.H, h = item % p.H;
+    const T* q = p.qkv + static_cast<size_t>(b) * 3 * W + h * p.dh + 8 * lane;
+    float qv[8] = {}, kv[8] = {}, vv[8] = {};
+    if (mine) {
+      load8(q, qv);
+      load8(q + W, kv);
+      load8(q + 2 * W, vv);
+    }
+    float qr[8], kr[8];
 #pragma unroll
-    for (int c = 0; c < kTokMaxChunks; ++c) {
-      if (c < C) {
-        const int d = lane + 32 * c;
-        p.kc[here + d] = from_f32<T>(kr[c]);
-        p.vc[here + d] = q[2 * W + d];
+    for (int i = 0; i < 8; ++i) {
+      const float qp = __shfl_sync(0xffffffffu, qv[i], partner);
+      const float kp = __shfl_sync(0xffffffffu, kv[i], partner);
+      const float c = mine ? cs[i] : 0.f, sv = mine ? sn[i] : 0.f;
+      const float rq = lane < half ? -qp : qp, rk = lane < half ? -kp : kp;
+      qr[i] = round_to<T>(__fadd_rn(__fmul_rn(qv[i], c), __fmul_rn(rq, sv)));
+      kr[i] = round_to<T>(__fadd_rn(__fmul_rn(kv[i], c), __fmul_rn(rk, sv)));
+    }
+    // live K/V: [L, T, B, W]; positions 0 .. j-1 from earlier steps, j fresh
+    const size_t first = (static_cast<size_t>(li) * p.n_steps * p.B + b) * W + h * p.dh +
+                         8 * lane;
+    float kt[kTokMaxSteps][8];
+#pragma unroll
+    for (int t = 0; t < kTokMaxSteps; ++t) {
+      if (t < j && mine) {
+        load8(p.kc + first + t * step_stride, kt[t]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) kt[t][i] = t == j ? kr[i] : 0.f;
       }
     }
-    float s[kTokMaxSteps];
+    float sc[kTokMaxSteps];
     float m = -CUDART_INF_F;
 #pragma unroll
     for (int t = 0; t < kTokMaxSteps; ++t) {
       if (t <= j) {
-        const T* kt = p.kc + first + t * step_stride;
         float acc = 0.f;
 #pragma unroll
-        for (int c = 0; c < kTokMaxChunks; ++c)
-          if (c < C) acc += qr[c] * to_f32(kt[lane + 32 * c]);
-        s[t] = warp_sum(acc) * p.scale;
-        m = fmaxf(m, s[t]);
+        for (int i = 0; i < 8; ++i) acc += qr[i] * kt[t][i];
+        sc[t] = warp_sum(acc) * p.scale;
+        m = fmaxf(m, sc[t]);
       }
     }
     float sum = 0.f;
 #pragma unroll
     for (int t = 0; t < kTokMaxSteps; ++t) {
       if (t <= j) {
-        s[t] = expf(s[t] - m);
-        sum += s[t];
+        sc[t] = expf(sc[t] - m);
+        sum += sc[t];
       }
     }
-    float o[kTokMaxChunks] = {};
+    float o[8] = {};
 #pragma unroll
     for (int t = 0; t < kTokMaxSteps; ++t) {
       if (t <= j) {
-        const float pt = round_to<T>(s[t] / sum);
-        const T* vt = p.vc + first + t * step_stride;
+        float vt[8];
+        if (t < j && mine) {
+          load8(p.vc + first + t * step_stride, vt);
+        } else {
 #pragma unroll
-        for (int c = 0; c < kTokMaxChunks; ++c)
-          if (c < C) o[c] += pt * to_f32(vt[lane + 32 * c]);
+          for (int i = 0; i < 8; ++i) vt[i] = vv[i];
+        }
+        const float pt = round_to<T>(sc[t] / sum);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) o[i] += pt * vt[i];
       }
     }
-    T* out = p.attn + static_cast<size_t>(b) * W + h * p.dh;
-#pragma unroll
-    for (int c = 0; c < kTokMaxChunks; ++c)
-      if (c < C) out[lane + 32 * c] = from_f32<T>(o[c]);
+    if (mine) {
+      const size_t here = first + j * step_stride;
+      store8(p.kc + here, kr);
+      store8(p.vc + here, vv);
+      store8(p.attn + static_cast<size_t>(b) * W + h * p.dh + 8 * lane, o);
+    }
   }
 }
 
@@ -225,97 +257,105 @@ __device__ void sample_row(const TokenParams<T>& p, int ev, int j, int b, float*
   __syncthreads();  // work and the scratch are reused by the next row
 }
 
+// The matrix phases of a token layer (li) and the lm_head (li == L).
+template <typename T>
+__device__ Plan<T> tok_qkv_plan(const TokenParams<T>& p, int li) {
+  const TokenLayer<T>& ly = p.layer[li];
+  const int W = p.H * p.dh;
+  return plan_of<T>(p.D, 3 * W, 1, ly.ln_attn, p.eps, Src<T>{ly.wq, &p.tm[li][0], 0},
+                    Src<T>{ly.wk, &p.tm[li][1], 0},
+                    Src<T>{ly.wv, &p.tm[li][2], 0}, W);
+}
+
+template <typename T>
+__device__ Plan<T> tok_o_plan(const TokenParams<T>& p, int li) {
+  return plan_of<T>(p.H * p.dh, p.D, 1, nullptr, 0.f, Src<T>{p.layer[li].wo, &p.tm[li][3], 0});
+}
+
+template <typename T>
+__device__ Plan<T> tok_gu_plan(const TokenParams<T>& p, int li) {
+  const TokenLayer<T>& ly = p.layer[li];
+  return plan_of<T>(p.D, p.F, 2, ly.ln_mlp, p.eps, Src<T>{ly.wg, &p.tm[li][4], 0},
+                    Src<T>{ly.wu, &p.tm[li][5], 0});
+}
+
+template <typename T>
+__device__ Plan<T> tok_down_plan(const TokenParams<T>& p, int li) {
+  return plan_of<T>(p.F, p.D, 1, nullptr, 0.f, Src<T>{p.layer[li].wd, &p.tm[li][6], 0});
+}
+
+template <typename T>
+__device__ Plan<T> tok_lm_plan(const TokenParams<T>& p) {
+  return plan_of<T>(p.D, p.V, 1, p.fnorm, p.eps, Src<T>{p.lm, &p.tm_lm, 0});
+}
+
 // The whole token row of event ev (its noise and its rows in the [E, ...]
 // planes); p.x holds the step-0 input.  Every thread of every block calls
-// it; it ends after the last sampling phase, without a grid barrier.
+// it; it ends after the last sampling phase, without a grid barrier, with
+// `after` (the next phase of the caller, or null) queued on the ring.
 template <typename T>
-__device__ void token_row_body(const TokenParams<T>& p, int ev, float* xs, float* rs, float* red,
-                               ArgmaxScratch<kDecThreads>& am) {
+__device__ void token_row_body(const TokenParams<T>& p, int ev, Tc<T>& tc, PhaseSync& sync,
+                               float* rs, float* red, ArgmaxScratch<kDecThreads>& am,
+                               const Plan<T>* after) {
   const int B = p.B, D = p.D, W = p.H * p.dh, F = p.F;
+  auto residual = [&](int col, int b, const float* v) {
+    T* o = p.x + static_cast<size_t>(b) * D + col;
+    *o = from_f32<T>(to_f32(*o) + round_to<T>(v[0]));
+  };
+  if (!tc.primed) tc_begin(tc, tok_qkv_plan(p, 0), B);
   for (int j = 0; j < p.n_steps; ++j) {
     for (int li = 0; li < p.L; ++li) {
-      const TokenLayer<T> ly = p.layer[li];
-      // norm + q/k/v: unit u = columns 2u, 2u+1 of [q | k | v]
-      row_scales<T>(p.x, B, D, p.eps, rs);
-      gemv2<T>(
-          B, D, 3 * W / 2,
-          [&](int u, int c) {
-            const int n = 2 * u + c;
-            const T* w = n < W ? ly.wq : (n < 2 * W ? ly.wk : ly.wv);
-            return w + static_cast<size_t>(n % W) * D;
-          },
-          [&](int b, int k, float* out) { norm8<T>(p.x, ly.ln_attn, rs, D, b, k, out); },
-          [&](int u, int b, float a0, float a1) {
-            T* o = p.qkv + static_cast<size_t>(b) * 3 * W + 2 * u;
-            o[0] = from_f32<T>(a0);
-            o[1] = from_f32<T>(a1);
-          },
-          xs);
-      grid_barrier(p.bar);
+      // norm + q/k/v
+      matmul<1>(
+          tc, tok_qkv_plan(p, li), B, p.x, rs,
+          [&](int col, int b, const float* v) {
+            p.qkv[static_cast<size_t>(b) * 3 * W + col] = from_f32<T>(v[0]);
+          });
+      tc_begin(tc, tok_o_plan(p, li), B);
+      sync.barrier();
       token_attention<T>(p, li, j);
-      grid_barrier(p.bar);
+      sync.barrier();
       // o-proj + residual
-      gemv2<T>(
-          B, W, D / 2,
-          [&](int u, int c) { return ly.wo + static_cast<size_t>(2 * u + c) * W; },
-          [&](int b, int k, float* out) { load8(p.attn + static_cast<size_t>(b) * W + k, out); },
-          [&](int u, int b, float a0, float a1) {
-            T* o = p.x + static_cast<size_t>(b) * D + 2 * u;
-            o[0] = from_f32<T>(to_f32(o[0]) + round_to<T>(a0));
-            o[1] = from_f32<T>(to_f32(o[1]) + round_to<T>(a1));
-          },
-          xs);
-      grid_barrier(p.bar);
-      // norm + gate/up + SiLU: unit u = (gate row u, up row u)
-      row_scales<T>(p.x, B, D, p.eps, rs);
-      gemv2<T>(
-          B, D, F,
-          [&](int u, int c) { return (c ? ly.wu : ly.wg) + static_cast<size_t>(u) * D; },
-          [&](int b, int k, float* out) { norm8<T>(p.x, ly.ln_mlp, rs, D, b, k, out); },
-          [&](int u, int b, float a0, float a1) {
-            const float g = round_to<T>(silu_f32(round_to<T>(a0)));
-            p.gated[static_cast<size_t>(b) * F + u] = from_f32<T>(g * round_to<T>(a1));
-          },
-          xs);
-      grid_barrier(p.bar);
+      matmul<1>(tc, tok_o_plan(p, li), B, p.attn, rs, residual);
+      tc_begin(tc, tok_gu_plan(p, li), B);
+      sync.barrier();
+      // norm + gate/up + SiLU
+      matmul<2>(
+          tc, tok_gu_plan(p, li), B, p.x, rs,
+          [&](int u, int b, const float* v) {
+            const float g = round_to<T>(silu_f32(round_to<T>(v[0])));
+            p.gated[static_cast<size_t>(b) * F + u] = from_f32<T>(g * round_to<T>(v[1]));
+          });
+      tc_begin(tc, tok_down_plan(p, li), B);
+      sync.barrier();
       // down + residual
-      gemv2<T>(
-          B, F, D / 2,
-          [&](int u, int c) { return ly.wd + static_cast<size_t>(2 * u + c) * F; },
-          [&](int b, int k, float* out) { load8(p.gated + static_cast<size_t>(b) * F + k, out); },
-          [&](int u, int b, float a0, float a1) {
-            T* o = p.x + static_cast<size_t>(b) * D + 2 * u;
-            o[0] = from_f32<T>(to_f32(o[0]) + round_to<T>(a0));
-            o[1] = from_f32<T>(to_f32(o[1]) + round_to<T>(a1));
-          },
-          xs);
-      grid_barrier(p.bar);
+      matmul<1>(tc, tok_down_plan(p, li), B, p.gated, rs, residual);
+      tc_begin(tc, li + 1 < p.L ? tok_qkv_plan(p, li + 1) : tok_lm_plan(p), B);
+      sync.barrier();
     }
     // final norm + lm_head: logits in T, kept as f32
-    row_scales<T>(p.x, B, D, p.eps, rs);
-    gemv2<T>(
-        B, D, (p.V + 1) / 2,
-        [&](int u, int c) -> const T* {
-          const int n = 2 * u + c;
-          return n < p.V ? p.lm + static_cast<size_t>(n) * D : nullptr;
-        },
-        [&](int b, int k, float* out) { norm8<T>(p.x, p.fnorm, rs, D, b, k, out); },
-        [&](int u, int b, float a0, float a1) {
-          float* o = p.logits + static_cast<size_t>(b) * p.V + 2 * u;
-          o[0] = round_to<T>(a0);
-          if (2 * u + 1 < p.V) o[1] = round_to<T>(a1);
-        },
-        xs);
-    grid_barrier(p.bar);
-    for (int b = blockIdx.x; b < B; b += gridDim.x) sample_row<T>(p, ev, j, b, xs, am, red);
-    if (j + 1 < p.n_steps) grid_barrier(p.bar);
+    matmul<1>(
+        tc, tok_lm_plan(p), B, p.x, rs,
+        [&](int col, int b, const float* v) {
+          p.logits[static_cast<size_t>(b) * p.V + col] = round_to<T>(v[0]);
+        });
+    if (j + 1 < p.n_steps) {
+      tc_begin(tc, tok_qkv_plan(p, 0), B);
+    } else if (after != nullptr) {
+      tc_begin(tc, *after, B);
+    }
+    sync.barrier();
+    for (int b = blockIdx.x; b < B; b += gridDim.x)
+      sample_row<T>(p, ev, j, b, tc.scratch(), am, red);
+    if (j + 1 < p.n_steps) sync.barrier();
   }
 }
 
 // Fill p from the packed host arrays and advance the cursors.  ptrs: the
 // pointers of TokenParams in declaration order up to `ended`, 9 per layer
 // for kTokMaxLayers layers first (emb_net, ev_acc, ev_out and alive are
-// left null); ints: B, D, H, dh, F, V, L, n_steps, E, k_cap, eos_id,
+// left null), then the phase clock (or null); bf16: encodes the tensor maps
+// of the first L layers and the lm_head.  ints: B, D, H, dh, F, V, L, n_steps, E, k_cap, eos_id,
 // first_event_id, greedy; floats: eps, scale.  Returns false for shapes
 // the kernel does not take.
 template <typename T>
@@ -348,6 +388,7 @@ bool fill_token_params(TokenParams<T>& p, const void* const*& ptrs, const int*& 
   p.bar = static_cast<unsigned int*>(next());
   p.row = static_cast<int*>(next());
   p.ended = static_cast<unsigned char*>(next());
+  p.clock = static_cast<unsigned long long*>(next());
   p.emb_net = nullptr;
   p.ev_acc = nullptr;
   p.ev_out = nullptr;
@@ -357,9 +398,23 @@ bool fill_token_params(TokenParams<T>& p, const void* const*& ptrs, const int*& 
     *f = *ints++;
   p.eps = *floats++;
   p.scale = *floats++;
-  return p.L <= kTokMaxLayers && p.n_steps <= kTokMaxSteps && p.dh <= 32 * kTokMaxChunks &&
-         p.dh % 64 == 0 && p.B <= kMaxBatch &&
-         static_cast<size_t>(p.V) * sizeof(float) <= kGemvSmem;
+  const bool ok = p.L <= kTokMaxLayers && p.n_steps <= kTokMaxSteps &&
+                  p.dh <= 32 * kTokMaxChunks && p.dh % 64 == 0 && p.B <= kMaxBatch &&
+                  static_cast<size_t>(p.V) * sizeof(float) <= kGemvSmem;
+  if (!ok) return false;
+  if constexpr (kTensorCores<T>) {
+    const int W = p.H * p.dh;
+    for (int l = 0; l < p.L; ++l) {
+      const TokenLayer<T>& ly = p.layer[l];
+      const T* w[kTokMaps] = {ly.wq, ly.wk, ly.wv, ly.wo, ly.wg, ly.wu, ly.wd};
+      const int rows[kTokMaps] = {W, W, W, p.D, p.F, p.F, p.D};
+      const int ks[kTokMaps] = {p.D, p.D, p.D, W, p.D, p.D, p.F};
+      for (int i = 0; i < kTokMaps; ++i)
+        if (!make_rows_map(&p.tm[l][i], w[i], rows[i], ks[i])) return false;
+    }
+    if (!make_rows_map(&p.tm_lm, p.lm, p.V, p.D)) return false;
+  }
+  return true;
 }
 
 }  // namespace mm

@@ -92,6 +92,11 @@ def kernel_limits(cfg, batch: int, capacity: int) -> Optional[str]:
     return None
 
 
+def phase_kinds(n_layers: int) -> list:
+    """The kind of each phase of a whole-step launch, in order."""
+    return ["norm+qkv", "attention", "o-proj", "gate/up", "down"] * n_layers
+
+
 def _slot_tables(index, active, b, capacity, device):
     index = index.to(device=device, dtype=torch.int32)
     if active is None:
@@ -232,14 +237,17 @@ def _append_int8(pools: PagedPools, kn: torch.Tensor, vn: torch.Tensor,
 def fused_decode_step(fused: FusedWeights, cfg, x: torch.Tensor,
                       pools: PagedPools, index: torch.Tensor,
                       active: Optional[torch.Tensor] = None, *,
-                      page_size: int, pages_per_slot: int):
+                      page_size: int, pages_per_slot: int,
+                      clock: Optional[torch.Tensor] = None):
     """One decode step of the event net ``cfg`` over all its layers.
 
     fused: :func:`prepare_fused` of the stack; x [B, D]: the new rows'
     embeddings; pools: the stack's paged pools; index int [B]: each slot's
     length BEFORE this row; active [B] bool (optional).  Returns (hidden
     [B, D] after the final norm, pools updated in place).  CPU tensors run
-    the plain version, CUDA tensors the kernel (one launch) or raise."""
+    the plain version, CUDA tensors the kernel (one launch) or raise.
+    ``clock`` (CUDA only): a ``token_loop.phase_clock`` buffer the kernel
+    stamps its phases into (:func:`phase_kinds`)."""
     tensors = [x, pools.k, pools.v, index, fused.wqkv]
     tensors += [t for t in (pools.scales, active) if t is not None]
     if _build.on_cpu(*tensors):
@@ -256,7 +264,7 @@ def fused_decode_step(fused: FusedWeights, cfg, x: torch.Tensor,
     ptrs, ints, floats, xs, fresh, keep = kernel_args(
         fused, cfg, x, pools, lengths[None], wpos[None], cos.contiguous(),
         sin.contiguous(), page_size=page_size, pages_per_slot=pages_per_slot,
-        bar=bar)
+        bar=bar, clock=clock)
     name = "mm_fused_step_" + ("f32" if fused.wqkv.dtype == torch.float32 else "bf16")
     if pools.quantized:
         name += "_int8"
@@ -272,11 +280,12 @@ def fused_decode_step(fused: FusedWeights, cfg, x: torch.Tensor,
 def kernel_args(fused: FusedWeights, cfg, x: torch.Tensor, pools: PagedPools,
                 lengths: torch.Tensor, wpos: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor, *, page_size: int, pages_per_slot: int,
-                bar: torch.Tensor):
+                bar: torch.Tensor, clock: Optional[torch.Tensor] = None):
     """Check a whole-step launch's CUDA inputs and pack them as the kernel's
     host arrays (``csrc/fused_step.cuh`` ``fill_step_params``).  The
     geometry has one row per event: lengths / wpos int32 [E, B], cos / sin
-    f32 [E, B, dh]; bar: a zeroed int32 pair.  Returns (ptrs, ints, floats,
+    f32 [E, B, dh]; bar: a zeroed int32 pair; clock: the phase clock or
+    None.  Returns (ptrs, ints, floats,
     xs, fresh, keep): xs [B, D] is the residual stream the kernel updates in
     place (starting from x); fresh is None, or for int8 pools the kernel's
     fresh-row outputs (k, v) [L, B, W]; the tensors in ``keep`` must outlive
@@ -316,14 +325,13 @@ def kernel_args(fused: FusedWeights, cfg, x: torch.Tensor, pools: PagedPools,
         return torch.empty(shape, dtype=dtype, device=device)
 
     xs = x.to(dtype=dtype, copy=True).contiguous()  # the residual stream
-    # int8 pools: every layer's fresh k and v rows come out; else the fresh k
-    # rows of one layer are scratch
+    # int8 pools: every layer's fresh k and v rows come out
     fresh = (empty(n_layers, b, w), empty(n_layers, b, w)) if pools.quantized else None
-    # scratch: qkv, attention output, fresh k rows, gated MLP input
-    scratch = [empty(b, 3 * w), empty(b, w), fresh[0] if fresh else empty(b, w), empty(b, f)]
+    # scratch: qkv, attention output, (the fresh k rows,) gated MLP input
+    scratch = [empty(b, 3 * w), empty(b, w), fresh[0] if fresh else None, empty(b, f)]
     tensors = [fused.wqkv, fused.wo, fused.wgu, fused.wd, fused.ln, cos, sin,
                lengths, wpos, pools.k, pools.v, xs, *scratch, bar,
-               pools.scales, fresh[1] if fresh else None]
+               pools.scales, fresh[1] if fresh else None, clock]
     ints = [b, d, h, dh, f, n_layers, page_size, pages_per_slot]
     return ([None if t is None else t.data_ptr() for t in tensors], ints,
             [cfg.rms_norm_eps, dh ** -0.5], xs, fresh, tensors)

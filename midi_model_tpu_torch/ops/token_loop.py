@@ -86,6 +86,21 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def phase_clock(n_barriers: int, device) -> torch.Tensor:
+    """A zeroed phase-clock buffer for a launch with ``n_barriers`` grid
+    barriers (``csrc/decode.cuh`` ``PhaseSync``): entry 2i is when phase i
+    started, 2i + 1 the last block's arrival at its end (%globaltimer ns)."""
+    return torch.zeros(2 * n_barriers + 2, dtype=torch.int64, device=device)
+
+
+def phase_kinds(n_layers: int, n_steps: int) -> list:
+    """The kind of each phase of a token-row launch, in order: per step and
+    layer norm+qkv, attention, o-proj, gate/up, down; per step lm_head and
+    sample."""
+    layer = ["norm+qkv", "attention", "o-proj", "gate/up", "down"]
+    return (layer * n_layers + ["lm_head", "sample"]) * n_steps
+
+
 def kernel_limits(config, batch: int) -> Optional[str]:
     """Why the token-row kernel cannot take ``config``'s token net at
     ``batch`` rows, or None when it can."""
@@ -109,10 +124,12 @@ def kernel_limits(config, batch: int) -> Optional[str]:
 def kernel_args(model, config, hidden: torch.Tensor, masks, temp, top_p, top_k,
                 gumbel: Optional[torch.Tensor], *, greedy: bool,
                 forced_pad: Optional[torch.Tensor], allow: Optional[torch.Tensor],
-                n_events: int, bar: torch.Tensor):
+                n_events: int, bar: torch.Tensor,
+                clock: Optional[torch.Tensor] = None):
     """Check a token-row launch's CUDA inputs and pack them as the kernel's
     host arrays (``csrc/token_row.cuh`` ``fill_token_params``).  gumbel
-    [n_events * T*B, k_cap] (None when greedy); bar: a zeroed int32 pair.
+    [n_events * T*B, k_cap] (None when greedy); bar: a zeroed int32 pair;
+    clock: the phase clock (:func:`phase_clock`) or None.
     Returns (ptrs, ints, floats, row [n_events, B, T], ended [B], keep): the
     tensors in ``keep`` must outlive the launch call."""
     first, steps, pad_only = masks
@@ -189,7 +206,8 @@ def kernel_args(model, config, hidden: torch.Tensor, masks, temp, top_p, top_k,
              steps.data_ptr(), pad_only.data_ptr(), _ptr(allow),
              _ptr(forced_pad), temp.data_ptr(), top_p.data_ptr(),
              top_k.data_ptr(), _ptr(gumbel)]
-    ptrs += [t.data_ptr() for t in scratch] + [row.data_ptr(), ended.data_ptr()]
+    ptrs += [t.data_ptr() for t in scratch] + [row.data_ptr(), ended.data_ptr(),
+                                               _ptr(clock)]
     eos_id = config.tokenizer.eos_id
     ints = [b, d, h, dh, f, v, n_layers, t_max, n_types,
             0 if gumbel is None else gumbel.shape[-1], eos_id, eos_id + 1,
@@ -201,7 +219,8 @@ def kernel_args(model, config, hidden: torch.Tensor, masks, temp, top_p, top_k,
 def decode_token_row(model, config, hidden: torch.Tensor, masks, temp, top_p,
                      top_k, gumbel: Optional[torch.Tensor], *, greedy: bool,
                      forced_pad: Optional[torch.Tensor] = None,
-                     allow: Optional[torch.Tensor] = None):
+                     allow: Optional[torch.Tensor] = None,
+                     clock: Optional[torch.Tensor] = None):
     """Decode one full token row per batch row.
 
     model: a ``MIDINet``; hidden [B, D]: event-net hidden; masks: (first
@@ -210,7 +229,8 @@ def decode_token_row(model, config, hidden: torch.Tensor, masks, temp, top_p,
     ignored and may be None when ``greedy``); forced_pad [B] bool and allow
     [B, V] bool, optional.  Returns (row [B, T] int32, ended [B] bool — eos
     emitted at step 0).  CPU tensors run the plain version, CUDA tensors
-    the kernel (one launch) or raise."""
+    the kernel (one launch) or raise.  ``clock`` (CUDA only): a
+    :func:`phase_clock` buffer the kernel stamps its phases into."""
     tensors = [hidden, *masks, model.lm_head.weight]
     tensors += [t for t in (temp, top_p, top_k, gumbel, forced_pad, allow)
                 if isinstance(t, torch.Tensor)]
@@ -223,7 +243,7 @@ def decode_token_row(model, config, hidden: torch.Tensor, masks, temp, top_p,
     bar = torch.zeros(2, dtype=torch.int32, device=device)
     ptrs, ints, floats, row, ended, keep = kernel_args(
         model, config, hidden, masks, temp, top_p, top_k, gumbel, greedy=greedy,
-        forced_pad=forced_pad, allow=allow, n_events=1, bar=bar)
+        forced_pad=forced_pad, allow=allow, n_events=1, bar=bar, clock=clock)
     name = ("mm_token_row_f32" if model.dtype == torch.float32
             else "mm_token_row_bf16")
     _build.call_packed(name, ptrs, ints, floats, device)
