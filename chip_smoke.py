@@ -4,22 +4,24 @@
     python3 chip_smoke.py [--attention]
 
 With ``--attention``: phase 1 with ptxas' register and spill report, the
-causal attention checks of phase 2, and no result line.  Otherwise all
+causal attention checks of phase 2, phase 6's step-0 checks and its timed
+training loops (bf16 and f32 compute), and no result line.  Otherwise all
 phases, each printing one JSON line; any failed check raises, so the script
 exits non-zero:
 
 1. build   — compile the port's CUDA kernels from ``midi_model_tpu_torch/csrc``
-             and count HGMMA / HMMA in the SASS of each bf16 attention
-             kernel (the Dh-64 forward must hold HGMMA, the Dh-64 backward
-             one of the two) and of each form of the decode kernels (token
-             row, whole step, event loop: every bf16 form must hold one of
-             the two, no f32 form either);
+             and count HGMMA / HMMA in the SASS of each attention kernel
+             (the bf16 Dh-64 forward must hold HGMMA, every other Dh-64
+             kernel, bf16 or f32, one of the two) and of each form of the
+             decode kernels (token row, whole step, event loop: every bf16
+             form must hold one of the two, no f32 form either);
 2. kernels — each kernel against its plain PyTorch version on the card, at
              the main paths' shapes, with times for both: sampler, paged
              decode, causal attention (bf16 at [4, 2048, 16, 64], the
              prefill shape [32, 1024, 16, 64], GQA at S = 2047 and the token
-             net's [4094, 8, 4, 256], f32 at the token net's shape and two
-             small cases; timed cases beside one
+             net's [4094, 8, 4, 256]; f32 at [2, 2047, 16, 64], the prefill
+             shape, the token net's shape, GQA at S = 2047 and two small
+             cases; timed cases beside one
              ``scaled_dot_product_attention`` call, timed only), the
              streaming paged decode on bf16/f32/int8 pools and the cell
              kernel on int8 pools (ragged lengths, an inactive slot, a slot
@@ -37,8 +39,9 @@ exits non-zero:
              inactive slots untouched), the causal attention backward
              (dq, dk, dv in f32 within 1e-4, bf16 within 2e-2, at the event
              and token nets' training shapes and GQA cases; each forward's
-             LSE against the plain one; beside SDPA's backward alone and
-             its forward + backward, timed only), the
+             LSE against the plain one; each training shape beside SDPA's
+             backward alone, the bf16 event net's also beside its forward
+             + backward, timed only), the
              8-event loop (f32
              rows identical and within 1e-4; bf16 rows against the
              per-event kernel pair) and the ragged event loop (f32 against
@@ -73,10 +76,12 @@ exits non-zero:
              faster of its two paths; bf16 also resubmits a seeded request
              into another slot (identical rows);
 6. train   — tv2o-medium training: step 0 through the attention kernels
-             against plain attention (f32), the CLI (5 steps, validation,
-             checkpoint, export, examples, resume), a falling loss on a
-             fixed batch, step time, tokens/s, peak memory and the
-             attention kernels' shares of a profiled step, by kernel.
+             against plain attention (f32 and bf16 compute), the CLI (5
+             steps, validation, checkpoint, export, examples, resume), and
+             10 steps on a fixed batch in bf16 and then f32 compute (the
+             ``--fp32`` path): a falling loss, step time, tokens/s, peak
+             memory and the attention kernels' shares of a profiled step,
+             by kernel.
 
 Then the kernel summary line, the card's ``nvidia-smi`` name and power limit,
 and the result line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -170,10 +175,13 @@ def check_rows(rows, table, tokenizer, what: str) -> None:
                 f"{what}: step {i} token outside the table")
 
 
-# the bf16 attention kernels (csrc/causal_attention*.cu) by head dim
-BF16_ATTENTION_KERNELS = {"fwd_wgmma_kernel": 64, "dkdv_tc_kernel": 64, "dq_tc_kernel": 64,
-                          "fwd_rows256_kernel": 256, "dkdv_rows256_kernel": 256,
-                          "dq_rows256_kernel": 256}
+# the attention kernels (csrc/causal_attention*.cu) by head dim: at 64 the
+# bf16 forms (wgmma forward, mma.sync backward) and the f32 forms (3xTF32 on
+# mma.sync); at 256 the packed-rows forms of both dtypes (CUDA cores)
+ATTENTION_KERNELS = {"fwd_wgmma_kernel": 64, "dkdv_tc_kernel": 64, "dq_tc_kernel": 64,
+                     "fwd_tf32_kernel": 64, "dkdv_tf32_kernel": 64, "dq_tf32_kernel": 64,
+                     "fwd_rows256_kernel": 256, "dkdv_rows256_kernel": 256,
+                     "dq_rows256_kernel": 256}
 
 
 # the whole-step decode kernels (csrc/token_loop.cu, fused_step.cu,
@@ -189,8 +197,9 @@ DECODE_FORMS = {"13__nv_bfloat16S": "bf16", "13__nv_bfloat16a": "bf16, int8 pool
 
 def sass_tensor_ops(path: Path):
     """From ``cuobjdump -sass`` of the library: how many HGMMA (wgmma) and
-    HMMA (mma.sync) instructions the SASS of each bf16 attention kernel and
-    of each form of the decode kernels holds."""
+    HMMA (mma.sync) instructions the SASS of each attention kernel (both
+    dtypes' forms of a templated kernel summed) and of each form of the
+    decode kernels holds."""
     import os
     import re
     import shutil
@@ -199,14 +208,14 @@ def sass_tensor_ops(path: Path):
         Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    found = {name: {"HGMMA": 0, "HMMA": 0} for name in BF16_ATTENTION_KERNELS}
+    found = {name: {"HGMMA": 0, "HMMA": 0} for name in ATTENTION_KERNELS}
     decode = {}
     current = None
     for line in sass.splitlines():
         head = re.search(r"Function : (\S+)", line)
         if head:
             fn = head.group(1)
-            current = next((found[n] for n in BF16_ATTENTION_KERNELS if n in fn), None)
+            current = next((found[n] for n in ATTENTION_KERNELS if n in fn), None)
             for n in DECODE_KERNELS:
                 form = re.search(n + r"I(13__nv_bfloat16.|f.)", fn)
                 if form:
@@ -229,9 +238,9 @@ def phase_build(card: str, verbose: bool = False):
     ops, decode = sass_tensor_ops(path)
     require(ops["fwd_wgmma_kernel"]["HGMMA"],
             f"the bf16 Dh-64 attention forward runs no wgmma: {ops['fwd_wgmma_kernel']}")
-    for name, dh in BF16_ATTENTION_KERNELS.items():
+    for name, dh in ATTENTION_KERNELS.items():
         require(dh != 64 or ops[name]["HGMMA"] or ops[name]["HMMA"],
-                f"{name} (bf16, Dh 64) holds neither HGMMA nor HMMA")
+                f"{name} (Dh 64) holds neither HGMMA nor HMMA")
     forms = {"token_row_kernel": ("bf16", "f32"), "event_loop_kernel": ("bf16", "f32"),
              "fused_step_kernel": ("bf16", "bf16, int8 pools", "f32", "f32, int8 pools")}
     for name, kinds in forms.items():
@@ -242,7 +251,7 @@ def phase_build(card: str, verbose: bool = False):
             require(tensor > 0 if kind.startswith("bf16") else tensor == 0,
                     f"{name} ({kind}): {got} (bf16 forms on tensor cores, f32 forms not)")
     emit({"phase": "build", "seconds": seconds, "library": str(path.relative_to(ROOT)),
-          "bf16_attention_sass": ops, "decode_sass_tensor_ops": decode, "card": card})
+          "attention_sass": ops, "decode_sass_tensor_ops": decode, "card": card})
 
 
 def phase_kernels(card: str) -> dict:
@@ -348,13 +357,13 @@ def phase_kernels(card: str) -> dict:
           "head_dim": d, "lengths": lengths.tolist(), "o_max_abs_err": worst,
           **results["paged_decode"], "card": card})
 
-    results["causal_attention"] = check_attention(card, gen)
+    results.update(check_attention(card, gen))
     results.update(check_paged_stream(card, gen))
     time_paged_cell_vs_stream(card, gen)
     results["token_row"] = check_token_row(card, gen)
     results["fused_step"] = check_fused_step(card, gen)
     results["fused_step_int8"] = check_fused_step_int8(card, gen)
-    results["causal_attention_bwd"] = check_attention_bwd(card, gen)
+    results.update(check_attention_bwd(card, gen))
     results["event_loop"] = check_event_loop(card, gen)
     results["event_loop_ragged"] = check_event_loop_ragged(card, gen)
     return results
@@ -366,9 +375,13 @@ def check_attention(card: str, gen) -> dict:
     bf16 at Dh 64 (the tensor-core kernel) at [4, 2048, 16, 64] with a
     strided q, at the prefill shape [32, 1024, 16, 64] and with GQA (16 over
     4 heads, strided q, S = 2047); the token net's [4094, 8, 4, 256] in bf16
-    and f32; f32 [2, 300, 16, 64] (strided q) and [2, 9, 4, 256].  Timed
-    cases run beside one ``scaled_dot_product_attention`` call (timed only,
-    used nowhere).  f32: within atol 5e-5, rtol 1e-4 (f32 rounding only).
+    and f32; f32 (3xTF32 at Dh 64) at the event net's [2, 2047, 16, 64]
+    (strided q), the prefill shape and GQA at S = 2047 (strided q), and
+    [2, 300, 16, 64] (strided q) and [2, 9, 4, 256].  Timed cases run beside
+    one ``scaled_dot_product_attention`` call (timed only, used nowhere),
+    with their bound at the rate of the kernel's route (f32 Dh 64: 3xTF32;
+    ``bound_ffma_ms`` at the CUDA cores' f32 rate beside it).  f32: within
+    atol 5e-5, rtol 1e-4 (f32 rounding; at Dh 64 also the split's ~2^-21).
     bf16: within 2e-2 — the kernels round P to bf16 unnormalized (relative
     to the running row max) before P.V and divide by the row sum at the end,
     the plain version rounds the normalized probabilities; each case's
@@ -395,6 +408,13 @@ def check_attention(card: str, gen) -> dict:
              (2, 2047, 16, 4, 64, bf16, True, False, added),
              (4094, 8, 4, 4, 256, bf16, False, True, added),
              (4094, 8, 4, 4, 256, f32, False, True, added)]
+    # f32 at the event net's training shape, an f32 prefill and GQA with a
+    # strided q: their own generator too
+    f32_gen = torch.Generator(device=dev)
+    f32_gen.manual_seed(4323)
+    cases += [(2, 2047, 16, 16, 64, f32, True, True, f32_gen),
+              (32, 1024, 16, 16, 64, f32, False, True, f32_gen),
+              (2, 2047, 16, 4, 64, f32, True, False, f32_gen)]
     by_case = {}
     for b, s, h, hkv, dh, dtype, strided, timed, g in cases:
         name = f"{dtype}[{b},{s},{h},{hkv},{dh}]"
@@ -424,24 +444,29 @@ def check_attention(card: str, gen) -> dict:
             sdpa = torch.nn.functional.scaled_dot_product_attention
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             size = 2 if dtype == bf16 else 4
+            # q, k, v read and out written once; two products over the causal pairs
+            n_bytes, n_ops = 4 * b * s * h * dh * size, 4 * b * h * dh * s * (s + 1) // 2
             case.update({
                 "ms": time_ms(lambda: at.causal_attention(q, k, v), 10),
                 "plain_ms": time_ms(lambda: at.attention_reference(
                     q, k, v, at.causal_bias(s, dev)), 3),
                 # one PyTorch call for the same function, timed here only
                 "library_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 10),
-                # q, k, v read and out written once; two products over the causal pairs
-                **bound(4 * b * s * h * dh * size, 4 * b * h * dh * s * (s + 1) // 2,
-                        "bf16" if dtype == bf16 else "f32"),
+                **bound(n_bytes, n_ops, attention_route(dtype, dh)),
             })
+            if dtype == f32:  # the same work on the CUDA cores' f32 rate
+                case["bound_ffma_ms"] = bound(n_bytes, n_ops, "f32")["bound_ms"]
         by_case[name] = case
         del q, k, v
         torch.cuda.empty_cache()
     result = dict(by_case[f"{bf16}[4,2048,16,16,64]"])
-    result["max_abs_err"] = max(c["max_abs_err"] for c in by_case.values())
+    result["max_abs_err"] = max(c["max_abs_err"] for n, c in by_case.items() if str(bf16) in n)
+    result_f32 = dict(by_case[f"{f32}[2,2047,16,16,64]"])
+    result_f32["max_abs_err"] = max(c["max_abs_err"] for n, c in by_case.items()
+                                    if str(f32) in n)
     emit({"phase": "kernel", "name": "causal_attention", "by_case": by_case, **result,
-          "card": card})
-    return result
+          "f32": result_f32, "card": card})
+    return {"causal_attention": result, "causal_attention_f32": result_f32}
 
 
 # the batcher's ragged lengths at capacity 2048: empty, an inactive slot, one
@@ -1168,10 +1193,12 @@ def check_attention_bwd(card: str, gen) -> dict:
     dq, dk, dv within atol and rtol 1e-4 (summation order).  bf16: within
     2e-2 — both sides round P to bf16 at the same point for dv and sum in
     f32; the kernel also rounds dS to bf16 for its dq and dk products; both
-    round the gradients to bf16: one bf16 step at magnitude 2-4.  Timed at the event net's bf16 shape beside one
-    ``scaled_dot_product_attention`` backward on a retained graph (the
-    summary line's ``library_ms``) and its forward + backward (timed only,
-    used nowhere), and the forward with its log-sum-exp output."""
+    round the gradients to bf16: one bf16 step at magnitude 2-4.  The four
+    training-shape cases are timed (:func:`time_attention_bwd`) beside one
+    ``scaled_dot_product_attention`` backward on the same inputs (the
+    summary line's ``library_ms``; timed only, used nowhere); the bf16 event
+    net's also beside SDPA's forward + backward and with the forward kernel
+    with and without its log-sum-exp output."""
     import torch
 
     from midi_model_tpu_torch.ops import attention as at
@@ -1185,7 +1212,7 @@ def check_attention_bwd(card: str, gen) -> dict:
     cases = [(2, 2047, 16, 16, 64, torch.float32, gen), (2, 2047, 16, 16, 64, torch.bfloat16, gen),
              (4094, 8, 4, 4, 256, torch.float32, gen), (4094, 8, 4, 4, 256, torch.bfloat16, gen),
              (2, 300, 16, 4, 64, torch.float32, gen), (2, 2047, 16, 4, 64, torch.bfloat16, added)]
-    errs, result = {}, {}
+    errs = {}
     for b, s, h, hkv, dh, dtype, g in cases:
         name = f"{dtype}[{b},{s},{h},{hkv},{dh}]"
         wide = torch.randn((b, s, h, 2 * dh), generator=g, device=dev).to(dtype)
@@ -1210,44 +1237,66 @@ def check_attention_bwd(card: str, gen) -> dict:
             require(torch.allclose(ours.float(), want.float(), **tol),
                     f"attention backward {name}: {g_name} differs by {case[g_name]}")
         errs[name] = case
-        if dtype == torch.bfloat16 and dh == 64 and hkv == h:  # the event net's training shape
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
-            gt = dout.transpose(1, 2)
-
-            def library():
-                o = sdpa(qt, kt, vt, is_causal=True)
-                o.backward(gt)
-
-            graph = sdpa(qt, kt, vt, is_causal=True)
-
-            def library_backward():  # SDPA's backward alone, on a retained graph
-                torch.autograd.grad(graph, (qt, kt, vt), gt, retain_graph=True)
-
-            pairs = b * h * s * (s + 1) // 2  # causal (query, key) pairs
-            result = {
-                "ms": time_ms(lambda: at.causal_attention_backward(q, k, v, out, dout, lse), 5),
-                "plain_ms": time_ms(lambda: at.causal_attention_backward_reference(
-                    q, k, v, out, dout, lse), 2),
-                "library_ms": time_ms(library_backward, 10),
-                "library_forward_backward_ms": time_ms(library, 10),
-                "library_forward_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 10),
-                "forward_ms": time_ms(lambda: at._forward(q, k, v, with_lse=False), 5),
-                "forward_with_lse_ms": time_ms(lambda: at._forward(q, k, v, with_lse=True), 5),
-                # q, k, v, out, dout read, dq, dk, dv written, lse read; five
-                # products over the causal pairs (the recomputed scores, dv, dp, dq, dk)
-                **bound(2 * 8 * b * s * h * dh + 4 * b * h * s, 5 * 2 * dh * pairs, "bf16")}
-            del graph
-        if dh == 256 and dtype == torch.bfloat16:
-            errs[name]["ms"] = time_ms(
-                lambda: at.causal_attention_backward(q, k, v, out, dout, lse), 5)
+        if hkv == h and b * s * h * dh > 1 << 20:  # the training shapes, timed
+            case.update(time_attention_bwd(q, k, v, out, dout, lse, full=(
+                dtype == torch.bfloat16 and dh == 64)))
         del wide, q, k, v, dout, out, lse, grads, ref
         torch.cuda.empty_cache()
-    result["max_abs_err"] = max(max(c[g] for g in ("dq", "dk", "dv"))
-                                for n, c in errs.items() if "float32" in n)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    result = {k: errs["torch.bfloat16[2,2047,16,16,64]"][k] for k in keys}
+    result_f32 = {k: errs["torch.float32[2,2047,16,16,64]"][k] for k in keys}
+    for res, kind in ((result, "bfloat16"), (result_f32, "float32")):
+        res["max_abs_err"] = max(max(c[g] for g in ("dq", "dk", "dv"))
+                                 for n, c in errs.items() if kind in n)
     emit({"phase": "kernel", "name": "causal_attention_bwd", "by_case": errs, **result,
-          "card": card})
-    return result
+          "f32": result_f32, "card": card})
+    return {"causal_attention_bwd": result, "causal_attention_bwd_f32": result_f32}
+
+
+def time_attention_bwd(q, k, v, out, dout, lse, full: bool) -> dict:
+    """The backward kernel's time beside its plain version's, its bound (at
+    the rate of the route it runs) and one ``scaled_dot_product_attention``
+    backward on a retained graph (SDPA's backward alone: ``library_ms``,
+    timed here only).  ``full`` adds SDPA's forward + backward and forward
+    alone and the forward kernel with and without its log-sum-exp."""
+    import torch
+
+    from midi_model_tpu_torch.ops import attention as at
+
+    b, s, h, dh = q.shape
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    gt = dout.transpose(1, 2)
+    graph = sdpa(qt, kt, vt, is_causal=True)
+
+    def library_backward():  # SDPA's backward alone, on a retained graph
+        torch.autograd.grad(graph, (qt, kt, vt), gt, retain_graph=True)
+
+    pairs = b * h * s * (s + 1) // 2  # causal (query, key) pairs
+    # q, k, v, out, dout read, dq, dk, dv written, lse read; five products
+    # over the causal pairs (the recomputed scores, dv, dp, dq, dk)
+    n_bytes = 8 * b * s * h * dh * q.element_size() + 4 * b * h * s
+    n_ops = 5 * 2 * dh * pairs
+    timed = {
+        "ms": time_ms(lambda: at.causal_attention_backward(q, k, v, out, dout, lse), 5),
+        "plain_ms": time_ms(lambda: at.causal_attention_backward_reference(
+            q, k, v, out, dout, lse), 2),
+        "library_ms": time_ms(library_backward, 10),
+        **bound(n_bytes, n_ops, attention_route(q.dtype, dh))}
+    if q.dtype == torch.float32:
+        timed["bound_ffma_ms"] = bound(n_bytes, n_ops, "f32")["bound_ms"]
+    if full:
+        def library():
+            o = sdpa(qt, kt, vt, is_causal=True)
+            o.backward(gt)
+
+        timed.update({
+            "library_forward_backward_ms": time_ms(library, 10),
+            "library_forward_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 10),
+            "forward_ms": time_ms(lambda: at._forward(q, k, v, with_lse=False), 5),
+            "forward_with_lse_ms": time_ms(lambda: at._forward(q, k, v, with_lse=True), 5)})
+    del graph
+    return timed
 
 
 def check_event_loop(card: str, gen) -> dict:
@@ -1559,8 +1608,21 @@ def tok_net_params(model) -> int:
             + model.net_token.norm.weight.numel() + model.lm_head.weight.numel())
 
 
-PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}  # H100 SXM, dense, per second
+# H100 SXM, dense, per second; "3xtf32": an f32 product as three TF32
+# tensor-core products (hi.hi + hi.lo + lo.hi), a third of the TF32 rate
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "3xtf32": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
+
+
+def attention_route(dtype, dh: int) -> str:
+    """The rate the causal attention kernels' products run at: bf16 tensor
+    cores; f32 at head_dim 64 as 3xTF32 on the tensor cores; f32 at 256 on
+    the CUDA cores."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        return "bf16"
+    return "3xtf32" if dh == 64 else "f32"
 
 
 def bound(n_bytes: float, n_ops: float, kind: str) -> dict:
@@ -1975,56 +2037,38 @@ def phase_batcher(card: str, kv_int8: bool, fused=None):
     return counts, metrics["full_occupancy"]["events_per_s"]
 
 
-# the attention kernels' names as the profiler shows them (every form: bf16
-# tensor-core and row kernels, f32 kernels); "dq_kernel" does not match
-# "dq_tc_kernel", so each name is listed
-ATTENTION_FWD_KERNELS = ("fwd_wgmma_kernel", "fwd_rows256_kernel", "causal_attention_kernel")
+# the attention kernels' names as the profiler shows them (every form: the
+# bf16 and f32 tensor-core kernels at head_dim 64, the row kernels of both
+# dtypes at 256)
+ATTENTION_FWD_KERNELS = ("fwd_wgmma_kernel", "fwd_tf32_kernel", "fwd_rows256_kernel")
 ATTENTION_BWD_KERNELS = ("delta_kernel", "dkdv_tc_kernel", "dq_tc_kernel", "dkdv_rows256_kernel",
-                         "dq_rows256_kernel", "dkdv_kernel", "dq_kernel")
+                         "dq_rows256_kernel", "dkdv_tf32_kernel", "dq_tf32_kernel")
 
 
-def phase_train(card: str) -> int:
-    """Training at tv2o-medium's full width on a corpus written from
-    ``tests/golden/codec.pkl`` (under ``build/``, gitignored):
+# bf16 training step 0 through the attention kernels against the same step
+# through plain attention under autograd (bs 1, 512 events): the two round
+# at other points (the kernels' P unnormalized and dS to bf16, the plain
+# version's normalized P), and every bf16 rounding flip downstream of an
+# attention output moves the loss and the gradients by bf16 steps.
+# Readings on an H100 (PERF.md section 6): loss 1.94e-5 relative, sampled
+# gradients 6.2e-3 of each leaf's largest (the same with the parent's and
+# this tree's bf16 kernels); plain bf16 against plain f32 in the same step
+# 1.9e-2.  The bounds are about 2.5x the readings, and the gradients' stays
+# below the bf16-vs-f32 spread: a kernel off by as much as bf16 itself fails.
+BF16_STEP0_LOSS_RTOL = 5e-5
+BF16_STEP0_GRAD_TOL = 1.5e-2
 
-    - step 0 on one microbatch (bs 1, 512 events, f32): the loss and a
-      sample of gradients through the attention kernels (forward with its
-      log-sum-exp, backward) against the same step with the plain attention
-      (``attention_reference`` under torch's autograd) — loss within rtol
-      1e-5, each sampled gradient within 1e-4 of its largest value (f32
-      sums in another order over 511 rows and 15 layers);
-    - ``train.cli.main``: bf16 compute with f32 master weights,
-      ``--batch-size-train 2 --acc-grad 2 --max-len 2048``, 5 optimizer
-      steps, one validation, one checkpoint, the best-val export and the
-      example pieces; the backward kernel launched (12 + 3 layers) x 2
-      microbatches x 5 steps times, counted from the run; every logged loss
-      finite; ``model.safetensors`` read back by the port's reader equals
-      the final weights; then ``--resume`` takes one more step from the
-      checkpoint (step 5 -> 6);
-    - 10 steps of the same shape on one fixed batch: the loss falls; ms per
-      optimizer step, training tokens/s and peak device memory; one step
-      under ``torch.profiler``: the attention kernels' share of its device
-      time.
 
-    Returns the backward kernel's launches in the CLI run."""
+def training_corpus():
+    """(config, work dir, batch_of): a corpus written from
+    ``tests/golden/codec.pkl`` under ``build/`` (gitignored) and
+    ``batch_of(n, max_len, seed)``, n collated sequences of it."""
     import shutil
 
-    import numpy as np
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from midi_model_tpu_torch.interop import load_state_dict
     from midi_model_tpu_torch.models import MIDIModelConfig
-    from midi_model_tpu_torch.models import llama
-    from midi_model_tpu_torch.ops import _build
-    from midi_model_tpu_torch.ops import attention as at
-    from midi_model_tpu_torch.train import MidiDataset, cli, find_midi_files
-    from midi_model_tpu_torch.train import trainer as tr
+    from midi_model_tpu_torch.train import MidiDataset, find_midi_files
 
-    dev = torch.device("cuda")
     config = MIDIModelConfig.from_name("tv2o-medium")
-    n_layers = config.net.num_layers + config.net_token.num_layers
     work = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(work, ignore_errors=True)
     corpus = work / "corpus"
@@ -2040,44 +2084,189 @@ def phase_train(card: str) -> int:
                          rand_start=False, seed=seed)
         return ds.collate([ds[i] for i in range(n)], pad_to=max_len)
 
-    # -- step 0, kernel against plain attention (f32, bs 1, 512 events)
+    return config, work, batch_of
+
+
+def check_train_step0(card: str, config, batch_of) -> None:
+    """Step 0 on one microbatch (bs 1, 512 events): the loss and a sample of
+    gradients through the attention kernels (forward with its log-sum-exp,
+    backward) against the same step with the plain attention
+    (``attention_reference`` under torch's autograd).  f32: loss within rtol
+    1e-5, each sampled gradient within 1e-4 of its largest value (f32 sums
+    in another order over 511 rows and 15 layers).  bf16 compute: within
+    BF16_STEP0_LOSS_RTOL and BF16_STEP0_GRAD_TOL; plain bf16 against plain
+    f32 is printed beside it, the scale of bf16 rounding in this step."""
+    import torch
+
+    from midi_model_tpu_torch.models import llama
+    from midi_model_tpu_torch.ops import _build
+    from midi_model_tpu_torch.ops import attention as at
+    from midi_model_tpu_torch.train import trainer as tr
+
+    dev = torch.device("cuda")
+    n_layers = config.net.num_layers + config.net_token.num_layers
     params = tr.init_params(config, seed=3, device=dev)
     mb = torch.as_tensor(batch_of(1, 512, 0), device=dev)
     sample = ["net.layers.0.self_attn.q_proj.weight", "net.layers.11.self_attn.k_proj.weight",
               "net.layers.5.mlp.down_proj.weight", "net_token.layers.0.self_attn.v_proj.weight",
               "net.embed_tokens.weight", "lm_head.weight"]
 
-    def step0():
+    def step0(dtype):
         p = {n: t.clone().requires_grad_(True) for n, t in params.items()}
-        loss, _ = tr.loss_fn(p, config, mb, compute_dtype=torch.float32)
+        loss, _ = tr.loss_fn(p, config, mb, compute_dtype=dtype)
         loss.backward()
         return float(loss.detach()), {n: p[n].grad for n in sample}
 
-    _build.LAUNCHES.clear()
-    loss_k, grads_k = step0()
-    kernel_counts = dict(_build.LAUNCHES)
-    kernel_attention = llama.causal_attention
-    llama.causal_attention = lambda q, k, v: at.attention_reference(
-        q, k, v, at.causal_bias(q.shape[1], q.device))
-    try:
+    def errors(a, b):  # loss relative error, gradients relative to each leaf's largest
+        return (abs(a[0] - b[0]) / abs(b[0]),
+                {n: float((a[1][n] - b[1][n]).abs().max() / b[1][n].abs().max())
+                 for n in sample})
+
+    result, runs = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
         _build.LAUNCHES.clear()
-        loss_p, grads_p = step0()
-        plain_counts = dict(_build.LAUNCHES)
-    finally:
-        llama.causal_attention = kernel_attention
-    torch.cuda.synchronize()
-    grad_err = {n: float((grads_k[n] - grads_p[n]).abs().max() / grads_p[n].abs().max())
-                for n in sample}
-    require(kernel_counts.get("causal_attention_bwd") == n_layers and not plain_counts,
-            f"step 0 launches: kernel path {kernel_counts}, plain path {plain_counts}")
-    require(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and max(grad_err.values()) <= 1e-4,
-            f"step 0: loss {loss_k} vs {loss_p}, gradient errors {grad_err}")
-    del params, grads_k, grads_p
+        kernel = step0(dtype)
+        kernel_counts = dict(_build.LAUNCHES)
+        kernel_attention = llama.causal_attention
+        llama.causal_attention = lambda q, k, v: at.attention_reference(
+            q, k, v, at.causal_bias(q.shape[1], q.device))
+        try:
+            _build.LAUNCHES.clear()
+            plain = step0(dtype)
+            plain_counts = dict(_build.LAUNCHES)
+        finally:
+            llama.causal_attention = kernel_attention
+        torch.cuda.synchronize()
+        require(kernel_counts.get("causal_attention_bwd") == n_layers and not plain_counts,
+                f"step 0 {dtype}: launches: kernel path {kernel_counts}, plain path "
+                f"{plain_counts}")
+        loss_err, grad_err = errors(kernel, plain)
+        runs[dtype] = plain
+        result[str(dtype)] = {"loss_kernel": kernel[0], "loss_plain": plain[0],
+                              "loss_rel_err": loss_err, "grad_err_rel_to_leaf_max": grad_err}
+    loss_scale, grad_scale = errors(runs[torch.bfloat16], runs[torch.float32])
+    result["plain_bf16_vs_plain_f32"] = {"loss_rel_err": loss_scale,
+                                         "grad_err_rel_to_leaf_max": grad_scale}
+    emit({"phase": "train_step0", "config": "tv2o-medium", "bs": 1, "events": 512,
+          **result, "card": card})
+    f32, bf16 = result[str(torch.float32)], result[str(torch.bfloat16)]
+    require(f32["loss_rel_err"] <= 1e-5 and max(f32["grad_err_rel_to_leaf_max"].values()) <= 1e-4,
+            f"step 0 f32: {f32}")
+    require(bf16["loss_rel_err"] <= BF16_STEP0_LOSS_RTOL
+            and max(bf16["grad_err_rel_to_leaf_max"].values()) <= BF16_STEP0_GRAD_TOL,
+            f"step 0 bf16: {bf16}")
+    del params, runs
     torch.cuda.empty_cache()
+
+
+def timed_training(card: str, config, batch_of, compute_dtype) -> dict:
+    """10 optimizer steps at the CLI's shape (bs 2 x acc 2 x 2048 events) on
+    one fixed batch, f32 masters, ``compute_dtype`` compute: the loss falls;
+    ms per step (mean of steps 3-10), training tokens/s, peak device memory
+    and the kernels' launches over the 10 steps; then one step under
+    ``torch.profiler``: device time by kernel, the attention kernels' share."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from midi_model_tpu_torch.ops import _build
+    from midi_model_tpu_torch.train import trainer as tr
+
+    dev = torch.device("cuda")
+    batch = batch_of(4, 2048, 1).reshape(2, 2, 2048, -1)
+    opt = tr.make_optimizer(lr=3e-4, warmup_steps=0, total_steps=1000)
+    step = tr.make_train_step(config, opt, accum_steps=2, compute_dtype=compute_dtype)
+    state = tr.init_train_state(tr.init_params(config, seed=4, device=dev), opt)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    _build.LAUNCHES.clear()
+    for _ in range(10):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        times.append(time.perf_counter() - t0)
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"fixed batch ({compute_dtype}): the loss did not fall: {losses}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_us = sum(t for _, t in kernels)
+
+    def time_of(names):
+        return sum(t for k, t in kernels if any(x in k for x in names))
+
+    bwd_us = time_of(ATTENTION_BWD_KERNELS)
+    fwd_us = time_of(ATTENTION_FWD_KERNELS)
+    fwd_by_kernel = {x: time_of((x,)) / 1e3 for x in ATTENTION_FWD_KERNELS}
+    bwd_by_kernel = {x: time_of((x,)) / 1e3 for x in ATTENTION_BWD_KERNELS}
+    require(fwd_us > 0 and bwd_us > 0, f"profiled step: no attention kernel time (forward "
+            f"{fwd_us} us, backward {bwd_us} us): kernel names {[k for k, _ in kernels]}")
+    step_ms = float(np.mean(times[2:])) * 1e3
+    tokens = int(np.prod(batch.shape))  # microbatches x B x events x 8 tokens
+    result = {
+        "compute": f"{str(compute_dtype).split('.')[-1]}, f32 master",
+        "fixed_batch_losses": losses, "ms_per_step": step_ms,
+        "ms_per_step_runs": [t * 1e3 for t in times],
+        "train_tokens_per_s": tokens / step_ms * 1e3, "peak_memory_gb": peak_gb,
+        "launches": launches,
+        "profiled_step": {"wall_ms": profiled_ms, "device_ms": device_us / 1e3,
+                          "device_busy_share": device_us / 1e3 / profiled_ms,
+                          "attention_bwd_ms": bwd_us / 1e3,
+                          "attention_fwd_ms": fwd_us / 1e3,
+                          "attention_bwd_share": bwd_us / device_us,
+                          "attention_fwd_share": fwd_us / device_us,
+                          "attention_fwd_ms_by_kernel": fwd_by_kernel,
+                          "attention_bwd_ms_by_kernel": bwd_by_kernel,
+                          "top_kernels_ms": sorted(((k[:60], t / 1e3) for k, t in kernels),
+                                                   key=lambda kt: -kt[1])[:8]}}
+    emit({"phase": "train_timed", "config": "tv2o-medium", **result, "card": card})
+    del state
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_train(card: str) -> dict:
+    """Training at tv2o-medium's full width on a corpus written from
+    ``tests/golden/codec.pkl`` (under ``build/``, gitignored):
+
+    - step 0 through the kernels against plain attention, in f32 and in
+      bf16 compute (:func:`check_train_step0`);
+    - ``train.cli.main``: bf16 compute with f32 master weights,
+      ``--batch-size-train 2 --acc-grad 2 --max-len 2048``, 5 optimizer
+      steps, one validation, one checkpoint, the best-val export and the
+      example pieces; the backward kernel launched (12 + 3 layers) x 2
+      microbatches x 5 steps times, counted from the run; every logged loss
+      finite; ``model.safetensors`` read back by the port's reader equals
+      the final weights; then ``--resume`` takes one more step from the
+      checkpoint (step 5 -> 6);
+    - the timed loop (:func:`timed_training`) in bf16 compute, then in f32
+      compute (the ``--fp32`` path: the f32 attention kernels).
+
+    Returns the launches of the attention kernels: the bf16 ones from the
+    CLI run, the f32 ones from the f32 timed loop."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from midi_model_tpu_torch.interop import load_state_dict
+    from midi_model_tpu_torch.ops import _build
+    from midi_model_tpu_torch.train import cli
+
+    config, work, batch_of = training_corpus()
+    n_layers = config.net.num_layers + config.net_token.num_layers
+    check_train_step0(card, config, batch_of)
 
     # -- the CLI: 5 steps, validation, checkpoint, export, examples; then resume
     out = work / "run"
-    argv = ["--data", str(corpus), "--config", "tv2o-medium", "--data-val-split", "2",
+    argv = ["--data", str(work / "corpus"), "--config", "tv2o-medium", "--data-val-split", "2",
             "--max-len", "2048", "--batch-size-train", "2", "--acc-grad", "2",
             "--batch-size-val", "2", "--max-step", "5", "--val-step", "5", "--warmup-step", "2",
             "--workers-train", "2", "--batch-size-gen-example", "2", "--out-dir", str(out)]
@@ -2110,64 +2299,18 @@ def phase_train(card: str) -> int:
             f"resume: step {resumed.step}, updates {resumed.opt_state.count}")
     del resumed
     torch.cuda.empty_cache()
-
-    # -- 10 steps on one fixed batch of the CLI's shape; then one step profiled
-    batch = batch_of(4, 2048, 1).reshape(2, 2, 2048, -1)
-    opt = tr.make_optimizer(lr=3e-4, warmup_steps=0, total_steps=1000)
-    step = tr.make_train_step(config, opt, accum_steps=2)
-    state = tr.init_train_state(tr.init_params(config, seed=4, device=dev), opt)
-    torch.cuda.reset_peak_memory_stats()
-    losses, times = [], []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        losses.append(float(metrics["loss"]))  # waits for the step
-        times.append(time.perf_counter() - t0)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
-            f"fixed batch: the loss did not fall: {losses}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        torch.cuda.synchronize()
-        profiled_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    device_us = sum(t for _, t in kernels)
-    def time_of(names):
-        return sum(t for k, t in kernels if any(x in k for x in names))
-
-    bwd_us = time_of(ATTENTION_BWD_KERNELS)
-    fwd_us = time_of(ATTENTION_FWD_KERNELS)
-    fwd_by_kernel = {x: time_of((x,)) / 1e3 for x in ATTENTION_FWD_KERNELS}
-    bwd_by_kernel = {x: time_of((x,)) / 1e3 for x in ATTENTION_BWD_KERNELS}
-    require(fwd_us > 0 and bwd_us > 0, f"profiled step: no attention kernel time (forward "
-            f"{fwd_us} us, backward {bwd_us} us): kernel names {[k for k, _ in kernels]}")
-    step_ms = float(np.mean(times[2:])) * 1e3
-    tokens = int(np.prod(batch.shape))  # microbatches x B x events x 8 tokens
     emit({"phase": "train", "config": "tv2o-medium", "compute": "bf16, f32 master",
-          "step0_f32_bs1_512": {"loss_kernel": loss_k, "loss_plain": loss_p,
-                                "grad_err_rel_to_leaf_max": grad_err},
           "cli": {"steps": 5, "seconds": cli_s, "losses": cli_losses, "val": val[0],
-                  "launches": counts},
-          "fixed_batch_losses": losses, "ms_per_step": step_ms,
-          "ms_per_step_runs": [t * 1e3 for t in times],
-          "train_tokens_per_s": tokens / step_ms * 1e3, "peak_memory_gb": peak_gb,
-          "profiled_step": {"wall_ms": profiled_ms, "device_ms": device_us / 1e3,
-                            "device_busy_share": device_us / 1e3 / profiled_ms,
-                            "attention_bwd_ms": bwd_us / 1e3,
-                            "attention_fwd_ms": fwd_us / 1e3,
-                            "attention_bwd_share": bwd_us / device_us,
-                            "attention_fwd_share": fwd_us / device_us,
-                            "attention_fwd_ms_by_kernel": fwd_by_kernel,
-                            "attention_bwd_ms_by_kernel": bwd_by_kernel,
-                            "top_kernels_ms": sorted(((k[:60], t / 1e3) for k, t in kernels),
-                                                     key=lambda kt: -kt[1])[:8]},
-          "card": card})
-    del state
+                  "launches": counts}, "card": card})
+
+    timed_training(card, config, batch_of, torch.bfloat16)
+    fp32 = timed_training(card, config, batch_of, torch.float32)
+    require(fp32["launches"].get("causal_attention_bwd") == n_layers * 2 * 10,
+            f"f32 timed loop: backward launches {fp32['launches']}")
     shutil.rmtree(work, ignore_errors=True)
-    torch.cuda.empty_cache()
-    return counts["causal_attention_bwd"]
+    return {"causal_attention_bwd": counts["causal_attention_bwd"],
+            "causal_attention_f32": fp32["launches"]["causal_attention"],
+            "causal_attention_bwd_f32": fp32["launches"]["causal_attention_bwd"]}
 
 
 SOURCES = {
@@ -2192,6 +2335,12 @@ SOURCES = {
                         "midi_model_tpu/ops/fused_step.py:81"),
     "causal_attention_bwd": ("midi_model_tpu_torch/csrc/causal_attention_bwd.cu",
                              "midi_model_tpu/ops/attention.py:131"),
+    # the f32 forms (3xTF32 tensor-core products at head_dim 64), launched
+    # by the f32 timed training loop
+    "causal_attention_f32": ("midi_model_tpu_torch/csrc/causal_attention.cu",
+                             "midi_model_tpu/ops/attention.py:145"),
+    "causal_attention_bwd_f32": ("midi_model_tpu_torch/csrc/causal_attention_bwd.cu",
+                                 "midi_model_tpu/ops/attention.py:131"),
 }
 
 
@@ -2229,6 +2378,10 @@ def main(argv=()) -> int:
         gen.manual_seed(1234)
         check_attention(card, gen)
         check_attention_bwd(card, gen)
+        config, work, batch_of = training_corpus()
+        check_train_step0(card, config, batch_of)
+        for dtype in (torch.bfloat16, torch.float32):
+            timed_training(card, config, batch_of, dtype)
         return 0
     results = phase_kernels(card)
     phase_oracle(card)
@@ -2244,7 +2397,7 @@ def main(argv=()) -> int:
           "card": card})
     require(pair_rate > split_rate, f"the int8 batcher's default (the per-event pair, "
             f"{pair_rate} events/s) is not the faster path (split scan {split_rate})")
-    launches["causal_attention_bwd"] = phase_train(card)
+    launches.update(phase_train(card))
     require("jax" not in sys.modules, "jax was imported")
     require(not any(m == "midi_model_tpu" or m.startswith("midi_model_tpu.")
                     for m in sys.modules), "the JAX package was imported")

@@ -38,163 +38,40 @@
 //   the output is divided by l once at the end.  The plain version (and
 //   JAX's xla_attention) round the normalized probabilities instead; the two
 //   differ by about one bf16 step of the output (PERF.md, row 8).
-// * bf16, Dh 256 (fwd_rows256_kernel): the token net's training forward,
-//   [B*S', 8, 4, 256] — thousands of 8-row sequences, so memory-bound (each
-//   of q, k, v, out moved once is the bound).  One warp owns 8 query rows of
-//   one (sequence, head), a lane 8 of the 256 head dims (16-byte loads), and
-//   walks the keys up to its last row one at a time (the next key's row
-//   loaded while the current one is scored); the score of a (row, key) pair
-//   is a warp sum.  No shared memory and no padding: four warps a block over
-//   four (sequence, head) pairs.  CUDA-core f32: the bytes set the pace.
-//   Same rounding point as above (p relative to the running max, rounded to
-//   bf16 before it scales v).
-// * f32, both head dims (causal_attention_kernel, below): the parity path
-//   (tensor cores would mean TF32).  Grid (B*H, ceil(S/64)); a block of 256
-//   threads holds one 64-row query tile in shared memory and walks 64-row K/V
-//   tiles up to the causal edge.  Four threads share a query row: each
-//   scores 16 of the tile's 64 keys, the row max and sum are reduced over the
-//   four with shuffles, the probabilities go to shared memory, and each
-//   thread then accumulates Dh/4 output dims.  Softmax statistics and the
-//   accumulator stay in f32; the output is normalized once at the end.  At
-//   Dh 256 its f32 tiles fill 214 KB of shared memory.
+// * f32, Dh 64 (fwd_tf32_kernel): the f32 prefill and the event net's
+//   training forward under --fp32, operations-bound, so on the tensor cores:
+//   every product as three TF32 products (hopper.cuh, 3xTF32: x = hi + lo,
+//   a b = a_lo b_hi + a_hi b_lo + a_hi b_hi, the small terms first, f32
+//   sums), which keeps close to f32's accuracy where plain TF32 keeps ~3
+//   digits.  mma.sync m16n8k8: a block takes 64 query rows of one (b, h),
+//   one warp per 16 rows; Q is split into hi/lo fragments in registers once;
+//   64-key K/V tiles come in by cp.async into padded shared memory
+//   (attention_tf32.cuh: every fragment read hits 32 banks), the next tile
+//   in flight while the current one is used.  S = Q.K^T in registers, the
+//   online softmax in f32 (exp2, only the diagonal tile masked), P kept in
+//   f32 and split for P.V straight from its accumulator (no lane moves);
+//   each tile's P.V is summed apart and added to the output in f32 (the
+//   tensor cores truncate as they accumulate).  Blocks of the last
+//   (longest) query tiles launch first.  The output is normalized once at
+//   the end; the plain version normalizes P before P.V, so the two differ
+//   by f32 rounding only.
+// * Dh 256, bf16 and f32 (fwd_rows256_kernel<T, R>): the token net's
+//   training forward, [B*S', 8, 4, 256] — thousands of 8-row sequences, so
+//   memory-bound (each of q, k, v, out moved once is the bound).  One warp
+//   owns R query rows of one (sequence, head), a lane 8 of the 256 head dims
+//   (one 16-byte load in bf16, two in f32), and walks the keys up to its last
+//   row one at a time (the next key's row loaded while the current one is
+//   scored); the score of a (row, key) pair is a warp sum.  No shared memory
+//   and no padding: four warps a block over four (sequence, head) pairs.
+//   CUDA-core f32 sums: the bytes set the pace.  p (relative to the running
+//   max) is rounded to the input type before it scales v: bf16, or none.
 #include <climits>
 
+#include "attention_tf32.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;  // 4 threads per query row
-constexpr int kKeysPerThread = kBlockK / 4;
-
-template <int DH>
-constexpr size_t smem_bytes() {
-  // Q, K, V tiles [64][DH+1] and P [64][65], all f32 (padding avoids bank conflicts)
-  return sizeof(float) * (3 * kBlockQ * (DH + 1) + kBlockQ * (kBlockK + 1));
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-causal_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ out,
-                        float* __restrict__ lse,
-                        int S, int H, int groups,
-                        long long qsb, long long qss, long long qsh, long long ksb,
-                        long long kss, long long ksh, long long vsb, long long vss,
-                        long long vsh, float scale) {
-  constexpr int P = DH + 1;
-  constexpr int DPT = DH / 4;  // output dims per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kBlockQ * P;
-  float* Vs = Ks + kBlockK * P;
-  float* Ps = Vs + kBlockK * P;
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int hk = h / groups;
-  const int q0 = blockIdx.y * kBlockQ;
-  const int r = threadIdx.x >> 2;   // query row within the tile
-  const int sub = threadIdx.x & 3;  // which quarter of keys / dims
-  const int qi = q0 + r;
-
-  const float* qb = q + b * qsb + h * qsh;
-  const float* kb = k + b * ksb + hk * ksh;
-  const float* vb = v + b * vsb + hk * vsh;
-
-  for (int idx = threadIdx.x; idx < kBlockQ * DH; idx += kThreads) {
-    const int rr = idx / DH, d = idx % DH;
-    const int row = q0 + rr;
-    Qs[rr * P + d] = row < S ? qb[row * qss + d] : 0.f;
-  }
-
-  float m_i = -CUDART_INF_F;
-  float l_i = 0.f;
-  float acc[DPT];
-#pragma unroll
-  for (int e = 0; e < DPT; ++e) acc[e] = 0.f;
-
-  const int last_q = min(S, q0 + kBlockQ) - 1;
-  const int n_tiles = last_q / kBlockK + 1;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // the previous tile's K/V reads are done
-    for (int idx = threadIdx.x; idx < kBlockK * DH; idx += kThreads) {
-      const int rr = idx / DH, d = idx % DH;
-      const int row = k0 + rr;
-      Ks[rr * P + d] = row < S ? kb[row * kss + d] : 0.f;
-      Vs[rr * P + d] = row < S ? vb[row * vss + d] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kKeysPerThread];
-    float mx = -CUDART_INF_F;
-#pragma unroll
-    for (int c = 0; c < kKeysPerThread; ++c) {
-      const int j = sub + 4 * c;
-      const int kj = k0 + j;
-      float dot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < DH; ++d) dot += Qs[r * P + d] * Ks[j * P + d];
-      s[c] = (kj <= qi && kj < S) ? dot * scale : -CUDART_INF_F;
-      mx = fmaxf(mx, s[c]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m_i, mx);
-    // m_new = -inf only while a row has seen no key (never for a real row
-    // after tile 0, which always holds key 0)
-    const float corr = m_new == -CUDART_INF_F ? 1.f : expf(m_i - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int c = 0; c < kKeysPerThread; ++c) {
-      const float p = s[c] == -CUDART_INF_F ? 0.f : expf(s[c] - m_new);
-      Ps[r * (kBlockK + 1) + sub + 4 * c] = p;
-      psum += p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l_i = l_i * corr + psum;
-    m_i = m_new;
-    __syncwarp();  // a row's P is written and read by the same four lanes
-
-#pragma unroll
-    for (int e = 0; e < DPT; ++e) acc[e] *= corr;
-    for (int j = 0; j < kBlockK; ++j) {
-      const float p = Ps[r * (kBlockK + 1) + j];
-#pragma unroll
-      for (int e = 0; e < DPT; ++e) acc[e] += p * Vs[j * P + sub + 4 * e];
-    }
-  }
-
-  if (qi < S) {
-    const float inv = l_i > 0.f ? 1.f / l_i : 0.f;
-    float* ob = out + ((static_cast<size_t>(b) * S + qi) * H + h) * DH;
-#pragma unroll
-    for (int e = 0; e < DPT; ++e) ob[sub + 4 * e] = acc[e] * inv;
-    if (lse != nullptr && sub == 0)  // the row's m and l: every real row saw key 0
-      lse[(static_cast<size_t>(b) * H + h) * S + qi] = m_i + logf(l_i);
-  }
-}
-
-template <int DH>
-int launch_dh(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
-              int H, int Hkv, const long long* st, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DH>();
-  cudaError_t e = cudaFuncSetAttribute(causal_attention_kernel<DH>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(B * H, (S + kBlockQ - 1) / kBlockQ);
-  causal_attention_kernel<DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), lse, S, H, H / Hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], 1.0f / sqrtf(static_cast<float>(DH)));
-  return mm::last_error();
-}
 
 // ---- bf16, Dh 64: TMA + wgmma --------------------------------------------------
 
@@ -394,93 +271,138 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
 
 }  // namespace wg
 
-// ---- bf16, Dh 256: packed rows on the CUDA cores -------------------------------
+// ---- f32, Dh 64: 3xTF32 on mma.sync ---------------------------------------------
 
-namespace rows {
+namespace tf32k {
 
-using namespace mm::sm90;
+using namespace mm::tf32;
 
-constexpr int kR = 8;      // query rows a warp owns
-constexpr int kWarps = 4;  // warps (sequence, head pairs) a block
+constexpr size_t kSmem = 4 * kTileFloats * sizeof(float);  // K and V, two buffers each
 
-__device__ __forceinline__ uint4 ld16(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
+__global__ void __launch_bounds__(kThreads)
+fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
+                int S, int H, int groups, int n_qt, long long qsb, long long qss, long long qsh,
+                long long ksb, long long kss, long long ksh, long long vsb, long long vss,
+                long long vsh, float scale_log2) {
+  extern __shared__ __align__(16) float smem_f[];
+  auto sK = [&](int i) { return smem_f + kTileFloats * (2 * i); };
+  auto sV = [&](int i) { return smem_f + kTileFloats * (2 * i + 1); };
 
-__global__ void __launch_bounds__(kWarps * 32)
-fwd_rows256_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                   float* __restrict__ lse, int S, int H, int groups, int n_qt, long long bh_count,
-                   long long qsb, long long qss, long long qsh, long long ksb, long long kss,
-                   long long ksh, long long vsb, long long vss, long long vsh, float scale_log2) {
-  const int lane = threadIdx.x & 31;
-  const long long item = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (item >= bh_count * n_qt) return;
-  const int qt = n_qt - 1 - static_cast<int>(item / bh_count);  // the longest tiles first
-  const long long bh = item % bh_count;
-  const int b = static_cast<int>(bh / H), h = static_cast<int>(bh % H), hk = h / groups;
+  // the longest query tiles (the last) first
+  const int bh_count = gridDim.x / n_qt;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / bh_count;
+  const int bh = static_cast<int>(blockIdx.x) % bh_count;
+  const int b = bh / H, h = bh % H, hk = h / groups;
   const int q0 = qt * kR;
-  const __nv_bfloat16* qb = q + b * qsb + h * qsh + lane * 8;
-  const __nv_bfloat16* kb = k + b * ksb + hk * ksh + lane * 8;
-  const __nv_bfloat16* vb = v + b * vsb + hk * vsh + lane * 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* kb = k + b * ksb + hk * ksh;
+  const float* vb = v + b * vsb + hk * vsh;
 
-  uint4 qv[kR];
-  float o[kR][8], m[kR], l[kR];
+  // Q lands in buffer 1's K slot beside K/V tile 0, and goes to registers
+  load_tile(sK(1), q + b * qsb + h * qsh, qss, q0, S);
+  load_tile(sK(0), kb, kss, 0, S);
+  load_tile(sV(0), vb, vss, 0, S);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qh[8][4], ql[8][4];
 #pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    qv[i] = q0 + i < S ? ld16(qb + (q0 + i) * qss) : make_uint4(0, 0, 0, 0);
-    m[i] = -CUDART_INF_F;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) o[i][e] = 0.f;
-  }
-  const int last = min(S, q0 + kR) - 1;
-  uint4 kn = ld16(kb), vn = ld16(vb);
-  for (int j = 0; j <= last; ++j) {
-    const uint4 kc = kn, vc = vn;
-    if (j < last) {  // the next key's row while this one is scored
-      kn = ld16(kb + (j + 1) * kss);
-      vn = ld16(vb + (j + 1) * vss);
+  for (int kk = 0; kk < 8; ++kk) ld_a(qh[kk], ql[kk], sK(1), 16 * warp, 8 * kk, lane);
+  __syncthreads();  // every warp holds its Q before buffer 1 is refilled
+
+  // this thread's rows row0 and row0 + 8, columns col0, col0 + 1 of each 8
+  const int row0 = q0 + 16 * warp + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  float o[8][4];
+  zero(o);
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max of the scaled (log2) scores
+  float l[2] = {0.f, 0.f};                      // this thread's part of the row sums
+
+  for (int j = 0; j <= qt; ++j) {
+    const int buf = j & 1;
+    if (j < qt) {  // the next K/V tile in flight while this one is used
+      load_tile(sK(buf ^ 1), kb, kss, (j + 1) * kR, S);
+      load_tile(sV(buf ^ 1), vb, vss, (j + 1) * kR, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    float kf[8], vf[8], sc[kR];
-    unpack8(kc, kf);
+    __syncthreads();
+    const float* tk = sK(buf);
+    const float* tv = sV(buf);
+    float s[8][4];
+    zero(s);
+    product(
+        s,
+        [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
 #pragma unroll
-    for (int i = 0; i < kR; ++i) {
-      float qf[8];
-      unpack8(qv[i], qf);
-      float d = 0.f;
+          for (int i = 0; i < 4; ++i) ah[i] = qh[kk][i], al[i] = ql[kk][i];
+        },
+        [&](int kk, int nt, uint32_t (&bh)[2], uint32_t (&bl)[2]) {
+          ld_b_nrows(bh, bl, tk, 8 * nt, 8 * kk, lane);
+        });
+    if (j == qt) {  // the diagonal tile: keys past the row (and past S) drop out
 #pragma unroll
-      for (int e = 0; e < 8; ++e) d = fmaf(qf[e], kf[e], d);
-      sc[i] = mm::warp_sum(d);
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j * kR + 8 * nt + col0 + (e & 1) > row0 + 8 * (e >> 1)) s[nt][e] = -CUDART_INF_F;
     }
-    unpack8(vc, vf);
+    // every row keeps at least one key of every tile, so the max is finite
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int i = 0; i < kR; ++i) {
-      if (j <= q0 + i) {
-        const float s2 = sc[i] * scale_log2;
-        const float m_new = fmaxf(m[i], s2);
-        const float corr = exp2f(m[i] - m_new);
-        const float p = exp2f(s2 - m_new);
-        const float pb = round_bf16(p);
-        l[i] = l[i] * corr + p;
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) o[i][e] = fmaf(pb, vf[e], o[i][e] * corr);
-        m[i] = m_new;
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+      corr[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = exp2f(fmaf(s[nt][e], scale_log2, -m[e >> 1]));
+        rs[e >> 1] += s[nt][e];
       }
-    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+    float pv[8][4];  // this tile's P.V, apart from o (attention_tf32.cuh, accumulate)
+    zero(pv);
+    product(
+        pv, [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) { a_from_acc(ah, al, s[kk]); },
+        [&](int kk, int nt, uint32_t (&bh)[2], uint32_t (&bl)[2]) {
+          ld_b_krows(bh, bl, tv, 8 * kk, 8 * nt, lane);
+        });
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nt][e] = fmaf(o[nt][e], corr[e >> 1], pv[nt][e]);
+    __syncthreads();  // this buffer's reads are done before it is refilled
   }
-  __nv_bfloat16* ob = out + (static_cast<size_t>(b) * S * H + h) * 256 + lane * 8;
+
+  float* ob = out + (static_cast<size_t>(b) * S * H + h) * 64;
 #pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int row = q0 + i;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + 8 * r;
     if (row < S) {
-      const float inv = 1.f / l[i];
-      float r8[8];
+      const float inv = 1.f / l[r];
+      float2* orow = reinterpret_cast<float2*>(ob + static_cast<size_t>(row) * H * 64 + col0);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) r8[e] = o[i][e] * inv;
-      *reinterpret_cast<uint4*>(ob + static_cast<size_t>(row) * H * 256) = pack8(r8);
-      if (lse != nullptr && lane == 0)
-        lse[(static_cast<size_t>(b) * H + h) * S + row] = m[i] * CUDART_LN2_F + logf(l[i]);
+      for (int nt = 0; nt < 8; ++nt)
+        orow[4 * nt] = make_float2(o[nt][2 * r] * inv, o[nt][2 * r + 1] * inv);
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[(static_cast<size_t>(b) * H + h) * S + row] = m[r] * CUDART_LN2_F + logf(l[r]);
     }
   }
 }
@@ -488,16 +410,131 @@ fwd_rows256_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
            int H, int Hkv, const long long* st, cudaStream_t stream) {
   const int n_qt = (S + kR - 1) / kR;
+  const long long blocks = static_cast<long long>(B) * H * n_qt;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const cudaError_t e = cudaFuncSetAttribute(
+      fwd_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fwd_tf32_kernel<<<static_cast<unsigned int>(blocks), kThreads, kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), lse, S, H, H / Hkv, n_qt, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], 0.125f * mm::sm90::kLog2e);  // Dh**-0.5 * log2(e)
+  return mm::last_error();
+}
+
+}  // namespace tf32k
+
+// ---- Dh 256, bf16 and f32: packed rows on the CUDA cores -------------------------
+
+namespace rows {
+
+using namespace mm::sm90;
+
+constexpr int kWarps = 4;  // warps (sequence, head pairs) a block
+
+// R: query rows a warp owns (its registers hold R rows of q and of the output)
+template <typename T, int R>
+__global__ void __launch_bounds__(kWarps * 32)
+fwd_rows256_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   T* __restrict__ out, float* __restrict__ lse, int S, int H, int groups,
+                   int n_qt, long long bh_count, long long qsb, long long qss, long long qsh,
+                   long long ksb, long long kss, long long ksh, long long vsb, long long vss,
+                   long long vsh, float scale_log2) {
+  const int lane = threadIdx.x & 31;
+  const long long item = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (item >= bh_count * n_qt) return;
+  const int qt = n_qt - 1 - static_cast<int>(item / bh_count);  // the longest tiles first
+  const long long bh = item % bh_count;
+  const int b = static_cast<int>(bh / H), h = static_cast<int>(bh % H), hk = h / groups;
+  const int q0 = qt * R;
+  const T* qb = q + b * qsb + h * qsh + lane * 8;
+  const T* kb = k + b * ksb + hk * ksh + lane * 8;
+  const T* vb = v + b * vsb + hk * vsh + lane * 8;
+
+  Row8<T> qv[R];
+  float o[R][8], m[R], l[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (q0 + i < S) {
+      qv[i].load(qb + (q0 + i) * qss);
+    } else {
+      qv[i].zero();
+    }
+    m[i] = -CUDART_INF_F;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[i][e] = 0.f;
+  }
+  const int last = min(S, q0 + R) - 1;
+  Row8<T> kn, vn;
+  kn.load(kb);
+  vn.load(vb);
+  for (int j = 0; j <= last; ++j) {
+    const Row8<T> kc = kn, vc = vn;
+    if (j < last) {  // the next key's row while this one is scored
+      kn.load(kb + (j + 1) * kss);
+      vn.load(vb + (j + 1) * vss);
+    }
+    float kf[8], vf[8], sc[R];
+    kc.get(kf);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      float qf[8];
+      qv[i].get(qf);
+      float d = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d = fmaf(qf[e], kf[e], d);
+      sc[i] = mm::warp_sum(d);
+    }
+    vc.get(vf);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (j <= q0 + i) {
+        const float s2 = sc[i] * scale_log2;
+        const float m_new = fmaxf(m[i], s2);
+        const float corr = exp2f(m[i] - m_new);
+        const float p = exp2f(s2 - m_new);
+        const float pr = round_to<T>(p);
+        l[i] = l[i] * corr + p;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) o[i][e] = fmaf(pr, vf[e], o[i][e] * corr);
+        m[i] = m_new;
+      }
+    }
+  }
+  T* ob = out + (static_cast<size_t>(b) * S * H + h) * 256 + lane * 8;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + i;
+    if (row < S) {
+      const float inv = 1.f / l[i];
+      float r8[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) r8[e] = o[i][e] * inv;
+      store8(ob + static_cast<size_t>(row) * H * 256, r8);
+      if (lse != nullptr && lane == 0)
+        lse[(static_cast<size_t>(b) * H + h) * S + row] = m[i] * CUDART_LN2_F + logf(l[i]);
+    }
+  }
+}
+
+template <typename T, int R>
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
+           int H, int Hkv, const long long* st, cudaStream_t stream) {
+  const int n_qt = (S + R - 1) / R;
   const long long bh_count = static_cast<long long>(B) * H;
   const long long blocks = (bh_count * n_qt + kWarps - 1) / kWarps;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  fwd_rows256_kernel<<<static_cast<unsigned int>(blocks), kWarps * 32, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, S, H,
-      H / Hkv, n_qt, bh_count, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      0.0625f * mm::sm90::kLog2e);  // Dh**-0.5 * log2(e)
+  fwd_rows256_kernel<T, R><<<static_cast<unsigned int>(blocks), kWarps * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), lse, S, H, H / Hkv, n_qt, bh_count, st[0], st[1], st[2], st[3],
+      st[4], st[5], st[6], st[7], st[8], 0.0625f * mm::sm90::kLog2e);  // Dh**-0.5 * log2(e)
   return mm::last_error();
 }
+
+// rows a warp owns: 8 (a whole token-net sequence) in both dtypes; ptxas
+// reports no spills for either form (213 / 221 registers, bf16 / f32)
+constexpr int kWarpRows = 8;
 
 }  // namespace rows
 
@@ -506,8 +543,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, void* lse
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (Dh) {
-    case 64: return launch_dh<64>(q, k, v, out, l, B, S, H, Hkv, st, s);    // event net
-    case 256: return launch_dh<256>(q, k, v, out, l, B, S, H, Hkv, st, s);  // token net
+    case 64: return tf32k::launch(q, k, v, out, l, B, S, H, Hkv, st, s);  // event net
+    case 256:  // token net
+      return rows::launch<float, rows::kWarpRows>(q, k, v, out, l, B, S, H, Hkv, st, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -518,7 +556,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, void* ls
   float* l = static_cast<float*>(lse);
   switch (Dh) {
     case 64: return wg::launch(q, k, v, out, l, B, S, H, Hkv, st, s);     // event net
-    case 256: return rows::launch(q, k, v, out, l, B, S, H, Hkv, st, s);  // token net
+    case 256:  // token net
+      return rows::launch<__nv_bfloat16, rows::kWarpRows>(q, k, v, out, l, B, S, H, Hkv, st, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -527,11 +566,11 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, void* ls
 
 // strides: [q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h] in elements; the
 // last dim of each input is contiguous; out is a contiguous [B, S, H, Dh];
-// lse: null, or a contiguous f32 [B, H, S] for the rows' log-sum-exp.  The
-// bf16 forms read 16 bytes at a time (TMA at Dh 64): the inputs' base
-// addresses are 16-byte aligned and their strides multiples of 8 elements,
-// non-decreasing from head to position to batch (the wrapper copies an input
-// that is not).
+// lse: null, or a contiguous f32 [B, H, S] for the rows' log-sum-exp.  Every
+// form reads 16 bytes at a time (TMA at bf16 Dh 64, cp.async at f32 Dh 64):
+// the inputs' base addresses are 16-byte aligned and their strides multiples
+// of 16 bytes (8 bf16, 4 f32 elements), non-decreasing from head to position
+// to batch (the wrapper copies an input that is not).
 extern "C" int mm_causal_attention_f32(const void* q, const void* k, const void* v, void* out,
                                        void* lse, int B, int S, int H, int Hkv, int Dh,
                                        const long long* strides, void* stream) {

@@ -53,93 +53,46 @@
 //   fall on distinct banks), the next tile's copy in flight while the
 //   current one is used.  The dk/dv pass launches its longest key tiles
 //   (the first) first, the dq pass its longest query tiles (the last) first.
-// * bf16, Dh 256 (dkdv_rows256_kernel, dq_rows256_kernel): thousands of
-//   8-row sequences, bytes-bound.  One warp owns 4 key rows (dk/dv) or 4
-//   query rows (dq) of one (sequence, head), a lane 8 of the 256 head dims
-//   (16-byte loads); it walks the other side's rows one at a time, each
-//   score and dP a warp sum.  CUDA-core f32: the bytes set the pace.
-// * f32, both head dims (dkdv_kernel, dq_kernel): the parity path, on the
-//   CUDA cores in f32.  Tiles are R rows of f32 in shared memory, padded to
-//   dodge bank conflicts, with R * Dh = 4096: R = 64 at Dh 64 (100 KB of
-//   tiles), R = 16 at Dh 256 (68 KB) — 16 output values per thread.
+// * f32, Dh 64 (dkdv_tf32_kernel, dq_tf32_kernel): the plan of the bf16
+//   pair — 64-row tiles, one warp per 16 rows, tiles by cp.async into padded
+//   shared memory with the next in flight, the longest tiles first, the
+//   same five products and transposes — with every product as three TF32
+//   products on mma.sync m16n8k8 (hopper.cuh, 3xTF32: close to f32's
+//   accuracy; attention_tf32.cuh has the tiles and fragments).  P^T and dS^T
+//   (dq pass: dS) go from their accumulators to A fragments in registers,
+//   split, unrounded; K and V (dq pass: Q and dO) are read from shared
+//   memory for each step rather than held split in registers (128 more a
+//   thread).  Each step's dk, dv (dq) products are summed apart and added to
+//   the running sums in f32 (the tensor cores truncate as they accumulate).
+// * Dh 256, bf16 and f32 (dkdv_rows256_kernel<T, R>, dq_rows256_kernel<T,
+//   R>): thousands of 8-row sequences, bytes-bound.  One warp owns R = 4 key
+//   rows (dk/dv) or query rows (dq) of one (sequence, head), a lane 8 of the
+//   256 head dims (one 16-byte load in bf16, two in f32); it walks the other
+//   side's rows one at a time, each score and dP a warp sum.  CUDA-core f32:
+//   the bytes set the pace.  P is rounded to the input type for dv (bf16, or
+//   none).
 #include <climits>
 
+#include "attention_tf32.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileElems = 4096;  // R * Dh
+constexpr int kDeltaThreads = 256;  // the D pass: a warp per row
 
 struct Strides {
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh;
 };
 
-template <int DH>
-struct Tile {
-  static constexpr int R = kTileElems / DH;  // rows per tile: 64 or 16
-  static constexpr int P = DH + 1;           // padded row pitch of a [R][DH] tile
-  static constexpr int PR = R + 1;           // padded row pitch of a [R][R] tile
-  static constexpr int kScores = R * R / kThreads;  // (row, key) pairs per thread
-  static constexpr int kOut = R * DH / kThreads;    // output values per thread
-  static_assert(R * R % kThreads == 0 && R * DH % kThreads == 0, "tile split");
-};
-
-// rows [r0, r0 + R) of one head of x (row stride rs, element 0 at base) into
-// a padded tile; rows at or past S are zero
-template <int DH>
-__device__ __forceinline__ void load_tile(float* tile, const float* base, long long rs, int r0,
-                                          int S) {
-  constexpr int R = Tile<DH>::R, P = Tile<DH>::P;
-  for (int idx = threadIdx.x; idx < R * DH; idx += kThreads) {
-    const int rr = idx / DH, d = idx % DH;
-    const int row = r0 + rr;
-    tile[rr * P + d] = row < S ? base[row * rs + d] : 0.f;
-  }
-}
-
-// the per-row lse and D of query rows [q0, q0 + R) of head (b, h)
-__device__ __forceinline__ void load_rows(float* Ls, float* Ds, const float* lse,
-                                          const float* delta, size_t head_row0, int q0, int S,
-                                          int R) {
-  for (int r = threadIdx.x; r < R; r += kThreads) {
-    const int row = q0 + r;
-    Ls[r] = row < S ? lse[head_row0 + row] : 0.f;
-    Ds[r] = row < S ? delta[head_row0 + row] : 0.f;
-  }
-}
-
-// P and dS of the pair (query row q0 + r, key row k0 + c) from the tiles;
-// both 0 where the key lies past the row or the row past S
-template <int DH>
-__device__ __forceinline__ void prob_and_ds(const float* Qs, const float* Ks, const float* Vs,
-                                            const float* dOs, const float* Ls, const float* Ds,
-                                            int r, int c, int q0, int k0, int S, float scale,
-                                            float& p, float& ds) {
-  constexpr int P = Tile<DH>::P;
-  const int qi = q0 + r, kj = k0 + c;
-  p = 0.f;
-  ds = 0.f;
-  if (qi < S && kj <= qi) {
-    float s = 0.f, dp = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < DH; ++d) {
-      s += Qs[r * P + d] * Ks[c * P + d];
-      dp += dOs[r * P + d] * Vs[c * P + d];
-    }
-    p = expf(s * scale - Ls[r]);
-    ds = p * (dp - Ds[r]);
-  }
-}
-
 // D[b, h, s] = sum_d dout * out, one warp per (b, s, h) row
 template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads) delta_kernel(const T* __restrict__ out,
-                                                         const T* __restrict__ dout,
-                                                         float* __restrict__ delta, int S, int H,
-                                                         long long rows) {
-  const long long row = static_cast<long long>(blockIdx.x) * (kThreads / 32) + (threadIdx.x >> 5);
+__global__ void __launch_bounds__(kDeltaThreads) delta_kernel(const T* __restrict__ out,
+                                                              const T* __restrict__ dout,
+                                                              float* __restrict__ delta, int S,
+                                                              int H, long long rows) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (kDeltaThreads / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   const T* o = out + row * DH;
@@ -154,201 +107,14 @@ __global__ void __launch_bounds__(kThreads) delta_kernel(const T* __restrict__ o
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads) dkdv_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int S,
-    int H, int groups, Strides st, float scale) {
-  using Tl = Tile<DH>;
-  constexpr int R = Tl::R, P = Tl::P, PR = Tl::PR;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + R * P;
-  float* Qs = Vs + R * P;
-  float* dOs = Qs + R * P;
-  float* Ps = dOs + R * P;  // P, for dv
-  float* dSs = Ps + R * PR;
-  float* Ls = dSs + R * PR;
-  float* Ds = Ls + R;
-
-  const int hkv = H / groups;
-  const int b = blockIdx.x / hkv;
-  const int hk = blockIdx.x % hkv;
-  const int k0 = blockIdx.y * R;
-  load_tile<DH>(Ks, k + b * st.kb + hk * st.kh, st.ks, k0, S);
-  load_tile<DH>(Vs, v + b * st.vb + hk * st.vh, st.vs, k0, S);
-
-  float acc_k[Tl::kOut], acc_v[Tl::kOut];
-#pragma unroll
-  for (int i = 0; i < Tl::kOut; ++i) acc_k[i] = acc_v[i] = 0.f;
-
-  const int n_tiles = (S + R - 1) / R;
-  for (int g = 0; g < groups; ++g) {
-    const int h = hk * groups + g;
-    const size_t head_row0 = (static_cast<size_t>(b) * H + h) * S;
-    // query tiles on or below the diagonal: the first holds query row k0
-    for (int qt = blockIdx.y; qt < n_tiles; ++qt) {
-      const int q0 = qt * R;
-      __syncthreads();  // the last tile's reads are done
-      load_tile<DH>(Qs, q + b * st.qb + h * st.qh, st.qs, q0, S);
-      load_tile<DH>(dOs, dout + static_cast<size_t>(b) * S * H * DH + h * DH,
-                       static_cast<long long>(H) * DH, q0, S);
-      load_rows(Ls, Ds, lse, delta, head_row0, q0, S, R);
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < Tl::kScores; ++i) {
-        const int e = threadIdx.x + kThreads * i;
-        const int r = e / R, c = e % R;
-        float p, ds;
-        prob_and_ds<DH>(Qs, Ks, Vs, dOs, Ls, Ds, r, c, q0, k0, S, scale, p, ds);
-        Ps[r * PR + c] = p;
-        dSs[r * PR + c] = ds;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < Tl::kOut; ++i) {
-        const int e = threadIdx.x + kThreads * i;
-        const int j = e / DH, d = e % DH;
-        float av = acc_v[i], ak = acc_k[i];
-#pragma unroll 8
-        for (int r = 0; r < R; ++r) {
-          av += Ps[r * PR + j] * dOs[r * P + d];
-          ak += dSs[r * PR + j] * Qs[r * P + d];
-        }
-        acc_v[i] = av;
-        acc_k[i] = ak;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < Tl::kOut; ++i) {
-    const int e = threadIdx.x + kThreads * i;
-    const int j = e / DH, d = e % DH;
-    const int row = k0 + j;
-    if (row < S) {
-      const size_t at = ((static_cast<size_t>(b) * S + row) * hkv + hk) * DH + d;
-      dk[at] = acc_k[i] * scale;
-      dv[at] = acc_v[i];
-    }
-  }
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads) dq_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dq, int S, int H, int groups,
-    Strides st, float scale) {
-  using Tl = Tile<DH>;
-  constexpr int R = Tl::R, P = Tl::P, PR = Tl::PR;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + R * P;
-  float* Ks = dOs + R * P;
-  float* Vs = Ks + R * P;
-  float* dSs = Vs + R * P;
-  float* Ls = dSs + R * PR;
-  float* Ds = Ls + R;
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int hk = h / groups;
-  const int q0 = blockIdx.y * R;
-  load_tile<DH>(Qs, q + b * st.qb + h * st.qh, st.qs, q0, S);
-  load_tile<DH>(dOs, dout + static_cast<size_t>(b) * S * H * DH + h * DH,
-                static_cast<long long>(H) * DH, q0, S);
-  load_rows(Ls, Ds, lse, delta, (static_cast<size_t>(b) * H + h) * S, q0, S, R);
-
-  float acc[Tl::kOut];
-#pragma unroll
-  for (int i = 0; i < Tl::kOut; ++i) acc[i] = 0.f;
-  const int last_q = min(S, q0 + R) - 1;
-  for (int kt = 0; kt <= last_q / R; ++kt) {
-    const int k0 = kt * R;
-    __syncthreads();  // the last tile's reads are done
-    load_tile<DH>(Ks, k + b * st.kb + hk * st.kh, st.ks, k0, S);
-    load_tile<DH>(Vs, v + b * st.vb + hk * st.vh, st.vs, k0, S);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < Tl::kScores; ++i) {
-      const int e = threadIdx.x + kThreads * i;
-      const int r = e / R, c = e % R;
-      float p, ds;
-      prob_and_ds<DH>(Qs, Ks, Vs, dOs, Ls, Ds, r, c, q0, k0, S, scale, p, ds);
-      dSs[r * PR + c] = ds;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < Tl::kOut; ++i) {
-      const int e = threadIdx.x + kThreads * i;
-      const int r = e / DH, d = e % DH;
-      float a = acc[i];
-#pragma unroll 8
-      for (int c = 0; c < R; ++c) a += dSs[r * PR + c] * Ks[c * P + d];
-      acc[i] = a;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < Tl::kOut; ++i) {
-    const int e = threadIdx.x + kThreads * i;
-    const int r = e / DH, d = e % DH;
-    if (q0 + r < S)
-      dq[((static_cast<size_t>(b) * S + q0 + r) * H + h) * DH + d] = acc[i] * scale;
-  }
-}
-
-template <int DH>
-constexpr size_t dkdv_smem() {
-  using Tl = Tile<DH>;
-  return sizeof(float) * (4 * Tl::R * Tl::P + 2 * Tl::R * Tl::PR + 2 * Tl::R);
-}
-
-template <int DH>
-constexpr size_t dq_smem() {
-  using Tl = Tile<DH>;
-  return sizeof(float) * (4 * Tl::R * Tl::P + Tl::R * Tl::PR + 2 * Tl::R);
-}
-
 // D = rowsum(dout * out), one warp per (b, s, h) row
 template <typename T, int DH>
 int launch_delta(const T* out, const T* dout, float* delta, int B, int S, int H,
                  cudaStream_t stream) {
   const long long rows = static_cast<long long>(B) * S * H;
-  const int warps = kThreads / 32;
-  delta_kernel<T, DH><<<static_cast<unsigned int>((rows + warps - 1) / warps), kThreads, 0,
+  const int warps = kDeltaThreads / 32;
+  delta_kernel<T, DH><<<static_cast<unsigned int>((rows + warps - 1) / warps), kDeltaThreads, 0,
                         stream>>>(out, dout, delta, S, H, rows);
-  return mm::last_error();
-}
-
-template <int DH>
-int launch_dh(const void* q, const void* k, const void* v, const void* out, const void* dout,
-              const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int S, int H,
-              int Hkv, const long long* st, cudaStream_t stream) {
-  constexpr int R = Tile<DH>::R;
-  const Strides strides{st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]};
-  const float scale = 1.0f / sqrtf(static_cast<float>(DH));
-  const float* qt = static_cast<const float*>(q);
-  const float* kt = static_cast<const float*>(k);
-  const float* vt = static_cast<const float*>(v);
-  const float* gt = static_cast<const float*>(dout);
-  cudaError_t e = cudaFuncSetAttribute(dkdv_kernel<DH>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(dkdv_smem<DH>()));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(dq_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(dq_smem<DH>()));
-  if (e != cudaSuccess) return static_cast<int>(e);
-
-  int err = launch_delta<float, DH>(static_cast<const float*>(out), gt, delta, B, S, H, stream);
-  if (err) return err;
-  const int tiles = (S + R - 1) / R;
-  dkdv_kernel<DH><<<dim3(B * Hkv, tiles), kThreads, dkdv_smem<DH>(), stream>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), S, H,
-      H / Hkv, strides, scale);
-  if ((err = mm::last_error())) return err;
-  dq_kernel<DH><<<dim3(B * H, tiles), kThreads, dq_smem<DH>(), stream>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<float*>(dq), S, H, H / Hkv, strides, scale);
   return mm::last_error();
 }
 
@@ -665,19 +431,260 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
 
 }  // namespace tc
 
+// ---- f32, Dh 64: 3xTF32 on mma.sync ---------------------------------------------
+
+namespace tf32k {
+
+using namespace mm::tf32;
+
+constexpr size_t kSmem = 6 * kTileFloats * sizeof(float) + 4 * kR * sizeof(float);
+
+__global__ void __launch_bounds__(kThreads) dkdv_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int S,
+    int H, int groups, int n_t, Strides st, float scale, float scale_log2) {
+  extern __shared__ __align__(16) float smem_f[];
+  const float* sK = smem_f;
+  const float* sV = smem_f + kTileFloats;
+  auto sQ = [&](int i) { return smem_f + kTileFloats * (2 + 2 * i); };
+  auto sG = [&](int i) { return smem_f + kTileFloats * (3 + 2 * i); };
+  float* Ls = smem_f + 6 * kTileFloats;  // [2][64]
+  float* Ds = Ls + 2 * kR;               // [2][64]
+
+  const int hkv = H / groups;
+  const int bh_count = gridDim.x / n_t;
+  const int kt = static_cast<int>(blockIdx.x) / bh_count;  // key tile 0 (every query tile) first
+  const int bh = static_cast<int>(blockIdx.x) % bh_count;
+  const int b = bh / hkv, hk = bh % hkv;
+  const int k0 = kt * kR;
+  const int n_q = n_t - kt;  // query tiles on or below the diagonal
+  const int steps = groups * n_q;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  auto prefetch = [&](int step, int buf) {
+    const int h = hk * groups + step / n_q;
+    const int q0 = (kt + step % n_q) * kR;
+    load_tile(sQ(buf), q + b * st.qb + h * st.qh, st.qs, q0, S);
+    load_tile(sG(buf), dout + static_cast<size_t>(b) * S * H * 64 + h * 64,
+              static_cast<long long>(H) * 64, q0, S);
+    cp_async_commit();
+    tc::load_rows(Ls + kR * buf, Ds + kR * buf, lse, delta,
+                  (static_cast<size_t>(b) * H + h) * S, q0, S);
+  };
+  load_tile(smem_f, k + b * st.kb + hk * st.kh, st.ks, k0, S);
+  load_tile(smem_f + kTileFloats, v + b * st.vb + hk * st.vh, st.vs, k0, S);
+  prefetch(0, 0);  // one group with K and V
+  cp_async_wait<0>();
+  __syncthreads();
+  float dka[8][4], dva[8][4];
+  zero(dka);
+  zero(dva);
+  const int key0 = k0 + 16 * warp + (lane >> 2);  // this thread's keys: key0, key0 + 8
+  const int col0 = 2 * (lane & 3);
+
+  for (int step = 0; step < steps; ++step) {
+    const int buf = step & 1;
+    if (step + 1 < steps) {
+      prefetch(step + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = (kt + step % n_q) * kR;
+    const float* L = Ls + kR * buf;
+    const float* D = Ds + kR * buf;
+    const float* tq = sQ(buf);
+    const float* tg = sG(buf);
+    float pt[8][4], dst[8][4];  // S^T then P^T; dP^T then dS^T: 16 keys x 64 queries
+    zero(pt);
+    zero(dst);
+    product(
+        pt,
+        [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+          ld_a(ah, al, sK, 16 * warp, 8 * kk, lane);
+        },
+        [&](int kk, int nt, uint32_t (&bh)[2], uint32_t (&bl)[2]) {
+          ld_b_nrows(bh, bl, tq, 8 * nt, 8 * kk, lane);
+        });
+    product(
+        dst,
+        [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+          ld_a(ah, al, sV, 16 * warp, 8 * kk, lane);
+        },
+        [&](int kk, int nt, uint32_t (&bh)[2], uint32_t (&bl)[2]) {
+          ld_b_nrows(bh, bl, tg, 8 * nt, 8 * kk, lane);
+        });
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * nt + col0 + (e & 1);
+        float p = exp2f(fmaf(pt[nt][e], scale_log2, -L[qc]));
+        if (q0 + qc < key0 + 8 * (e >> 1)) p = 0.f;  // the diagonal tile's upper half
+        pt[nt][e] = p;
+        dst[nt][e] = p * (dst[nt][e] - D[qc]);
+      }
+    }
+    float part[8][4];  // this step's dv, then dk, apart from the sums (accumulate)
+    zero(part);
+    product(
+        part, [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) { a_from_acc(ah, al, pt[kk]); },
+        [&](int kk, int nt, uint32_t (&bh)[2], uint32_t (&bl)[2]) {
+          ld_b_krows(bh, bl, tg, 8 * kk, 8 * nt, lane);
+        });
+    accumulate(dva, part);
+    zero(part);
+    product(
+        part, [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) { a_from_acc(ah, al, dst[kk]); },
+        [&](int kk, int nt, uint32_t (&bh)[2], uint32_t (&bl)[2]) {
+          ld_b_krows(bh, bl, tq, 8 * kk, 8 * nt, lane);
+        });
+    accumulate(dka, part);
+    __syncthreads();  // this buffer's reads are done before it is refilled
+  }
+  const size_t head = static_cast<size_t>(b) * S * hkv + hk;
+  store_rows(dk + head * 64, static_cast<long long>(hkv) * 64, k0 + 16 * warp, S, dka, scale,
+             lane);
+  store_rows(dv + head * 64, static_cast<long long>(hkv) * 64, k0 + 16 * warp, S, dva, 1.f, lane);
+}
+
+__global__ void __launch_bounds__(kThreads) dq_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, int S, int H, int groups, int n_t,
+    Strides st, float scale, float scale_log2) {
+  extern __shared__ __align__(16) float smem_f[];
+  float* sQ = smem_f;
+  float* sG = smem_f + kTileFloats;
+  auto sK = [&](int i) { return smem_f + kTileFloats * (2 + 2 * i); };
+  auto sV = [&](int i) { return smem_f + kTileFloats * (3 + 2 * i); };
+  float* Ls = smem_f + 6 * kTileFloats;
+  float* Ds = Ls + kR;
+
+  const int bh_count = gridDim.x / n_t;
+  const int qt = n_t - 1 - static_cast<int>(blockIdx.x) / bh_count;  // the longest first
+  const int bh = static_cast<int>(blockIdx.x) % bh_count;
+  const int b = bh / H, h = bh % H, hk = h / groups;
+  const int q0 = qt * kR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* kb = k + b * st.kb + hk * st.kh;
+  const float* vb = v + b * st.vb + hk * st.vh;
+
+  load_tile(sQ, q + b * st.qb + h * st.qh, st.qs, q0, S);
+  load_tile(sG, dout + static_cast<size_t>(b) * S * H * 64 + h * 64,
+            static_cast<long long>(H) * 64, q0, S);
+  load_tile(sK(0), kb, st.ks, 0, S);
+  load_tile(sV(0), vb, st.vs, 0, S);
+  cp_async_commit();
+  tc::load_rows(Ls, Ds, lse, delta, (static_cast<size_t>(b) * H + h) * S, q0, S);
+  cp_async_wait<0>();
+  __syncthreads();
+  const int rl = 16 * warp + (lane >> 2);  // this thread's local rows: rl, rl + 8
+  const float lse_r[2] = {Ls[rl], Ls[rl + 8]};
+  const float d_r[2] = {Ds[rl], Ds[rl + 8]};
+  const int col0 = 2 * (lane & 3);
+  float acc[8][4];
+  zero(acc);
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int buf = kt & 1;
+    if (kt < qt) {
+      load_tile(sK(buf ^ 1), kb, st.ks, (kt + 1) * kR, S);
+      load_tile(sV(buf ^ 1), vb, st.vs, (kt + 1) * kR, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* tk = sK(buf);
+    const float* tv = sV(buf);
+    float s[8][4], ds[8][4];  // S then P; dP then dS: 16 queries x 64 keys
+    zero(s);
+    zero(ds);
+    product(
+        s,
+        [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+          ld_a(ah, al, sQ, 16 * warp, 8 * kk, lane);
+        },
+        [&](int kk, int nt, uint32_t (&bh)[2], uint32_t (&bl)[2]) {
+          ld_b_nrows(bh, bl, tk, 8 * nt, 8 * kk, lane);
+        });
+    product(
+        ds,
+        [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+          ld_a(ah, al, sG, 16 * warp, 8 * kk, lane);
+        },
+        [&](int kk, int nt, uint32_t (&bh)[2], uint32_t (&bl)[2]) {
+          ld_b_nrows(bh, bl, tv, 8 * nt, 8 * kk, lane);
+        });
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int key = kt * kR + 8 * nt + col0 + (e & 1);
+        float p = exp2f(fmaf(s[nt][e], scale_log2, -lse_r[r]));
+        if (key > q0 + rl + 8 * r) p = 0.f;  // the diagonal tile's upper half
+        ds[nt][e] = p * (ds[nt][e] - d_r[r]);
+      }
+    }
+    zero(s);  // this tile's dq, apart from the sum (accumulate)
+    product(
+        s, [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) { a_from_acc(ah, al, ds[kk]); },
+        [&](int kk, int nt, uint32_t (&bh)[2], uint32_t (&bl)[2]) {
+          ld_b_krows(bh, bl, tk, 8 * kk, 8 * nt, lane);
+        });
+    accumulate(acc, s);
+    __syncthreads();  // this buffer's reads are done before it is refilled
+  }
+  store_rows(dq + (static_cast<size_t>(b) * S * H + h) * 64, static_cast<long long>(H) * 64,
+             q0 + 16 * warp, S, acc, scale, lane);
+}
+
+int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
+           const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int S, int H,
+           int Hkv, const long long* st, cudaStream_t stream) {
+  const Strides strides{st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]};
+  const int n_t = (S + kR - 1) / kR;
+  const long long dkdv_blocks = static_cast<long long>(B) * Hkv * n_t;
+  const long long dq_blocks = static_cast<long long>(B) * H * n_t;
+  if (dq_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaError_t e = cudaFuncSetAttribute(
+      dkdv_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaFuncSetAttribute(dq_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(kSmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* gt = static_cast<const float*>(dout);
+  int err = launch_delta<float, 64>(static_cast<const float*>(out), gt, delta, B, S, H, stream);
+  if (err) return err;
+  const float scale = 0.125f;  // 64**-0.5
+  dkdv_tf32_kernel<<<static_cast<unsigned int>(dkdv_blocks), kThreads, kSmem, stream>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), S, H,
+      H / Hkv, n_t, strides, scale, scale * kLog2e);
+  if ((err = mm::last_error())) return err;
+  dq_tf32_kernel<<<static_cast<unsigned int>(dq_blocks), kThreads, kSmem, stream>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<float*>(dq), S, H, H / Hkv, n_t, strides, scale,
+      scale * kLog2e);
+  return mm::last_error();
+}
+
+}  // namespace tf32k
+
 // ---- bf16, Dh 256: packed rows on the CUDA cores ---------------------------------
 
 namespace rows {
 
 using namespace mm::sm90;
-using bf16 = __nv_bfloat16;
 
-constexpr int kRows = 4;   // key rows (dk/dv) or query rows (dq) a warp owns
+constexpr int kRows = 4;   // key rows (dk/dv) or query rows (dq) a warp owns, both dtypes
 constexpr int kWarps = 4;  // warps a block
-
-__device__ __forceinline__ void ld8(const bf16* p, float (&f)[8]) {
-  unpack8(*reinterpret_cast<const uint4*>(p), f);
-}
 
 __device__ __forceinline__ float dot8(const float (&a)[8], const float (&b)[8]) {
   float d = 0.f;
@@ -686,10 +693,11 @@ __device__ __forceinline__ float dot8(const float (&a)[8], const float (&b)[8]) 
   return d;
 }
 
+template <typename T, int R>
 __global__ void __launch_bounds__(kWarps * 32) dkdv_rows256_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int groups, int n_t,
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dk, T* __restrict__ dv, int S, int H, int groups, int n_t,
     long long bh_count, Strides st, float scale, float scale_log2) {
   const int lane = threadIdx.x & 31;
   const long long item = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
@@ -698,59 +706,60 @@ __global__ void __launch_bounds__(kWarps * 32) dkdv_rows256_kernel(
   const long long bh = item % bh_count;
   const int hkv = H / groups;
   const int b = static_cast<int>(bh / hkv), hk = static_cast<int>(bh % hkv);
-  const int k0 = kt * kRows;
-  float kf[kRows][8], vf[kRows][8], dka[kRows][8], dva[kRows][8];
+  const int k0 = kt * R;
+  float kf[R][8], vf[R][8], dka[R][8], dva[R][8];
 #pragma unroll
-  for (int j = 0; j < kRows; ++j) {
+  for (int j = 0; j < R; ++j) {
 #pragma unroll
     for (int e = 0; e < 8; ++e) kf[j][e] = vf[j][e] = dka[j][e] = dva[j][e] = 0.f;
     if (k0 + j < S) {
-      ld8(k + b * st.kb + hk * st.kh + (k0 + j) * st.ks + lane * 8, kf[j]);
-      ld8(v + b * st.vb + hk * st.vh + (k0 + j) * st.vs + lane * 8, vf[j]);
+      load8(k + b * st.kb + hk * st.kh + (k0 + j) * st.ks + lane * 8, kf[j]);
+      load8(v + b * st.vb + hk * st.vh + (k0 + j) * st.vs + lane * 8, vf[j]);
     }
   }
   for (int g = 0; g < groups; ++g) {
     const int h = hk * groups + g;
-    const bf16* qb = q + b * st.qb + h * st.qh + lane * 8;
-    const bf16* gb = dout + (static_cast<size_t>(b) * S * H + h) * 256 + lane * 8;
+    const T* qb = q + b * st.qb + h * st.qh + lane * 8;
+    const T* gb = dout + (static_cast<size_t>(b) * S * H + h) * 256 + lane * 8;
     const size_t row0 = (static_cast<size_t>(b) * H + h) * S;
     for (int i = k0; i < S; ++i) {  // the query rows that see a key of the tile
       float qf[8], gf[8];
-      ld8(qb + i * st.qs, qf);
-      ld8(gb + static_cast<size_t>(i) * H * 256, gf);
+      load8(qb + i * st.qs, qf);
+      load8(gb + static_cast<size_t>(i) * H * 256, gf);
       const float lse2 = lse[row0 + i] * kLog2e, di = delta[row0 + i];
 #pragma unroll
-      for (int j = 0; j < kRows; ++j) {
+      for (int j = 0; j < R; ++j) {
         if (k0 + j > i) break;
         const float s = mm::warp_sum(dot8(qf, kf[j]));
         const float dp = mm::warp_sum(dot8(gf, vf[j]));
         const float p = exp2f(fmaf(s, scale_log2, -lse2));
         const float ds = p * (dp - di);
-        const float pb = round_bf16(p);  // as the plain version's dv
+        const float pr = round_to<T>(p);  // as the plain version's dv
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          dva[j][e] = fmaf(pb, gf[e], dva[j][e]);
+          dva[j][e] = fmaf(pr, gf[e], dva[j][e]);
           dka[j][e] = fmaf(ds, qf[e], dka[j][e]);
         }
       }
     }
   }
 #pragma unroll
-  for (int j = 0; j < kRows; ++j) {
+  for (int j = 0; j < R; ++j) {
     if (k0 + j >= S) break;
     const size_t at = ((static_cast<size_t>(b) * S + k0 + j) * hkv + hk) * 256 + lane * 8;
     float r8[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) r8[e] = dka[j][e] * scale;
-    *reinterpret_cast<uint4*>(dk + at) = pack8(r8);
-    *reinterpret_cast<uint4*>(dv + at) = pack8(dva[j]);
+    store8(dk + at, r8);
+    store8(dv + at, dva[j]);
   }
 }
 
+template <typename T, int R>
 __global__ void __launch_bounds__(kWarps * 32) dq_rows256_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, int S, int H, int groups, int n_t, long long bh_count, Strides st,
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dq, int S, int H, int groups, int n_t, long long bh_count, Strides st,
     float scale, float scale_log2) {
   const int lane = threadIdx.x & 31;
   const long long item = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
@@ -758,30 +767,30 @@ __global__ void __launch_bounds__(kWarps * 32) dq_rows256_kernel(
   const int qt = n_t - 1 - static_cast<int>(item / bh_count);  // the longest first
   const long long bh = item % bh_count;
   const int b = static_cast<int>(bh / H), h = static_cast<int>(bh % H), hk = h / groups;
-  const int q0 = qt * kRows;
+  const int q0 = qt * R;
   const size_t row0 = (static_cast<size_t>(b) * H + h) * S;
-  float qf[kRows][8], gf[kRows][8], acc[kRows][8], lse2[kRows], di[kRows];
+  float qf[R][8], gf[R][8], acc[R][8], lse2[R], di[R];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < R; ++i) {
 #pragma unroll
     for (int e = 0; e < 8; ++e) qf[i][e] = gf[i][e] = acc[i][e] = 0.f;
     lse2[i] = di[i] = 0.f;
     if (q0 + i < S) {
-      ld8(q + b * st.qb + h * st.qh + (q0 + i) * st.qs + lane * 8, qf[i]);
-      ld8(dout + ((static_cast<size_t>(b) * S + q0 + i) * H + h) * 256 + lane * 8, gf[i]);
+      load8(q + b * st.qb + h * st.qh + (q0 + i) * st.qs + lane * 8, qf[i]);
+      load8(dout + ((static_cast<size_t>(b) * S + q0 + i) * H + h) * 256 + lane * 8, gf[i]);
       lse2[i] = lse[row0 + q0 + i] * kLog2e;
       di[i] = delta[row0 + q0 + i];
     }
   }
-  const bf16* kb = k + b * st.kb + hk * st.kh + lane * 8;
-  const bf16* vb = v + b * st.vb + hk * st.vh + lane * 8;
-  const int last = min(S, q0 + kRows) - 1;
+  const T* kb = k + b * st.kb + hk * st.kh + lane * 8;
+  const T* vb = v + b * st.vb + hk * st.vh + lane * 8;
+  const int last = min(S, q0 + R) - 1;
   for (int j = 0; j <= last; ++j) {
     float kf[8], vf[8];
-    ld8(kb + j * st.ks, kf);
-    ld8(vb + j * st.vs, vf);
+    load8(kb + j * st.ks, kf);
+    load8(vb + j * st.vs, vf);
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
+    for (int i = 0; i < R; ++i) {
       if (j > q0 + i || q0 + i >= S) continue;
       const float s = mm::warp_sum(dot8(qf[i], kf));
       const float dp = mm::warp_sum(dot8(gf[i], vf));
@@ -791,16 +800,16 @@ __global__ void __launch_bounds__(kWarps * 32) dq_rows256_kernel(
     }
   }
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < R; ++i) {
     if (q0 + i >= S) break;
     float r8[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) r8[e] = acc[i][e] * scale;
-    *reinterpret_cast<uint4*>(dq + ((static_cast<size_t>(b) * S + q0 + i) * H + h) * 256 +
-                              lane * 8) = pack8(r8);
+    store8(dq + ((static_cast<size_t>(b) * S + q0 + i) * H + h) * 256 + lane * 8, r8);
   }
 }
 
+template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
            const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int S, int H,
            int Hkv, const long long* st, cudaStream_t stream) {
@@ -809,19 +818,21 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
   const long long dq_blocks = (static_cast<long long>(B) * H * n_t + kWarps - 1) / kWarps;
   const long long dkdv_blocks = (static_cast<long long>(B) * Hkv * n_t + kWarps - 1) / kWarps;
   if (dq_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const bf16* qt = static_cast<const bf16*>(q);
-  const bf16* kt = static_cast<const bf16*>(k);
-  const bf16* vt = static_cast<const bf16*>(v);
-  const bf16* gt = static_cast<const bf16*>(dout);
-  int err = launch_delta<bf16, 256>(static_cast<const bf16*>(out), gt, delta, B, S, H, stream);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* gt = static_cast<const T*>(dout);
+  int err = launch_delta<T, 256>(static_cast<const T*>(out), gt, delta, B, S, H, stream);
   if (err) return err;
   const float scale = 0.0625f;  // 256**-0.5
-  dkdv_rows256_kernel<<<static_cast<unsigned int>(dkdv_blocks), kWarps * 32, 0, stream>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, H / Hkv,
+  dkdv_rows256_kernel<T, kRows>
+      <<<static_cast<unsigned int>(dkdv_blocks), kWarps * 32, 0, stream>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, H, H / Hkv,
       n_t, static_cast<long long>(B) * Hkv, strides, scale, scale * kLog2e);
   if ((err = mm::last_error())) return err;
-  dq_rows256_kernel<<<static_cast<unsigned int>(dq_blocks), kWarps * 32, 0, stream>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dq), S, H, H / Hkv, n_t,
+  dq_rows256_kernel<T, kRows><<<static_cast<unsigned int>(dq_blocks), kWarps * 32, 0,
+                                 stream>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), S, H, H / Hkv, n_t,
       static_cast<long long>(B) * H, strides, scale, scale * kLog2e);
   return mm::last_error();
 }
@@ -835,10 +846,9 @@ int launch_f32(const void* q, const void* k, const void* v, const void* out, con
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   switch (Dh) {
-    case 64:
-      return launch_dh<64>(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, H, Hkv, st, s);
+    case 64: return tf32k::launch(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, H, Hkv, st, s);
     case 256:
-      return launch_dh<256>(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, H, Hkv, st, s);
+      return rows::launch<float>(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, H, Hkv, st, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -851,7 +861,9 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* out, co
   float* dl = static_cast<float*>(delta);
   switch (Dh) {
     case 64: return tc::launch(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, H, Hkv, st, s);
-    case 256: return rows::launch(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, H, Hkv, st, s);
+    case 256:
+      return rows::launch<__nv_bfloat16>(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, H, Hkv, st,
+                                         s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -859,9 +871,9 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* out, co
 }  // namespace
 
 // q, k, v: [B, S, H | Hkv, Dh] by strides [q_b, q_s, q_h, k_b, k_s, k_h, v_b,
-// v_s, v_h] (elements; the last dim contiguous; for bf16 16-byte aligned
-// with strides that are multiples of 8); out, dout, dq: contiguous
-// [B, S, H, Dh]; dk, dv: contiguous [B, S, Hkv, Dh]; lse: the forward's f32
+// v_s, v_h] (elements; the last dim contiguous; 16-byte aligned with strides
+// that are multiples of 16 bytes: 8 bf16, 4 f32 elements); out, dout, dq:
+// contiguous [B, S, H, Dh]; dk, dv: contiguous [B, S, Hkv, Dh]; lse: the forward's f32
 // [B, H, S]; delta: f32 [B, H, S] scratch.
 extern "C" int mm_causal_attention_bwd_f32(const void* q, const void* k, const void* v,
                                            const void* out, const void* dout, const void* lse,

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the attention and decode kernels:
 // mbarriers, TMA tile loads and the host's tensor-map encoder, wgmma
-// descriptors and products, and the sm_80 warp-level tensor-core path
-// (ldmatrix, mma.sync m16n8k16, cp.async).
+// descriptors and products, the sm_80 warp-level tensor-core path
+// (ldmatrix, mma.sync m16n8k16, cp.async), f32 products as three TF32
+// products (mma.sync m16n8k8), and 8-element row pieces of either dtype.
 //
 // Fragment layouts used throughout (the PTX ISA's): a warp's 16 x 8 f32
 // accumulator tile of mma.sync holds, in lane l, c[0..1] at row l/4, columns
@@ -170,6 +171,56 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+// x rounded to the element type T (P before it scales v: the plain version
+// casts its probabilities to the input dtype); none in f32
+template <typename T> __device__ __forceinline__ float round_to(float x);
+template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return round_bf16(x);
+}
+
+// 8 consecutive elements of a row as loaded: 16 bytes of bf16, 32 of f32
+// (two 16-byte loads); p 16-byte aligned
+template <typename T> struct Row8;
+
+template <> struct Row8<__nv_bfloat16> {
+  uint4 v;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    v = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ void zero() { v = make_uint4(0, 0, 0, 0); }
+  __device__ __forceinline__ void get(float (&f)[8]) const { unpack8(v, f); }
+};
+
+template <> struct Row8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = reinterpret_cast<const float4*>(p)[0];
+    b = reinterpret_cast<const float4*>(p)[1];
+  }
+  __device__ __forceinline__ void zero() { a = b = make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ __forceinline__ void get(float (&f)[8]) const {
+    f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+    f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float (&f)[8]) {
+  Row8<T> r;
+  r.load(p);
+  r.get(f);
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&f)[8]) {
+  *reinterpret_cast<uint4*>(p) = pack8(f);
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&f)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
+}
+
 // ---- warp-level tensor cores (mma.sync), ldmatrix, cp.async ------------------
 
 // c[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, f32 accumulate
@@ -209,6 +260,59 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- 3xTF32: f32 products on the TF32 tensor cores -----------------------------
+//
+// mma.sync m16n8k8 with tf32 operands (the PTX ISA's fragments; g = lane/4,
+// t = lane%4): A (16 x 8, row) a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3
+// (g+8, t+4); B (8 x 8, col) b0 (k t, n g), b1 (k t+4, n g); C as at the
+// top.  An f32 operand x splits into hi = tf32_rna(x) and lo = tf32_rna(x -
+// hi) (round to nearest, ties away, to a 10-bit mantissa; x - hi is exact),
+// and a product a b becomes a_lo b_hi + a_hi b_lo + a_hi b_hi, the small
+// terms first, every sum in f32: what is dropped (a_lo b_lo and the
+// rounding of the lo parts) is about 2^-21 of |a b|.
+
+// cvt.rna.tf32.f32 for a finite x, in two integer operations: half an ulp of
+// tf32 added to the magnitude's bits (a carry moves into the exponent, as
+// rounding does), then the 13 low bits cleared.  The cvt itself lowers to
+// four, two of them guarding inf and NaN, which no operand here holds; the
+// split runs on every fragment a warp reads, so it is the kernels' largest
+// cost beside the products.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c[16 x 8] += a[16 x 8] b[8 x 8], tf32 in, f32 accumulate
+__device__ __forceinline__ void mma_1688_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// an f32 fragment (A: 4 values, B: 2) split into its hi and lo tf32 parts
+template <int N>
+__device__ __forceinline__ void split_frag(const float (&x)[N], uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+
+// c += a b in 3xTF32 (a and b already split)
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_1688_tf32(c, al, bh[0], bh[1]);
+  mma_1688_tf32(c, ah, bl[0], bl[1]);
+  mma_1688_tf32(c, ah, bh[0], bh[1]);
 }
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], both operands in shared memory and

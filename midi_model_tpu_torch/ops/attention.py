@@ -4,10 +4,12 @@ Counterpart of ``midi_model_tpu/ops/attention.py``.  :func:`causal_attention`
 runs the CUDA forward kernel (``csrc/causal_attention.cu``) on CUDA tensors,
 at every sequence length (one code path; the JAX package's 512-row
 threshold for its flash kernels was a TPU tuning), and
-:func:`attention_reference` under the causal bias on CPU tensors.  bf16
-runs on the tensor cores at head_dim 64 (TMA + ``wgmma`` forward,
-``mma.sync`` backward) and as packed rows at 256; f32 keeps the CUDA-core
-kernels, whose f32 products the parity checks rely on.
+:func:`attention_reference` under the causal bias on CPU tensors.  At
+head_dim 64 both dtypes run on the tensor cores: bf16 with a TMA + ``wgmma``
+forward and an ``mma.sync`` backward, f32 with ``mma.sync`` forward and
+backward kernels that run each f32 product as three TF32 products (3xTF32:
+close to f32's accuracy, which the parity checks rely on).  At 256 both
+dtypes run as packed rows on the CUDA cores.
 
 Where a gradient is needed it is a ``torch.autograd.Function``: the forward
 also keeps each row's f32 log-sum-exp, and the backward is the CUDA kernel
@@ -119,21 +121,22 @@ def _kernel_strides(x: torch.Tensor):
 
 
 def _vector_ready(x: torch.Tensor) -> bool:
-    """Whether the bf16 kernels can read x as it lies: they move 16 bytes at
-    a time (TMA tensor maps at head_dim 64, 16-byte loads elsewhere), so the
-    base is 16-byte aligned, every stride a multiple of 8 elements, and the
-    strides do not decrease from head to position to batch (the layout a
-    tensor map describes: each axis steps over the whole of the axes inside
-    it)."""
+    """Whether the kernels can read x as it lies: they move 16 bytes at a
+    time (TMA tensor maps at bf16 head_dim 64, ``cp.async`` at f32 head_dim
+    64, 16-byte loads at 256), so the base is 16-byte aligned, every stride
+    a multiple of 16 bytes (8 bf16 or 4 f32 elements), and the strides do
+    not decrease from head to position to batch (the layout a tensor map
+    describes: each axis steps over the whole of the axes inside it)."""
     sb, ss, sh = _kernel_strides(x)
     _, s, h, dh = x.shape
-    return (x.data_ptr() % 16 == 0 and sb % 8 == 0 and ss % 8 == 0 and sh % 8 == 0
+    n = 16 // x.element_size()
+    return (x.data_ptr() % 16 == 0 and sb % n == 0 and ss % n == 0 and sh % n == 0
             and sh >= dh and ss >= sh * h and sb >= ss * s)
 
 
 def _vector_operand(x: torch.Tensor) -> torch.Tensor:
     """x, or a contiguous copy of it where :func:`_vector_ready` says the
-    bf16 kernels cannot read it as it lies (the model's q, k and v, views of
+    kernels cannot read it as it lies (the model's q, k and v, views of
     projections, are read in place)."""
     return x if _vector_ready(x) else x.clone(memory_format=torch.contiguous_format)
 
@@ -151,8 +154,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool):
             return attention_reference(q, k, v, causal_bias(q.shape[1], q.device)), None
         return _reference_with_lse(q, k, v, causal_bias(q.shape[1], q.device))
     _check(q, k, v)
-    if q.dtype == torch.bfloat16:
-        q, k, v = (_vector_operand(x) for x in (q, k, v))
+    q, k, v = (_vector_operand(x) for x in (q, k, v))
     b, s, h, dh = q.shape
     out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -177,9 +179,7 @@ def causal_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v)
     b, s, h, dh = q.shape
     hkv = k.shape[2]
-    dout = dout.contiguous()
-    if q.dtype == torch.bfloat16:
-        q, k, v, dout = (_vector_operand(x) for x in (q, k, v, dout))
+    q, k, v, dout = (_vector_operand(x) for x in (q, k, v, dout.contiguous()))
     _build.check(out, "out", q.dtype, (b, s, h, dh))
     _build.check(dout, "dout", q.dtype, (b, s, h, dh))
     _build.check(lse, "lse", torch.float32, (b, h, s))

@@ -89,10 +89,11 @@ def test_cache_bias_matches_xla(dtype):
 
 
 def test_vector_operands():
-    """The bf16 kernels read 16 bytes at a time: the wrapper passes the
-    model's layouts (contiguous, or q, k, v as views of a wider projection)
-    as they lie, and copies an input with a misaligned base, a stride that is
-    not a multiple of 8 elements, or heads laid out outside positions."""
+    """The kernels read 16 bytes at a time (8 bf16, 4 f32 elements): the
+    wrapper passes the model's layouts (contiguous, or q, k, v as views of a
+    wider projection) as they lie, and copies an input with a misaligned
+    base, a stride that is not a multiple of 16 bytes, or heads laid out
+    outside positions."""
     wide = torch.zeros(2, 5, 4, 128, dtype=torch.bfloat16)
     contiguous = torch.zeros(2, 5, 4, 64, dtype=torch.bfloat16)
     for x in (contiguous, wide[..., :64], wide[..., 64:]):
@@ -101,6 +102,18 @@ def test_vector_operands():
     odd_stride = torch.zeros(2, 5, 4, 68, dtype=torch.bfloat16)[..., :64]
     misaligned = wide[..., 4:68]
     for x in (heads_outside, odd_stride, misaligned):
+        assert not at._vector_ready(x)
+        y = at._vector_operand(x)
+        assert y.is_contiguous() and at._vector_ready(y) and torch.equal(y, x)
+    # f32: 16 bytes are 4 elements, so a row pitch of 68 is read in place
+    # (the bf16 one above is not), 66 is not, nor a base 8 bytes off
+    wide32 = torch.zeros(2, 5, 4, 512)
+    pitch68 = torch.zeros(2, 5, 4, 68)[..., :64]
+    for x in (torch.zeros(2, 5, 4, 64), wide32[..., :256], wide32[..., 256:], pitch68,
+              torch.zeros(4094, 8, 4, 256)):
+        assert at._vector_ready(x) and at._vector_operand(x) is x
+    for x in (torch.zeros(2, 4, 5, 64).transpose(1, 2), torch.zeros(2, 5, 4, 66)[..., :64],
+              wide32[..., 2:66]):
         assert not at._vector_ready(x)
         y = at._vector_operand(x)
         assert y.is_contiguous() and at._vector_ready(y) and torch.equal(y, x)
