@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``midi_model_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--attention]
+    python3 chip_smoke.py [--attention | --paged]
 
 With ``--attention``: phase 1 with ptxas' register and spill report, the
 causal attention checks of phase 2, phase 6's step-0 checks and its timed
-training loops (bf16 and f32 compute), and no result line.  Otherwise all
-phases, each printing one JSON line; any failed check raises, so the script
-exits non-zero:
+training loops (bf16 and f32 compute), and no result line.  With
+``--paged``: phase 1 with the same report, phase 2's paged decode checks
+(the cell and the streaming kernel) and their cold-cache timings, and no
+result line.  Otherwise all phases, each printing one JSON line; any failed
+check raises, so the script exits non-zero:
 
 1. build   — compile the port's CUDA kernels from ``midi_model_tpu_torch/csrc``
              and count HGMMA / HMMA in the SASS of each attention kernel
@@ -26,7 +28,10 @@ exits non-zero:
              streaming paged decode on bf16/f32/int8 pools and the cell
              kernel on int8 pools (ragged lengths, an inactive slot, a slot
              at capacity), the cell and streaming kernels timed side by side
-             at uniform and ragged lengths, the token row (f32 rows identical; bf16 greedy
+             with a cold L2 (each call reads another layer's pages, a sweep
+             of more than 100 MB) on bf16, f32 and int8 pools at the smoke's,
+             uniform (64-2047 rows) and ragged lengths and with GQA, the
+             token row (f32 rows identical; bf16 greedy
              rows identical up to near-ties; one bf16 launch with the phase
              clock: µs per phase kind and the barriers' wait), the fused
              event-net step (f32 within 1e-4; bf16 within 3e-2 after one
@@ -138,21 +143,25 @@ def time_ms(fn, iters: int) -> float:
     sleep kernel holds the stream while the host issues the calls (twice the
     host time of one call per call, at most 0.5 s), so the events time the
     card's work and not the host's pace: a wrapper that takes longer to issue
-    than its kernels take to run would otherwise be timed at the former."""
+    than its kernels take to run would otherwise be timed at the former.
+    ``fn`` may be a list of calls, issued in turn (call i is ``fn[i % n]``):
+    calls that read different memory time a cold cache."""
     import torch
 
-    fn()
+    calls = list(fn) if isinstance(fn, (list, tuple)) else [fn]
+    for call in calls:
+        call()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    calls[0]()
     torch.cuda.synchronize()
     hold_s = min(2 * (time.perf_counter() - t0) * iters, 0.5)
     torch.cuda._sleep(int(hold_s * 2e9))  # cycles: the H100's clock is at most 1.98 GHz
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        calls[i % len(calls)]()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
@@ -302,12 +311,35 @@ def phase_kernels(card: str) -> dict:
     emit({"phase": "kernel", "name": "sampler", "shape": [b, v],
           "ids_identical": True, **results["sampler"], "card": card})
 
-    # -- paged decode with append, B=32, 16 heads x 64, pages of 64 rows; the
-    # main path's MHA in f32 and bf16 pools, and GQA (append as a second launch)
+    worst = check_paged_cell(card, gen)
+    results.update(check_attention(card, gen))
+    worst.update(check_paged_stream(card, gen))
+    results["token_row"] = check_token_row(card, gen)
+    results["fused_step"] = check_fused_step(card, gen)
+    results["fused_step_int8"] = check_fused_step_int8(card, gen)
+    results.update(check_attention_bwd(card, gen))
+    results["event_loop"] = check_event_loop(card, gen)
+    results["event_loop_ragged"] = check_event_loop_ragged(card, gen)
+    results.update(paged_kernel_rows(time_paged_cell_vs_stream(card), worst))
+    return results
+
+
+def check_paged_cell(card: str, gen) -> dict:
+    """The cell paged kernel with append against its plain version at B=32,
+    16 heads x 64, pages of 64 rows, capacity 1024: the main path's MHA on
+    f32 and bf16 pools, and GQA (16 over 4 heads) on f32 pools; empty
+    slots, one row, page edges and a slot at capacity whose clipped append
+    lands on a row the call reads.  o within 1e-4 (f32 sums in another
+    order); the pools after the append equal kv_append's.  Returns the
+    largest o error by case."""
+    import torch
+
+    from midi_model_tpu_torch.ops import paged_allheads as pa
+
+    dev = torch.device("cuda")
     b, h, d, ps, pps, n_layers = 32, 16, 64, 64, 16, 2
     cap = ps * pps
-    lengths = torch.tensor([0, 1, 63, 64, 1000, cap, 65, 127, 128, 500, 999, 2] * 3,
-                           dtype=torch.int32, device=dev)[:b]
+    lengths = torch.tensor(SMOKE_LENGTHS, dtype=torch.int32, device=dev)
     li = 1
     base = ((li * b + torch.arange(b, device=dev)) * pps).to(torch.int32)
     write_pos = lengths.clamp(0, cap - 1)
@@ -339,34 +371,10 @@ def phase_kernels(card: str) -> dict:
         require(torch.allclose(o[live], o_r[live], atol=1e-4, rtol=1e-4), f"paged {dtype}: o")
         require(torch.allclose(m[live], m_r[live], atol=1e-4, rtol=1e-5), f"paged {dtype}: m")
         require(torch.allclose(l[live], l_r[live], rtol=1e-4), f"paged {dtype}: l")
-        err = float((o[live] - o_r[live]).abs().max())
-        worst[f"{dtype} kv_heads={hkv}"] = err
-        if dtype == torch.bfloat16:  # the main path's pool dtype
-            results["paged_decode"] = {
-                "ms": time_ms(lambda: pa.paged_decode_cell(
-                    q, kern, lengths, base, (new_k, new_v, None, wpages, woffs), **kw), 200),
-                "plain_ms": time_ms(lambda: (
-                    pa.decode_reference(q, plain, lengths, base, **kw),
-                    pa.kv_append(plain, new_k, new_v, wpages, woffs)), 20),
-                "library_ms": None,
-                **bound(int(lengths.sum()) * 2 * w * 2 + b * h * d * 8 + b * h * 8
-                        + 2 * 2 * b * w * 2, int(lengths.sum()) * h * d * 4, "bf16"),
-            }
-    results["paged_decode"]["max_abs_err"] = max(worst.values())
+        worst[f"cell {str(dtype)[6:]} kv_heads={hkv}"] = float((o[live] - o_r[live]).abs().max())
     emit({"phase": "kernel", "name": "paged_decode", "batch": b, "heads": h,
-          "head_dim": d, "lengths": lengths.tolist(), "o_max_abs_err": worst,
-          **results["paged_decode"], "card": card})
-
-    results.update(check_attention(card, gen))
-    results.update(check_paged_stream(card, gen))
-    time_paged_cell_vs_stream(card, gen)
-    results["token_row"] = check_token_row(card, gen)
-    results["fused_step"] = check_fused_step(card, gen)
-    results["fused_step_int8"] = check_fused_step_int8(card, gen)
-    results.update(check_attention_bwd(card, gen))
-    results["event_loop"] = check_event_loop(card, gen)
-    results["event_loop_ragged"] = check_event_loop_ragged(card, gen)
-    return results
+          "head_dim": d, "lengths": lengths.tolist(), "o_max_abs_err": worst, "card": card})
+    return worst
 
 
 def check_attention(card: str, gen) -> dict:
@@ -469,6 +477,9 @@ def check_attention(card: str, gen) -> dict:
     return {"causal_attention": result, "causal_attention_f32": result_f32}
 
 
+# the cell check's lengths at capacity 1024: empty, one row, page edges, a
+# slot at capacity
+SMOKE_LENGTHS = ([0, 1, 63, 64, 1000, 1024, 65, 127, 128, 500, 999, 2] * 3)[:32]
 # the batcher's ragged lengths at capacity 2048: empty, an inactive slot, one
 # 4-page block plus a page, whole blocks, one row, a slot at capacity
 RAGGED_LENGTHS = [0, 0, 320, 256, 1, 63, 64, 65, 2048, 1000, 2047, 500, 5, 17, 129, 700] * 2
@@ -483,7 +494,8 @@ def check_paged_stream(card: str, gen) -> dict:
     append lands on a row the call reads; the GQA form too.  o, m, l within
     1e-4 (f32 sums in another order; an int8 value dequantizes to the same
     exact product on both sides); the pools after the append equal
-    kv_append's, so every row outside it is untouched."""
+    kv_append's, so every row outside it is untouched.  Returns the largest
+    o error by case."""
     import torch
 
     from midi_model_tpu_torch.ops import paged_allheads as pa
@@ -501,7 +513,7 @@ def check_paged_stream(card: str, gen) -> dict:
     woffs = write_pos % ps
     n_pages = n_layers * b * pps
     live = lengths > 0
-    worst, out = {}, {}
+    worst = {}
 
     def pools_of(dtype, w):
         if dtype == torch.int8:
@@ -554,86 +566,160 @@ def check_paged_stream(card: str, gen) -> dict:
         require(torch.allclose(m[live], m_r[live], atol=1e-4, rtol=1e-5), f"paged {name}: m")
         require(torch.allclose(l[live], l_r[live], rtol=1e-4), f"paged {name}: l")
         worst[name] = float((o[live] - o_r[live]).abs().max())
-        if dtype == torch.int8 and hkv == h:  # the batcher's int8 pools and generate(kv_int8)
-            kernel = "paged_decode_stream" if streaming else "paged_decode_int8"
-            rows_read = int(lengths.sum())
-            n_bytes = (rows_read * (2 * w + 2 * hkv * 2)  # int8 k, v; one k and one v scale per head
-                       + b * h * d * 4 * 2 + b * h * 8  # q in, o, m, l out
-                       + 2 * 2 * b * w + 2 * b * pa.LANE * 2  # appended k, v, scale rows: in, out
-                       + b * 16)  # lengths, bases, write pages and offsets
-            out[kernel] = {
-                "ms": time_ms(lambda: decode(q, kern, lengths, base, write, **kw), 200),
-                "plain_ms": time_ms(lambda: (
-                    pa.decode_reference(q, plain, lengths, base, **kw),
-                    pa.kv_append(plain, new_k, new_v, wpages, woffs, new_s)), 20),
-                "library_ms": None,
-                **bound(n_bytes, rows_read * h * d * 4, "int8")}
         del pools, kern, plain
-    for kernel in out:
-        out[kernel]["max_abs_err"] = max(v for k, v in worst.items() if "int8" in k)
     emit({"phase": "kernel", "name": "paged_decode_stream+int8", "batch": b, "heads": h,
           "head_dim": d, "lengths": lengths.tolist(), "inactive_slot": inactive,
-          "o_max_abs_err": worst, "timed": out, "card": card})
-    return out
+          "o_max_abs_err": worst, "card": card})
+    return worst
 
 
-def time_paged_cell_vs_stream(card: str, gen) -> dict:
-    """The cell and the streaming kernel on the same inputs at B=32, 16 heads
-    x 64, pages of 64, capacity 2048, bf16 and int8 pools: every slot at one
-    length (``generate``'s split path) from 64 to 2047 rows, and the
-    batcher's ragged lengths.  Device ms per call (``time_ms``) and host ms
-    to issue one call; o of the two kernels within 1e-4."""
+# a sweep of one timed case's page sets must overflow the 50 MB L2 twice
+COLD_SWEEP_BYTES = 100e6
+
+
+def paged_bytes(lengths, b: int, h: int, hkv: int, d: int, w: int, dtype) -> int:
+    """The bytes a paged decode call with append must move: each live row's
+    k and v once (int8: one bf16 k and one v scale per kv head), q in,
+    o, m, l out, the appended rows in and out (int8: with their scale row),
+    and the four int32 vectors."""
+    import torch
+
+    from midi_model_tpu_torch.ops import paged_allheads as pa
+
+    elt = torch.empty((), dtype=dtype).element_size()
+    row = 2 * w * elt + (2 * hkv * 2 if dtype == torch.int8 else 0)
+    append = 2 * 2 * b * w * elt + (2 * b * pa.LANE * 2 if dtype == torch.int8 else 0)
+    return int(sum(lengths)) * row + b * h * d * 4 * 2 + b * h * 8 + append + b * 16
+
+
+def kernels_per_call(fn) -> int:
+    """Device kernels one call of ``fn`` launches (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def time_paged_cell_vs_stream(card: str) -> dict:
+    """The cell and the streaming paged kernels timed with a cold L2 on the
+    same inputs: B=32, 16 heads x 64, pages of 64, capacity 2048, on bf16,
+    f32 and int8 pools, at the smoke's lengths (``SMOKE_LENGTHS``), every
+    slot at one length (``generate``'s split path: 64-192 rows go to the
+    cell kernel, 256-2047 to the streaming one) and the batcher's ragged
+    lengths; GQA (kv_heads 4, bf16 pools) at 128 rows and ragged.  Each
+    timed call reads another layer's pages (base ``(li * B + slot) * pps``,
+    as ``decode_paged``), over enough layers that one sweep reads more than
+    ``COLD_SWEEP_BYTES``.  Per case: device ms per call of each kernel
+    (``time_ms``), the host's ms to issue one call, the plain version's ms
+    (warm, a yardstick), the byte bound; o of the two kernels within 1e-4;
+    and the device kernels one call of each wrapper launches."""
+    import math
+
     import torch
 
     from midi_model_tpu_torch.ops import paged_allheads as pa
 
     dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
     b, h, d, ps, pps = 32, 16, 64, 64, 32
-    n_pages = b * pps
-    w = h * d
-    base = (torch.arange(b, device=dev) * pps).to(torch.int32)
-    kw = dict(page_size=ps, pages_per_slot=pps, kv_heads=h, head_dim=d)
+    cap = ps * pps
     q = torch.randn((b, h, d), generator=gen, device=dev) * d ** -0.5
-    shapes = {f"uniform {n}": [n] * b for n in (64, 96, 128, 160, 192, 256, 1024, 2047)}
-    shapes["ragged"] = RAGGED_LENGTHS
-    by_case = {}
-    for name in ("bf16", "int8"):
-        if name == "int8":
+    shapes = {"smoke": SMOKE_LENGTHS, "ragged": RAGGED_LENGTHS}
+    shapes.update({f"uniform {n}": [n] * b for n in (64, 128, 192, 256, 1024, 2047)})
+    cases = [(name, dtype, 16, shape) for name, dtype in
+             (("bf16", torch.bfloat16), ("f32", torch.float32), ("int8", torch.int8))
+             for shape in shapes]
+    cases += [("bf16 gqa", torch.bfloat16, 4, "uniform 128"), ("bf16 gqa", torch.bfloat16, 4,
+                                                               "ragged")]
+    by_case, per_call = {}, {}
+    for pool_name in dict.fromkeys(c[0] for c in cases):
+        mine = [c for c in cases if c[0] == pool_name]
+        _, dtype, hkv, _ = mine[0]
+        w = hkv * pa.head_stride(d, hkv)
+        need = {shape: max(2, math.ceil(COLD_SWEEP_BYTES / paged_bytes(
+            shapes[shape], b, h, hkv, d, w, dtype)) + 1) for _, _, _, shape in mine}
+        n_layers = max(need.values())
+        n_pages = n_layers * b * pps
+        if dtype == torch.int8:
             pools = pa.PagedPools(*(torch.randint(-127, 128, (n_pages, ps, w), generator=gen,
                                                   device=dev, dtype=torch.int8)
                                     for _ in range(2)),
                                   (torch.rand((n_pages, ps, pa.LANE), generator=gen,
-                                              device=dev) * 0.02).to(torch.bfloat16))
-            rows = [pools.k[0, :b].clone(), pools.v[0, :b].clone(), pools.scales[0, :b].clone()]
+                                              device=dev) * 0.02 + 1e-3).to(torch.bfloat16))
+            rows = [torch.randint(-127, 128, (b, w), generator=gen, device=dev,
+                                  dtype=torch.int8) for _ in range(2)]
+            rows.append((torch.rand((b, pa.LANE), generator=gen, device=dev) * 0.02
+                         ).to(torch.bfloat16))
         else:
             pools = pa.PagedPools(*(torch.randn((n_pages, ps, w), generator=gen,
-                                                device=dev).to(torch.bfloat16)
-                                    for _ in range(2)))
-            rows = [pools.k[0, :b].clone(), pools.v[0, :b].clone(), None]
-        for shape, lens in shapes.items():
+                                                device=dev).to(dtype) for _ in range(2)))
+            rows = [torch.randn((b, w), generator=gen, device=dev).to(dtype)
+                    for _ in range(2)] + [None]
+        kw = dict(page_size=ps, pages_per_slot=pps, kv_heads=hkv, head_dim=d)
+        for _, _, _, shape in mine:
+            lens = shapes[shape]
             lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-            pos = lengths.clamp(max=ps * pps - 1)
-            write = (*rows, base + pos // ps, pos % ps)
-            case = {}
-            for kernel, decode in (("cell", pa.paged_decode_cell),
-                                   ("streaming", pa.paged_decode_stream)):
-                def call():
-                    return decode(q, pools, lengths, base, write, **kw)
-                call()  # the appends written: later calls read the same rows
-                case[f"{kernel}_o"] = call()[0]
-                case[f"{kernel}_ms"] = time_ms(call, 200)
+            pos = lengths.clamp(max=cap - 1)
+            layers = []
+            for li in range(need[shape]):
+                base = ((li * b + torch.arange(b, device=dev)) * pps).to(torch.int32)
+                layers.append((base, (*rows, base + pos // ps, pos % ps)))
+            n_bytes = paged_bytes(lens, b, h, hkv, d, w, dtype)
+            case = {"layers_swept": need[shape], "mb_per_call": n_bytes / 1e6,
+                    **bound(n_bytes, sum(lens) * h * d * 4,
+                            {torch.int8: "int8", torch.bfloat16: "bf16"}.get(dtype, "f32"))}
+            outs = {}
+            for kernel, decode, extra in (
+                    ("cell", pa.paged_decode_cell, {"max_length": max(lens)}),
+                    ("streaming", pa.paged_decode_stream, {})):
+                calls = [lambda base=base, write=write: decode(
+                    q, pools, lengths, base, write, **kw, **extra) for base, write in layers]
+                calls[0]()  # the appends written: later calls read the same rows
+                outs[kernel] = calls[0]()[0]
+                case[f"{kernel}_ms"] = time_ms(calls, 200)
+                torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                for _ in range(200):
-                    call()
+                for i in range(200):
+                    calls[i % len(calls)]()
                 case[f"{kernel}_issue_ms"] = (time.perf_counter() - t0) * 1e3 / 200
                 torch.cuda.synchronize()
-            require(torch.allclose(case.pop("cell_o"), case.pop("streaming_o"), atol=1e-4,
-                                   rtol=1e-4), f"paged {name} {shape}: the kernels differ")
-            by_case[f"{name} {shape}"] = case
+                case[f"{kernel}_of_bound"] = case["bound_ms"] / case[f"{kernel}_ms"]
+                if shape in ("ragged", "uniform 128") and pool_name in ("int8", "bf16 gqa"):
+                    per_call[f"{kernel} {pool_name} {shape}"] = kernels_per_call(calls[0])
+            # the plain append writes the rows the kernels wrote
+            case["plain_ms"] = time_ms(lambda: pa._plain(q, pools, lengths, *layers[0], kw), 3)
+            require(torch.allclose(outs["cell"], outs["streaming"], atol=1e-4, rtol=1e-4),
+                    f"paged {pool_name} {shape}: the kernels differ")
+            by_case[f"{pool_name} {shape}"] = case
         del pools, rows
+        torch.cuda.empty_cache()
     emit({"phase": "kernel", "name": "paged_decode_cell_vs_stream", "batch": b, "heads": h,
-          "head_dim": d, "by_case": by_case, "card": card})
+          "head_dim": d, "cold_sweep_bytes": COLD_SWEEP_BYTES, "by_case": by_case,
+          "kernels_per_call": per_call, "card": card})
     return by_case
+
+
+def paged_kernel_rows(by_case: dict, worst: dict) -> dict:
+    """The kernels line's paged rows from the cold timings, at the shapes of
+    the earlier rows: the cell kernel on bf16 pools at the smoke's lengths
+    and on int8 pools at the ragged ones, the streaming kernel on int8
+    pools at the ragged ones."""
+    rows = {}
+    for name, case, kernel in (("paged_decode", "bf16 smoke", "cell"),
+                               ("paged_decode_int8", "int8 ragged", "cell"),
+                               ("paged_decode_stream", "int8 ragged", "streaming")):
+        c = by_case[case]
+        rows[name] = {"ms": c[f"{kernel}_ms"], "plain_ms": c["plain_ms"], "library_ms": None,
+                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                      "max_abs_err": max(worst.values())}
+    return rows
 
 
 def check_token_row(card: str, gen) -> dict:
@@ -1673,10 +1759,15 @@ def phase_oracle(card: str):
     torch.cuda.empty_cache()
 
 
+# the paged decode kernels as the profiler names them (csrc/paged_decode*.cu)
+PAGED_KERNEL_NAMES = ("paged_decode",)
+
+
 def device_profile(run, n_events: int) -> dict:
     """torch.profiler over ``run()`` (decoding ``n_events``): device kernel
     launches (every kernel on the card, not only ours), device time and wall
-    time per event, the device's busy share, and the top kernels."""
+    time per event, the device's busy share, the top kernels, and the paged
+    decode kernels' device ms and launches per event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1690,7 +1781,10 @@ def device_profile(run, n_events: int) -> dict:
                       for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                      key=lambda k: -k[1])
     device_us = sum(t for _, t, _ in kernels)
+    paged = [(t, c) for k, t, c in kernels if any(n in k for n in PAGED_KERNEL_NAMES)]
     return {"launches_per_event": sum(c for _, _, c in kernels) / n_events,
+            "paged_ms_per_event": sum(t for t, _ in paged) / n_events / 1e3,
+            "paged_launches_per_event": sum(c for _, c in paged) / n_events,
             "device_ms_per_event": device_us / n_events / 1e3,
             "wall_ms_per_event": wall_us / n_events / 1e3,
             "device_busy_share": device_us / wall_us,
@@ -2352,6 +2446,10 @@ def main(argv=()) -> int:
                         help="build with ptxas' register and spill report, run the causal "
                         "attention forward and backward checks of phase 2, and stop "
                         "(no result line)")
+    parser.add_argument("--paged", action="store_true",
+                        help="build with ptxas' register and spill report, run the paged "
+                        "decode checks of phase 2 and their cold-cache timings, and stop "
+                        "(no result line)")
     args = parser.parse_args(list(argv))
     if not (ROOT / "midi_model_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: the midi_model_tpu_torch package is not beside this script",
@@ -2372,7 +2470,15 @@ def main(argv=()) -> int:
     card = card_line()
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
-    phase_build(card, verbose=args.attention)
+    phase_build(card, verbose=args.attention or args.paged)
+    if args.paged:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1234)
+        worst = check_paged_cell(card, gen)
+        worst.update(check_paged_stream(card, gen))
+        emit({"phase": "paged_rows", **paged_kernel_rows(time_paged_cell_vs_stream(card),
+                                                         worst)})
+        return 0
     if args.attention:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(1234)

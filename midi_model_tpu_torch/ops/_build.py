@@ -35,8 +35,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 LAUNCHES: collections.Counter = collections.Counter()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_PAGED = [_P] * 14 + [_I] * 7 + [_P]
-_STREAM = [_P] * 16 + [_I] * 9 + [_P]
+_PAGED = [_P] * 16 + [_I] * 9 + [_P]  # both paged kernels
 _ATTN = [_P] * 5 + [_I] * 5 + [_P, _P]
 _ATTN_BWD = [_P] * 10 + [_I] * 5 + [_P, _P]
 # the whole-step decode kernels take host arrays of pointers, ints and
@@ -47,9 +46,9 @@ _SIGNATURES = {
     "mm_paged_decode_f32": _PAGED,
     "mm_paged_decode_bf16": _PAGED,
     "mm_paged_decode_int8": _PAGED,
-    "mm_paged_decode_stream_f32": _STREAM,
-    "mm_paged_decode_stream_bf16": _STREAM,
-    "mm_paged_decode_stream_int8": _STREAM,
+    "mm_paged_decode_stream_f32": _PAGED,
+    "mm_paged_decode_stream_bf16": _PAGED,
+    "mm_paged_decode_stream_int8": _PAGED,
     "mm_causal_attention_f32": _ATTN,
     "mm_causal_attention_bf16": _ATTN,
     "mm_causal_attention_bwd_f32": _ATTN_BWD,

@@ -13,17 +13,22 @@ the JAX package so the tests compare like with like:
   kernels need no page table.
 
 :func:`paged_attention_stats` runs a CUDA kernel on CUDA tensors — the
-per-slot cell kernel (``csrc/paged_decode.cu``, :func:`paged_decode_cell`)
-while every slot is short and the host knows it, else the streaming split-K
-kernel (``csrc/paged_decode_stream.cu``, :func:`paged_decode_stream`) — and
-:func:`decode_reference` + :func:`kv_append` (the plain version) on CPU
-tensors.  Unlike the JAX
-version, the append updates the pools IN PLACE; the returned pools are the
-same tensors.
+cell kernel (``csrc/paged_decode.cu``, :func:`paged_decode_cell`) while
+every slot is short and the host knows it, else the streaming kernel
+(``csrc/paged_decode_stream.cu``, :func:`paged_decode_stream`), one launch
+per call either way — and :func:`decode_reference` + :func:`kv_append` (the
+plain version) on CPU tensors.  Both kernels run one device routine
+(``csrc/paged_decode.cuh``): a block computes one work item, a chunk of one
+slot's rows, for all heads, and the slot's last block merges its chunks and
+appends.  They differ in their work list: a (slot, chunk) grid sized from
+the longest length, or a flat list over the live lengths found in the
+kernel.  Unlike the JAX version, the append updates the pools IN PLACE; the
+returned pools are the same tensors.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -31,12 +36,16 @@ import torch
 from . import _build
 
 LANE = 128
-PAGES_PER_BLOCK = 4  # the streaming kernel's work item: up to 4 pages of one slot
+HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernels are built for
+STREAM_ITEM_ROWS = 64  # the streaming kernel's work item: a chunk of up to 64 rows
+CELL_BLOCKS_PER_SM = 2  # the cell grid's size: about this many items per SM
 # the longest slot, in rows, up to which the cell kernel runs (paged_kernel):
-# the longest uniform length at which it beat the streaming kernel on bf16
-# and int8 pools in chip_smoke.py's time_paged_cell_vs_stream on an H100 80GB
-# HBM3 at 700 W (B=32, 16 heads x 64; the streaming kernel led from 256 rows)
-CELL_MAX_ROWS = 192
+# in chip_smoke.py's time_paged_cell_vs_stream (cold L2, B=32, 16 heads x 64)
+# on an NVIDIA H100 80GB HBM3 at 700 W, the cell kernel beat the streaming
+# one at every uniform length up to 256 rows on f32 and int8 pools and tied
+# or beat it on bf16 (within 2% at 64 and 128 rows); from 1024 rows the
+# streaming kernel led on all three
+CELL_MAX_ROWS = 256
 
 
 def head_stride(head_dim: int, kv_heads: int = 1) -> int:
@@ -171,9 +180,9 @@ def decode_reference(q: torch.Tensor, pools: PagedPools, lengths: torch.Tensor,
 def paged_kernel(max_length: Optional[int]) -> str:
     """The CUDA kernel for a call whose longest slot holds ``max_length``
     cached rows (None when the host does not know it, as under the batcher's
-    per-slot lengths): ``"cell"`` up to :data:`CELL_MAX_ROWS` rows, where one
-    block per (slot, head) walks them sooner than the streaming kernel splits
-    and merges them, else ``"stream"``."""
+    per-slot lengths): ``"cell"`` up to :data:`CELL_MAX_ROWS` rows, where a
+    grid sized from that length beats the streaming kernel's work-list scan,
+    else ``"stream"``."""
     return "cell" if max_length is not None and max_length <= CELL_MAX_ROWS else "stream"
 
 
@@ -195,9 +204,12 @@ def paged_attention_stats(q: torch.Tensor, pools: PagedPools,
     ``max_length``, the longest of ``lengths`` when the host knows it,
     picks the kernel (:func:`paged_kernel`): :func:`paged_decode_cell` or
     :func:`paged_decode_stream`.  Both compute the same function."""
-    decode = paged_decode_cell if paged_kernel(max_length) == "cell" else paged_decode_stream
-    return decode(q, pools, lengths, base_pages, write, page_size=page_size,
-                  pages_per_slot=pages_per_slot, kv_heads=kv_heads, head_dim=head_dim)
+    kw = dict(page_size=page_size, pages_per_slot=pages_per_slot, kv_heads=kv_heads,
+              head_dim=head_dim)
+    if paged_kernel(max_length) == "cell":
+        return paged_decode_cell(q, pools, lengths, base_pages, write, max_length=max_length,
+                                 **kw)
+    return paged_decode_stream(q, pools, lengths, base_pages, write, **kw)
 
 
 def _plain(q, pools, lengths, base_pages, write, geometry):
@@ -210,9 +222,51 @@ def _plain(q, pools, lengths, base_pages, write, geometry):
     return o, m, l, kv_append(pools, new_k, new_v, wpages, woffs, new_s)
 
 
-def _kernel_args(q, pools, lengths, base_pages, write, *, page_size, kv_heads, head_dim):
-    """Check a kernel call's tensors; returns (dtype suffix, the C entry
-    points' leading pointer arguments, o, m, l)."""
+def stage_rows(element_size: int) -> int:
+    """Rows of k and v a kernel block stages per ring slot (``Tile`` in
+    ``csrc/paged_decode.cuh``): ~32 KB at tv2o's 1,024-wide rows."""
+    return 4 if element_size == 4 else 8
+
+
+def chunks_of(length: int, rows: int) -> int:
+    """Work items of up to ``rows`` rows in a slot of ``length`` rows (an
+    empty slot is one item of no rows: it still writes its stats and
+    appends)."""
+    return max(1, -(-length // rows))
+
+
+def cell_item_rows(batch: int, longest: int, rows_per_stage: int, sms: int) -> int:
+    """The cell kernel's chunk: rows per work item so that ``batch`` slots of
+    ``longest`` rows make about ``CELL_BLOCKS_PER_SM`` items per SM, a whole
+    number of sub-tiles."""
+    per_slot = max(1, -(-CELL_BLOCKS_PER_SM * sms // batch))
+    rows = -(-max(longest, 1) // per_slot)
+    return -(-rows // rows_per_stage) * rows_per_stage
+
+
+@functools.cache
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+_ARRIVALS: dict = {}
+
+
+def _arrivals(device: torch.device, batch: int) -> torch.Tensor:
+    """The per-slot arrival counters of ``device``: int32 zeros, allocated
+    once (grown for a larger batch) and left at zero by every launch.  One
+    buffer per device, so calls must not overlap on two streams."""
+    buf = _ARRIVALS.get(device)
+    if buf is None or buf.numel() < batch:
+        buf = _ARRIVALS[device] = torch.zeros(max(batch, 256), dtype=torch.int32,
+                                              device=device)
+    return buf
+
+
+def _launch(entry: str, q, pools, lengths, base_pages, write, *, page_size, kv_heads,
+            head_dim, item_rows: int, grid: int, items_per_slot: int, n_items: int):
+    """Check a kernel call's tensors and launch ``entry`` (the dtype suffix
+    added) on ``grid`` blocks; returns (o, m, l)."""
     b, h, d = q.shape
     n_pages, ps, w = pools.k.shape
     dtype = pools.k.dtype
@@ -223,14 +277,16 @@ def _kernel_args(q, pools, lengths, base_pages, write, *, page_size, kv_heads, h
         raise ValueError(f"pools shape {tuple(pools.k.shape)} does not match "
                          f"page_size={page_size}, kv_heads={kv_heads}, "
                          f"head_dim={head_dim}")
-    if d != head_dim or d > 128 or h % kv_heads:
-        raise ValueError(f"q shape {tuple(q.shape)}: head_dim <= 128 and "
-                         f"heads divisible by kv_heads={kv_heads} required")
+    if d != head_dim or d not in HEAD_DIMS or h > 16 or h % kv_heads:
+        raise ValueError(f"q shape {tuple(q.shape)}: head_dim one of {HEAD_DIMS}, at most "
+                         f"16 heads, divisible by kv_heads={kv_heads}")
     _build.check(q, "q", torch.float32, (b, h, d))
     _build.check(pools.k, "pools.k", dtype)
     _build.check(pools.v, "pools.v", dtype, pools.k.shape)
     if pools.quantized:
         _build.check(pools.scales, "pools.scales", torch.bfloat16, (n_pages, ps, LANE))
+    if any(t.data_ptr() % 16 for t in pools if t is not None):  # bulk copies: 16-byte aligned
+        raise ValueError("pools must start on 16-byte boundaries")
     _build.check(lengths, "lengths", torch.int32, (b,))
     _build.check(base_pages, "base_pages", torch.int32, (b,))
     o = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
@@ -248,11 +304,16 @@ def _kernel_args(q, pools, lengths, base_pages, write, *, page_size, kv_heads, h
         wptrs = [new_k.data_ptr(), new_v.data_ptr(),
                  new_s.data_ptr() if pools.quantized else None,
                  wpages.data_ptr(), woffs.data_ptr()]
-    scales = pools.scales.data_ptr() if pools.quantized else None
-    ptrs = [q.data_ptr(), pools.k.data_ptr(), pools.v.data_ptr(), scales,
-            lengths.data_ptr(), base_pages.data_ptr(), o.data_ptr(), m.data_ptr(),
-            l.data_ptr(), *wptrs]
-    return suffix, ptrs, o, m, l
+    # scratch for the partials of slots with several items
+    part = (torch.empty((n_items, h * (d + 2)), dtype=torch.float32, device=q.device)
+            if items_per_slot > 1 else None)
+    _build.call(f"{entry}_{suffix}", q.data_ptr(), pools.k.data_ptr(), pools.v.data_ptr(),
+                pools.scales.data_ptr() if pools.quantized else None, lengths.data_ptr(),
+                base_pages.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(), *wptrs,
+                None if part is None else part.data_ptr(),
+                _arrivals(q.device, b).data_ptr(), b, h, kv_heads, d, w, page_size, item_rows,
+                grid, int(write is not None), _build.stream_ptr(q.device))
+    return o, m, l
 
 
 def _tensors(q, pools, lengths, base_pages, write):
@@ -266,21 +327,25 @@ def _tensors(q, pools, lengths, base_pages, write):
 
 def paged_decode_cell(q: torch.Tensor, pools: PagedPools, lengths: torch.Tensor,
                       base_pages: torch.Tensor, write: Optional[tuple] = None, *,
-                      page_size: int, pages_per_slot: int, kv_heads: int, head_dim: int):
+                      page_size: int, pages_per_slot: int, kv_heads: int, head_dim: int,
+                      max_length: Optional[int] = None):
     """:func:`paged_attention_stats` through the cell kernel
-    (``csrc/paged_decode.cu``: one block per (slot, head)) on CUDA tensors,
-    the plain version on CPU tensors."""
+    (``csrc/paged_decode.cu``: a (slot, chunk) grid sized from
+    ``max_length``, the longest of ``lengths``, or from the capacity when it
+    is None) on CUDA tensors, the plain version on CPU tensors."""
     geometry = dict(page_size=page_size, pages_per_slot=pages_per_slot,
                     kv_heads=kv_heads, head_dim=head_dim)
     if _build.on_cpu(*_tensors(q, pools, lengths, base_pages, write)):
         return _plain(q, pools, lengths, base_pages, write, geometry)
-    b, h, d = q.shape
-    w = pools.k.shape[2]
-    suffix, ptrs, o, m, l = _kernel_args(q, pools, lengths, base_pages, write,
-                                         page_size=page_size, kv_heads=kv_heads,
-                                         head_dim=head_dim)
-    _build.call(f"mm_paged_decode_{suffix}", *ptrs, b, h, kv_heads, d, w, page_size,
-                int(write is not None), _build.stream_ptr(q.device))
+    b = q.shape[0]
+    capacity = pages_per_slot * page_size
+    longest = capacity if max_length is None else min(max_length, capacity)
+    rows = cell_item_rows(b, longest, stage_rows(pools.k.element_size()), _sms(q.device.index))
+    chunks = chunks_of(longest, rows)
+    o, m, l = _launch("mm_paged_decode", q, pools, lengths, base_pages, write,
+                      page_size=page_size, kv_heads=kv_heads, head_dim=head_dim,
+                      item_rows=rows, grid=chunks, items_per_slot=chunks,
+                      n_items=b * chunks)
     _build.LAUNCHES["paged_decode_int8" if pools.quantized else "paged_decode"] += 1
     return (o, m, l) if write is None else (o, m, l, pools)
 
@@ -289,31 +354,20 @@ def paged_decode_stream(q: torch.Tensor, pools: PagedPools, lengths: torch.Tenso
                         base_pages: torch.Tensor, write: Optional[tuple] = None, *,
                         page_size: int, pages_per_slot: int, kv_heads: int,
                         head_dim: int):
-    """:func:`paged_attention_stats` through the streaming split-K kernel
-    (``csrc/paged_decode_stream.cu``: one block per (item, head) over a flat
-    (slot, block of up to PAGES_PER_BLOCK pages) work list, then one merge
-    block per slot that also appends) on CUDA tensors, the plain version on
-    CPU tensors."""
+    """:func:`paged_attention_stats` through the streaming kernel
+    (``csrc/paged_decode_stream.cu``: one block per item of a flat (slot,
+    chunk of up to ``STREAM_ITEM_ROWS`` rows) list that the kernel finds from
+    the lengths) on CUDA tensors, the plain version on CPU tensors."""
     geometry = dict(page_size=page_size, pages_per_slot=pages_per_slot,
                     kv_heads=kv_heads, head_dim=head_dim)
     if _build.on_cpu(*_tensors(q, pools, lengths, base_pages, write)):
         return _plain(q, pools, lengths, base_pages, write, geometry)
-    b, h, d = q.shape
-    w = pools.k.shape[2]
-    suffix, ptrs, o, m, l = _kernel_args(q, pools, lengths, base_pages, write,
-                                         page_size=page_size, kv_heads=kv_heads,
-                                         head_dim=head_dim)
-    elt = pools.k.element_size()  # the kernel reads each head slice in 16-byte loads
-    if 256 % d or (w // kv_heads * elt) % 16 or d % (16 // elt):
-        raise ValueError(f"streaming decode: head_dim {d} must divide 256, and the "
-                         f"head slices must be whole 16-byte vectors")
-    # room for every block of every slot; the kernel maps each item to its
-    # slot from the lengths, and items past the live ones exit at once
-    n_items = b * -(-pages_per_slot // PAGES_PER_BLOCK)
-    part_o = torch.empty((n_items, h, d), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((n_items, 2, h), dtype=torch.float32, device=q.device)
-    _build.call(f"mm_paged_decode_stream_{suffix}", *ptrs, part_o.data_ptr(),
-                part_ml.data_ptr(), b, h, kv_heads, d, w, page_size, PAGES_PER_BLOCK,
-                n_items, int(write is not None), _build.stream_ptr(q.device))
+    # room for every chunk of every slot; blocks past the live list exit at once
+    per_slot = chunks_of(pages_per_slot * page_size, STREAM_ITEM_ROWS)
+    n_items = q.shape[0] * per_slot
+    o, m, l = _launch("mm_paged_decode_stream", q, pools, lengths, base_pages, write,
+                      page_size=page_size, kv_heads=kv_heads, head_dim=head_dim,
+                      item_rows=STREAM_ITEM_ROWS, grid=n_items, items_per_slot=per_slot,
+                      n_items=n_items)
     _build.LAUNCHES["paged_decode_stream"] += 1
     return (o, m, l) if write is None else (o, m, l, pools)

@@ -104,10 +104,11 @@ def test_pool_helpers_match_jax(h, hkv, d):
     assert pools.k.dtype == torch.bfloat16 and not pools.k.any()
 
 
-def test_int8_pools_not_ported():
-    """int8 pools are ported for the paged decode kernels and for the
-    whole-step kernel's int8 form, which reads the pools and appends each
-    active slot's quantized row with its scale row."""
+def test_int8_pools_alloc_and_whole_step_append():
+    """int8 pools (the paged decode kernels' and the whole-step kernel's
+    int8 form): allocated zeroed with a bf16 scale pool, and the whole step's
+    plain version appends each active slot's quantized row with its scale
+    row and leaves an inactive slot's pages untouched."""
     from midi_model_tpu_torch.models import MIDIModelConfig
     from midi_model_tpu_torch.models.midinet import init_model
     from midi_model_tpu_torch.ops import fused_step as fs
