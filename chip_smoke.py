@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``midi_model_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--attention | --paged]
+    python3 chip_smoke.py [--attention | --paged | --sampler]
 
 With ``--attention``: phase 1 with ptxas' register and spill report, the
 causal attention checks of phase 2, phase 6's step-0 checks and its timed
 training loops (bf16 and f32 compute), and no result line.  With
 ``--paged``: phase 1 with the same report, phase 2's paged decode checks
 (the cell and the streaming kernel) and their cold-cache timings, and no
-result line.  Otherwise all phases, each printing one JSON line; any failed
-check raises, so the script exits non-zero:
+result line.  ``--sampler``: phase 1 with the same report, phase 2's sampler
+checks and timings and its token row check (the sample phase's µs at top_k
+20 and 128), and no result line.  Otherwise all phases, each printing one
+JSON line; any failed check raises, so the script exits non-zero:
 
 1. build   — compile the port's CUDA kernels from ``midi_model_tpu_torch/csrc``
              and count HGMMA / HMMA in the SASS of each attention kernel
@@ -18,7 +20,11 @@ check raises, so the script exits non-zero:
              decode kernels (token row, whole step, event loop: every bf16
              form must hold one of the two, no f32 form either);
 2. kernels — each kernel against its plain PyTorch version on the card, at
-             the main paths' shapes, with times for both: sampler, paged
+             the main paths' shapes, with times for both: sampler (ids
+             identical on mixed rows and knobs, top_k 128, ties across
+             warps, a keep decided by the summation order, k_cap 300; timed
+             at five distributions x top_k 20 and 128 beside an empty
+             kernel), paged
              decode, causal attention (bf16 at [4, 2048, 16, 64], the
              prefill shape [32, 1024, 16, 64], GQA at S = 2047 and the token
              net's [4094, 8, 4, 256]; f32 at [2, 2047, 16, 64], the prefill
@@ -266,51 +272,12 @@ def phase_build(card: str, verbose: bool = False):
 def phase_kernels(card: str) -> dict:
     import torch
 
-    from midi_model_tpu_torch.ops import attention as at
-    from midi_model_tpu_torch.ops import paged_allheads as pa
-    from midi_model_tpu_torch.ops import sampler as sp
-
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     results = {}
 
-    # -- sampler at [32, 3406]: peaked, flat, tied and masked rows, per-row knobs
-    b, v, k_cap = 32, 3406, 128
-    logits = torch.randn((b, v), generator=gen, device=dev)
-    logits[0:8] *= 8.0  # peaked
-    logits[8:16] = 0.0  # flat: every entry ties
-    logits[16:24] = torch.round(logits[16:24])  # many ties
-    probs = torch.softmax(logits, dim=-1)
-    masked = torch.rand((8, v), generator=gen, device=dev) < 0.05
-    probs[24:32] *= masked  # masked zeros, mass < 1
-    probs[31] = 0.0  # no mass at all: index 0
-    top_p = torch.tensor([0.98, 0.5, 1.0, 0.1] * 8, device=dev)
-    top_k = torch.tensor([20, 1, 128, 5, 64, 200, 0, 3] * 4, dtype=torch.int32,
-                         device=dev)
-    mismatches = 0
-    for _ in range(16):
-        g = -torch.log(torch.empty((b, k_cap), device=dev).exponential_(generator=gen))
-        ids = sp.sample_top_p_k(probs, top_p, top_k, g)
-        ref = sp.sample_top_p_k_reference(probs, top_p, top_k, g)
-        torch.cuda.synchronize()
-        mismatches += int((ids != ref).sum())
-    require(mismatches == 0, f"sampler: {mismatches} ids differ from the plain version")
-    top_p_main = torch.full((b,), 0.98, device=dev)
-    top_k_main = torch.full((b,), 20, dtype=torch.int32, device=dev)
-    main_probs = torch.softmax(torch.randn((b, v), generator=gen, device=dev) * 3, -1)
-    results["sampler"] = {
-        "max_abs_err": float(mismatches),
-        "ms": time_ms(lambda: sp.sample_top_p_k(main_probs, top_p_main, top_k_main, g), 200),
-        "plain_ms": time_ms(lambda: sp.sample_top_p_k_reference(
-            main_probs, top_p_main, top_k_main, g), 5),
-        "library_ms": None,
-        # probs and noise read once; about top_k passes of compares over each row
-        **bound(b * v * 4 + b * k_cap * 4 + b * 12, b * v * 20, "f32"),
-    }
-    emit({"phase": "kernel", "name": "sampler", "shape": [b, v],
-          "ids_identical": True, **results["sampler"], "card": card})
-
+    results["sampler"] = check_sampler(card, gen)
     worst = check_paged_cell(card, gen)
     results.update(check_attention(card, gen))
     worst.update(check_paged_stream(card, gen))
@@ -322,6 +289,170 @@ def phase_kernels(card: str) -> dict:
     results["event_loop_ragged"] = check_event_loop_ragged(card, gen)
     results.update(paged_kernel_rows(time_paged_cell_vs_stream(card), worst))
     return results
+
+
+def tree_flip_row(rng, v: int):
+    """A row and top_p where the exclusive running mass at some rank r
+    equals top_p summed rank by rank in f32 but exceeds it summed as a
+    pairwise tree (as a warp or block reduction takes it): (row, top_p, r).
+    The sampler must keep rank r."""
+    import numpy as np
+
+    def tree(x):
+        x = np.asarray(x, np.float32)
+        while len(x) > 1:
+            x = np.concatenate([x, np.zeros(len(x) % 2, np.float32)])
+            x = (x[0::2] + x[1::2]).astype(np.float32)
+        return x[0] if len(x) else np.float32(0)
+
+    for _ in range(2000):
+        x = np.zeros(v, np.float32)
+        x[rng.choice(v, 96, replace=False)] = (rng.random(96) * 0.02 + 1e-4).astype(np.float32)
+        t = np.float32(0)
+        for r, val in enumerate(np.sort(x[x > 0])[::-1]):
+            if r >= 8 and tree(np.sort(x[x > 0])[::-1][:r]) > t:
+                return x, t, r
+            t = np.float32(t + val)
+    raise RuntimeError("no row whose keep flips with the summation order")
+
+
+def sampler_rows(kind: str, b: int, v: int, gen, masks=None):
+    """[b, v] rows of one distribution besides the smoke's headline rows
+    (softmax(3 z)): "flat" softmax(z / 2) (pitch- or velocity-like),
+    "peaked" softmax(8 z), "confident" one id holding ~99.9% of the mass,
+    "masked" softmax(3 z) times a token-grammar mask of a random event and
+    step (mass < 1, as the sample phase hands it over)."""
+    import torch
+
+    z = torch.randn((b, v), generator=gen, device=gen.device)
+    if kind == "confident":
+        z[torch.arange(b), torch.randint(0, v, (b,), generator=gen, device=gen.device)] += 16.0
+    scale = {"flat": 0.5, "peaked": 8.0, "confident": 1.0, "masked": 3.0}[kind]
+    probs = torch.softmax(z * scale, dim=-1)
+    if kind == "masked":
+        e = torch.randint(0, masks.steps.shape[0], (b,), generator=gen, device=gen.device)
+        j = torch.randint(1, masks.steps.shape[1], (b,), generator=gen, device=gen.device)
+        allowed = masks.steps[e, j]
+        # a step an event does not have allows nothing: fall back to step 1
+        empty = ~allowed.any(dim=1)
+        allowed[empty] = masks.steps[e[empty], 1]
+        probs = probs * allowed
+    return probs.contiguous()
+
+
+def check_sampler(card: str, gen) -> dict:
+    """The sampler kernel against its plain version at [32, 3406]: ids
+    identical on peaked, flat, tied, masked and massless rows with per-row
+    knobs (top_k 0 to 200 at k_cap 128, and every row at top_k 128), the
+    n_iter-th value tied across every warp and pass, a row whose keep flips
+    if the running mass is summed as a tree, k_cap 300 at top_k 260
+    (windows past the first 128 ranks) and a 9000-id row (the compaction
+    past 32 passes a thread).  Then timed at five distributions x
+    top_k 20 and 128 (top_p 0.98), beside an empty kernel (the launch
+    floor)."""
+    import numpy as np
+    import torch
+
+    from midi_model_tpu_torch.ops import sampler as sp
+    from midi_model_tpu_torch.sampling import build_mask_table, mask_tensors
+    from midi_model_tpu_torch.models import MIDIModelConfig
+
+    dev = torch.device("cuda")
+    b, v, k_cap = 32, 3406, 128
+    # the mixed rows, their 16 draws and the headline rows come from `gen` as
+    # they did before the cases below were added, so the checks after this
+    # one see the generator in the same state; the added cases and timed rows
+    # come from a generator of their own
+    own = torch.Generator(device=dev)
+    own.manual_seed(99)
+    logits = torch.randn((b, v), generator=gen, device=dev)
+    logits[0:8] *= 8.0  # peaked
+    logits[8:16] = 0.0  # flat: every entry ties
+    logits[16:24] = torch.round(logits[16:24])  # many ties
+    probs = torch.softmax(logits, dim=-1)
+    masked = torch.rand((8, v), generator=gen, device=dev) < 0.05
+    probs[24:32] *= masked  # masked zeros, mass < 1
+    probs[31] = 0.0  # no mass at all: index 0
+    top_p = torch.tensor([0.98, 0.5, 1.0, 0.1] * 8, device=dev)
+    top_k = torch.tensor([20, 1, 128, 5, 64, 200, 0, 3] * 4, dtype=torch.int32,
+                         device=dev)
+    top_k_128 = torch.full((b,), 128, dtype=torch.int32, device=dev)
+
+    # the n_iter-th value shared by 150 entries of every warp and several passes
+    rng = np.random.default_rng(7)
+    tied = np.full((b, v), 1e-5, np.float32)
+    tied[:, [3, 900, 2001]] = [0.3, 0.2, 0.1]
+    for r in range(b):
+        tied[r, rng.choice(np.setdiff1d(np.arange(v), [3, 900, 2001]), 150,
+                           replace=False)] = 0.3 / 150
+    tied = torch.as_tensor(tied, device=dev)
+    flip, flip_p, flip_r = tree_flip_row(rng, v)
+    flip = torch.as_tensor(np.stack([flip] * b), device=dev)
+    cases = [("mixed", probs, top_p, top_k, k_cap), ("mixed_top_k_128", probs, top_p, top_k_128,
+                                                      k_cap),
+             ("tied_across_warps", tied, torch.ones(b, device=dev),
+              torch.full((b,), 20, dtype=torch.int32, device=dev), k_cap),
+             ("sum_order", flip, torch.full((b,), float(flip_p), device=dev), top_k_128, k_cap),
+             ("windows_k_cap_300", probs, torch.ones(b, device=dev),
+              torch.full((b,), 260, dtype=torch.int32, device=dev), 300),
+             # past 32 passes a thread: the compaction without its pass mask
+             ("wide_vocab_9000", torch.softmax(torch.randn((b, 9000), generator=own,
+                                                           device=dev) * 2, -1),
+              top_p, top_k_128, k_cap)]
+    mismatches = {}
+    for name, pr, tp, tk, kc in cases:
+        bad = 0
+        src = gen if name == "mixed" else own
+        for i in range(16 if name == "mixed" else 8):
+            g = -torch.log(torch.empty((b, kc), device=dev).exponential_(generator=src))
+            if name == "mixed":
+                g_main = g
+            if name == "sum_order" and i == 0:
+                g[:, flip_r] = 50.0  # the rank whose keep the summation order decides
+            if name == "tied_across_warps" and i == 0:
+                g[:, 3:20] = 0.0
+                g[torch.arange(b), 3 + torch.arange(b, device=dev) % 17] = 50.0
+            ids = sp.sample_top_p_k(pr, tp, tk, g)
+            ref = sp.sample_top_p_k_reference(pr, tp, tk, g)
+            torch.cuda.synchronize()
+            bad += int((ids != ref).sum())
+            if name == "sum_order" and i == 0:
+                order = torch.argsort(-pr[0].cpu(), stable=True)
+                require(bool((ids == int(order[flip_r])).all()),
+                        "sampler: the rank kept only by the sequential running mass was not drawn")
+        mismatches[name] = bad
+    require(not any(mismatches.values()),
+            f"sampler: ids differ from the plain version: {mismatches}")
+
+    # timings: five distributions x top_k 20 and 128, top_p 0.98
+    masks = mask_tensors(build_mask_table(MIDIModelConfig.from_name("tv2o-medium").tokenizer),
+                         dev)
+    top_p_main = torch.full((b,), 0.98, device=dev)
+    main_probs = torch.softmax(torch.randn((b, v), generator=gen, device=dev) * 3, -1)
+    timings = {}
+    for kind in ("main", "flat", "peaked", "confident", "masked"):
+        rows = main_probs if kind == "main" else sampler_rows(kind, b, v, own, masks)
+        for k in (20, 128):
+            tk = torch.full((b,), k, dtype=torch.int32, device=dev)
+            timings[f"{kind}_top_k_{k}"] = time_ms(
+                lambda: sp.sample_top_p_k(rows, top_p_main, tk, g_main), 200)
+    floor = time_ms(lambda: torch.cuda._sleep(0), 200)
+    top_k_main = torch.full((b,), 20, dtype=torch.int32, device=dev)
+    n_iter = int(torch.clamp(top_k_main, max=k_cap).sum())
+    result = {
+        "max_abs_err": float(sum(mismatches.values())),
+        "ms": timings["main_top_k_20"],
+        "plain_ms": time_ms(lambda: sp.sample_top_p_k_reference(
+            main_probs, top_p_main, top_k_main, g_main), 5),
+        "library_ms": None,
+        # probs once, each row's n_iter noise values, top_p, top_k and the id;
+        # one compare an entry and a log and an add a rank
+        **bound(b * v * 4 + n_iter * 4 + b * 12, b * v + 2 * n_iter, "f32"),
+    }
+    emit({"phase": "kernel", "name": "sampler", "shape": [b, v], "ids_identical": True,
+          "mismatches": mismatches, **result, "ms_by_rows": timings,
+          "empty_kernel_ms": floor, "card": card})
+    return result
 
 
 def check_paged_cell(card: str, gen) -> dict:
@@ -806,12 +937,22 @@ def check_token_row(card: str, gen) -> dict:
             clock = tl.phase_clock(len(kinds) - 1, dev)
             tl.decode_token_row(*args, greedy=False, clock=clock)
             clocked = phase_clock_summary(clock, kinds)
+            # the UI's largest top_k: the sample phase selects 128 ranks a row
+            args_128 = (model, config, hidden, masks, 1.0, 0.98, 128, g)
+            timing["ms_top_k_128"] = time_ms(
+                lambda: tl.decode_token_row(*args_128, greedy=False), 20)
+            clock = tl.phase_clock(len(kinds) - 1, dev)
+            tl.decode_token_row(*args_128, greedy=False, clock=clock)
+            clocked_128 = phase_clock_summary(clock, kinds)
         del model
         torch.cuda.empty_cache()
     result = {"max_abs_err": 1.0 - min(out["torch.float32"].values()), **timing}
     emit({"phase": "kernel", "name": "token_row", "batch": b,
           "identical_row_share": out, "bf16_greedy_tie_logit_gaps": gaps, **result,
           "bound_ms_weights_each_step": each_step, "bf16_phase_clock": clocked,
+          "bf16_phase_clock_top_k_128": clocked_128,
+          "sample_us": {"top_k_20": clocked["us_per_phase"]["sample"],
+                        "top_k_128": clocked_128["us_per_phase"]["sample"]},
           "card": card})
     return result
 
@@ -2446,6 +2587,10 @@ def main(argv=()) -> int:
                         help="build with ptxas' register and spill report, run the causal "
                         "attention forward and backward checks of phase 2, and stop "
                         "(no result line)")
+    parser.add_argument("--sampler", action="store_true",
+                        help="build with ptxas' register and spill report, run the sampler "
+                        "checks and timings of phase 2 and the token row check (the sample "
+                        "phase at top_k 20 and 128), and stop (no result line)")
     parser.add_argument("--paged", action="store_true",
                         help="build with ptxas' register and spill report, run the paged "
                         "decode checks of phase 2 and their cold-cache timings, and stop "
@@ -2470,7 +2615,13 @@ def main(argv=()) -> int:
     card = card_line()
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
-    phase_build(card, verbose=args.attention or args.paged)
+    phase_build(card, verbose=args.attention or args.paged or args.sampler)
+    if args.sampler:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1234)
+        check_sampler(card, gen)
+        check_token_row(card, gen)
+        return 0
     if args.paged:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(1234)

@@ -253,6 +253,11 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool 
                : "memory");
 }
 
+// 4 bytes global -> shared (both 4-byte aligned), through L1
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

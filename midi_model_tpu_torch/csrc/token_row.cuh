@@ -190,6 +190,37 @@ __device__ inline float block_reduce(float v, bool is_max, float* red) {
   return r;
 }
 
+// The sample phase's shared memory, in the staged segment (Tc::scratch()):
+// work[V], the draw's scratch, then the byte rows of the mask and the allow
+// plane (V + 8 bytes each: whole words around the row).  fill_token_params
+// refuses a V for which it does not fit (ops/token_loop.py MAX_VOCAB).
+__host__ __device__ inline size_t sample_scratch_offset(int V) {
+  return (static_cast<size_t>(V) + 3) / 4 * 16;
+}
+
+__host__ __device__ inline size_t sample_stage_offset(int V) {
+  return sample_scratch_offset(V) + sizeof(SampleScratch<kDecThreads>);
+}
+
+__host__ __device__ inline size_t sample_stage_bytes(int V) {
+  return (static_cast<size_t>(V) + 8 + 15) / 16 * 16;
+}
+
+inline bool sample_scratch_fits(int V) {
+  return sample_stage_offset(V) + 2 * sample_stage_bytes(V) <= kGemvSmem;
+}
+
+// Copy the byte row src[0, V) into stage by 4-byte async copies of the
+// words around it; returns where byte 0 of the row lands.
+__device__ inline const unsigned char* stage_row(const unsigned char* src, int V,
+                                                 unsigned char* stage) {
+  const int off = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 3);
+  const unsigned char* words = src - off;
+  for (int w = threadIdx.x; 4 * w < off + V; w += kDecThreads)
+    sm90::cp_async_4(sm90::smem_u32(stage + 4 * w), words + 4 * w);
+  return stage + off;
+}
+
 // Softmax, mask, allow plane and the draw for row b at step j of event ev
 // (one block), then the next step's input row: the token net's embedding
 // of the token; with emb_net, the event embedding's running sum.
@@ -199,15 +230,6 @@ __device__ void sample_row(const TokenParams<T>& p, int ev, int j, int b, float*
   const int V = p.V;
   const float temp = p.temp[b];
   const float* lg = p.logits + static_cast<size_t>(b) * V;
-#pragma unroll 4
-  for (int v = threadIdx.x; v < V; v += kDecThreads) work[v] = lg[v] / temp;
-  __syncthreads();
-  float m = -CUDART_INF_F;
-  for (int v = threadIdx.x; v < V; v += kDecThreads) m = fmaxf(m, work[v]);
-  m = block_reduce(m, true, red);
-  float sum = 0.f;
-  for (int v = threadIdx.x; v < V; v += kDecThreads) sum += expf(work[v] - m);
-  sum = block_reduce(sum, false, red);
   const bool forced = (p.forced != nullptr && p.forced[b]) || (p.alive != nullptr && !p.alive[b]);
   const bool pad = forced || (j > 0 && p.ended[b]);
   const unsigned char* mask =
@@ -215,22 +237,59 @@ __device__ void sample_row(const TokenParams<T>& p, int ev, int j, int b, float*
           : (j == 0 ? p.first
                     : p.steps + (static_cast<size_t>(p.e_off[b]) * p.n_steps + j) * V);
   const unsigned char* allow = p.allow ? p.allow + static_cast<size_t>(b) * V : nullptr;
-#pragma unroll 4
-  for (int v = threadIdx.x; v < V; v += kDecThreads) {
-    float pr = expf(work[v] - m) / sum;
-    pr *= mask[v] ? 1.f : 0.f;
-    if (allow) pr *= allow[v] ? 1.f : 0.f;
-    work[v] = pr;
-  }
-  __syncthreads();
+  // This phase runs once between long matrix phases, so its code comes cold
+  // from the instruction cache, and the kernel's shared memory leaves next
+  // to no L1: its loops are kept short (the draw too:
+  // sample_top_p_k_block<.., 2, 2>), and every row it reads is first
+  // brought into shared memory by async copies, all in flight at once.
+  for (int v = threadIdx.x; v < V; v += kDecThreads)
+    sm90::cp_async_4(sm90::smem_u32(work + v), lg + v);
+  unsigned char* stage = reinterpret_cast<unsigned char*>(work) + sample_stage_offset(V);
+  const unsigned char* mask_s = stage_row(mask, V, stage);
+  const unsigned char* allow_s =
+      allow ? stage_row(allow, V, stage + sample_stage_bytes(V)) : nullptr;
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();  // this thread's copies; the others' by the next barrier
+  // the logits over temp and the row's max (each thread its own ids)
+  float m = -CUDART_INF_F;
+  for_each_entry<kDecThreads, 2>(V, [&](int v) { return work[v]; }, [&](int v, float l) {
+    if (v < V) {
+      const float x = l / temp;
+      work[v] = x;
+      m = fmaxf(m, x);
+    }
+  });
+  m = block_reduce(m, true, red);
+  float sum = 0.f;  // each thread sums its ids in order; work keeps the exps
+  for_each_entry<kDecThreads, 2>(V, [&](int v) { return work[v]; }, [&](int v, float x) {
+    if (v < V) {
+      const float e = expf(x - m);
+      work[v] = e;
+      sum += e;
+    }
+  });
+  sum = block_reduce(sum, false, red);
+  // the normalized, masked probability of id v (read from and kept in work[v])
+  auto prob = [&](int v) {
+    float pr = work[v] / sum;
+    pr *= mask_s[v] ? 1.f : 0.f;
+    if (allow_s) pr *= allow_s[v] ? 1.f : 0.f;
+    return pr;
+  };
   int id;
   if (p.greedy) {
+#pragma unroll 4
+    for (int v = threadIdx.x; v < V; v += kDecThreads) work[v] = prob(v);
+    __syncthreads();
     id = block_first_max<kDecThreads>(work, V, am).i;
   } else {
     const int n_iter = min(p.top_k[b], p.k_cap);
     const float* g =
         p.gumbel + ((static_cast<size_t>(ev) * p.n_steps + j) * p.B + b) * p.k_cap;
-    id = sample_top_p_k_block<kDecThreads>(work, V, p.top_p[b], n_iter, g, am);
+    auto& ss = *reinterpret_cast<SampleScratch<kDecThreads>*>(
+        reinterpret_cast<unsigned char*>(work) + sample_scratch_offset(V));
+    // the draw's lead round normalizes and masks as it reads
+    id = sample_top_p_k_block<kDecThreads, 2, 2>(work, V, p.top_p[b], n_iter, g, ss, prob);
   }
   if (threadIdx.x == 0) {
     p.row[(static_cast<size_t>(ev) * p.B + b) * p.n_steps + j] = id;
@@ -400,7 +459,7 @@ bool fill_token_params(TokenParams<T>& p, const void* const*& ptrs, const int*& 
   p.scale = *floats++;
   const bool ok = p.L <= kTokMaxLayers && p.n_steps <= kTokMaxSteps &&
                   p.dh <= 32 * kTokMaxChunks && p.dh % 64 == 0 && p.B <= kMaxBatch &&
-                  static_cast<size_t>(p.V) * sizeof(float) <= kGemvSmem;
+                  sample_scratch_fits(p.V);
   if (!ok) return false;
   if constexpr (kTensorCores<T>) {
     const int W = p.H * p.dh;

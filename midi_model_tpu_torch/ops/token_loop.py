@@ -28,6 +28,18 @@ from . import _build
 from .sampler import per_row, sample_top_p_k_reference
 
 MAX_LAYERS = 8  # csrc/token_row.cuh kTokMaxLayers
+# ids the sample phase takes: work[V], the draw's scratch (17,440 bytes,
+# csrc/sampler.cuh SampleScratch) and the mask and allow rows' bytes in the
+# 64 KB staged segment (token_row.cuh sample_scratch_fits)
+SAMPLE_SCRATCH_BYTES = 17440
+
+
+def sample_smem(vocab: int) -> int:
+    """Shared memory of the token row's sample phase at ``vocab`` ids."""
+    return -(-vocab // 4) * 16 + SAMPLE_SCRATCH_BYTES + 2 * (-(-(vocab + 8) // 16) * 16)
+
+
+MAX_VOCAB = max(v for v in range(4, 16385, 4) if sample_smem(v) <= 64 * 1024)
 
 
 def decode_token_row_reference(model, config, hidden: torch.Tensor, masks, temp,
@@ -111,9 +123,9 @@ def kernel_limits(config, batch: int) -> Optional[str]:
     if cfg.kv_heads != h or dh % 64 or dh > 256:
         return ("token row kernel: MHA token net, head_dim a multiple of 64 up "
                 f"to 256 (got {h} heads x {dh}, {cfg.kv_heads} kv heads)")
-    if cfg.num_layers > MAX_LAYERS or t_max > 8 or batch > 256 or vocab > 16384:
+    if cfg.num_layers > MAX_LAYERS or t_max > 8 or batch > 256 or vocab > MAX_VOCAB:
         return (f"token row kernel: at most {MAX_LAYERS} layers, 8 steps, 256 "
-                f"rows and 16384 ids (got {cfg.num_layers}, {t_max}, {batch}, "
+                f"rows and {MAX_VOCAB} ids (got {cfg.num_layers}, {t_max}, {batch}, "
                 f"{vocab})")
     if cfg.hidden_size % 8 or cfg.intermediate_size % 8:
         return (f"token row kernel: widths must be multiples of 8 (D="
