@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``midi_model_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--attention | --paged | --sampler]
+    python3 chip_smoke.py [--attention | --paged | --sampler | --api]
 
 With ``--attention``: phase 1 with ptxas' register and spill report, the
 causal attention checks of phase 2, phase 6's step-0 checks and its timed
@@ -10,8 +10,10 @@ training loops (bf16 and f32 compute), and no result line.  With
 (the cell and the streaming kernel) and their cold-cache timings, and no
 result line.  ``--sampler``: phase 1 with the same report, phase 2's sampler
 checks and timings and its token row check (the sample phase's µs at top_k
-20 and 128), and no result line.  Otherwise all phases, each printing one
-JSON line; any failed check raises, so the script exits non-zero:
+20 and 128), and no result line.  ``--api``: phase 1, one step of phase 6's
+CLI to write a run directory, phase 7 on it, and no result line.  Otherwise
+all phases, each printing one JSON line; any failed check raises, so the
+script exits non-zero:
 
 1. build   — compile the port's CUDA kernels from ``midi_model_tpu_torch/csrc``
              and count HGMMA / HMMA in the SASS of each attention kernel
@@ -92,9 +94,16 @@ JSON line; any failed check raises, so the script exits non-zero:
              10 steps on a fixed batch in bf16 and then f32 compute (the
              ``--fp32`` path): a falling loss, step time, tokens/s, peak
              memory and the attention kernels' shares of a profiled step,
-             by kernel.
+             by kernel;
+7. api     — the user surface on phase 6's run directory (``phase_api``):
+             ``MIDIModel.from_pretrained`` + ``generate`` at bs=32, the
+             LoRA CLI (5 steps) and ``load_merge_lora`` + ``generate``, the
+             LoRA step and the four remat policies timed with their peak
+             memory, ``publish`` in bf16 and fp32 read back, and the
+             ``torch.export`` programs' greedy rows against ``generate``.
 
-Then the kernel summary line, the card's ``nvidia-smi`` name and power limit,
+Then the kernel summary line (with each kernel's launches in phase 7 as
+``api_launches``), the card's ``nvidia-smi`` name and power limit,
 and the result line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the package beside it, the script fails before any result.
 """
@@ -103,6 +112,7 @@ from __future__ import annotations
 
 import json
 import pickle
+import shutil
 import subprocess
 import sys
 import time
@@ -217,7 +227,6 @@ def sass_tensor_ops(path: Path):
     decode kernels holds."""
     import os
     import re
-    import shutil
 
     tool = shutil.which("cuobjdump") or str(
         Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
@@ -2298,8 +2307,6 @@ def training_corpus():
     """(config, work dir, batch_of): a corpus written from
     ``tests/golden/codec.pkl`` under ``build/`` (gitignored) and
     ``batch_of(n, max_len, seed)``, n collated sequences of it."""
-    import shutil
-
     from midi_model_tpu_torch.models import MIDIModelConfig
     from midi_model_tpu_torch.train import MidiDataset, find_midi_files
 
@@ -2394,29 +2401,49 @@ def check_train_step0(card: str, config, batch_of) -> None:
     torch.cuda.empty_cache()
 
 
-def timed_training(card: str, config, batch_of, compute_dtype) -> dict:
-    """10 optimizer steps at the CLI's shape (bs 2 x acc 2 x 2048 events) on
-    one fixed batch, f32 masters, ``compute_dtype`` compute: the loss falls;
-    ms per step (mean of steps 3-10), training tokens/s, peak device memory
-    and the kernels' launches over the 10 steps; then one step under
-    ``torch.profiler``: device time by kernel, the attention kernels' share."""
+def timed_training(card: str, config, batch_of, compute_dtype, steps: int = 10,
+                   remat=False, lora_rank: int = 0, lr: float = 3e-4,
+                   phase: str = "train_timed") -> dict:
+    """``steps`` optimizer steps at the CLI's shape (bs 2 x acc 2 x 2048
+    events) on one fixed batch, f32 masters, ``compute_dtype`` compute,
+    ``remat`` the recompute policy; with ``lora_rank`` the LoRA step (rank
+    ``lora_rank``, alpha twice the rank, the CLI's ratio) on frozen random
+    weights: the loss falls; ms per step (mean of steps 3 on), training
+    tokens/s, peak device memory and the kernels' launches over the steps;
+    then one step under ``torch.profiler``: device time by kernel, the
+    attention kernels' share."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from midi_model_tpu_torch.models.lora import init_lora
     from midi_model_tpu_torch.ops import _build
     from midi_model_tpu_torch.train import trainer as tr
 
     dev = torch.device("cuda")
     batch = batch_of(4, 2048, 1).reshape(2, 2, 2048, -1)
-    opt = tr.make_optimizer(lr=3e-4, warmup_steps=0, total_steps=1000)
-    step = tr.make_train_step(config, opt, accum_steps=2, compute_dtype=compute_dtype)
-    state = tr.init_train_state(tr.init_params(config, seed=4, device=dev), opt)
+    opt = tr.make_optimizer(lr=lr, warmup_steps=0, total_steps=1000)
+    params = tr.init_params(config, seed=4, device=dev)
+    if lora_rank:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        lora_step = tr.make_lora_train_step(config, opt, lora_alpha=2.0 * lora_rank,
+                                            accum_steps=2, compute_dtype=compute_dtype,
+                                            remat=remat)
+        state = tr.init_train_state(init_lora(params, gen, rank=lora_rank), opt)
+
+        def step(state, batch):
+            return lora_step(state, params, batch)
+    else:
+        step = tr.make_train_step(config, opt, accum_steps=2, compute_dtype=compute_dtype,
+                                  remat=remat)
+        state = tr.init_train_state(params, opt)
+        del params
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
     _build.LAUNCHES.clear()
-    for _ in range(10):
+    for _ in range(steps):
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))  # waits for the step
@@ -2424,7 +2451,8 @@ def timed_training(card: str, config, batch_of, compute_dtype) -> dict:
     launches = dict(_build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     require(all(np.isfinite(losses)) and losses[-1] < losses[0],
-            f"fixed batch ({compute_dtype}): the loss did not fall: {losses}")
+            f"fixed batch ({compute_dtype}, remat {remat!r}, lora rank {lora_rank}): the "
+            f"loss did not fall: {losses}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
@@ -2446,7 +2474,8 @@ def timed_training(card: str, config, batch_of, compute_dtype) -> dict:
     step_ms = float(np.mean(times[2:])) * 1e3
     tokens = int(np.prod(batch.shape))  # microbatches x B x events x 8 tokens
     result = {
-        "compute": f"{str(compute_dtype).split('.')[-1]}, f32 master",
+        "compute": f"{str(compute_dtype).split('.')[-1]}, f32 master", "remat": remat,
+        "lora_rank": lora_rank,
         "fixed_batch_losses": losses, "ms_per_step": step_ms,
         "ms_per_step_runs": [t * 1e3 for t in times],
         "train_tokens_per_s": tokens / step_ms * 1e3, "peak_memory_gb": peak_gb,
@@ -2461,13 +2490,24 @@ def timed_training(card: str, config, batch_of, compute_dtype) -> dict:
                           "attention_bwd_ms_by_kernel": bwd_by_kernel,
                           "top_kernels_ms": sorted(((k[:60], t / 1e3) for k, t in kernels),
                                                    key=lambda kt: -kt[1])[:8]}}
-    emit({"phase": "train_timed", "config": "tv2o-medium", **result, "card": card})
-    del state
+    emit({"phase": phase, "config": "tv2o-medium", **result, "card": card})
+    del state, step
     torch.cuda.empty_cache()
     return result
 
 
-def phase_train(card: str) -> dict:
+def train_cli_argv(work: Path, out: Path, steps: int) -> list:
+    """Phase 6's CLI arguments: tv2o-medium on the smoke's corpus, bf16
+    compute, bs 2 x acc 2 x 2048 events, ``steps`` steps and one validation
+    (with its checkpoint and export) at the last."""
+    return ["--data", str(work / "corpus"), "--config", "tv2o-medium", "--data-val-split", "2",
+            "--max-len", "2048", "--batch-size-train", "2", "--acc-grad", "2",
+            "--batch-size-val", "2", "--max-step", str(steps), "--val-step", str(steps),
+            "--warmup-step", "2", "--workers-train", "2", "--batch-size-gen-example", "2",
+            "--out-dir", str(out)]
+
+
+def phase_train(card: str, corpus) -> dict:
     """Training at tv2o-medium's full width on a corpus written from
     ``tests/golden/codec.pkl`` (under ``build/``, gitignored):
 
@@ -2485,9 +2525,8 @@ def phase_train(card: str) -> dict:
       compute (the ``--fp32`` path: the f32 attention kernels).
 
     Returns the launches of the attention kernels: the bf16 ones from the
-    CLI run, the f32 ones from the f32 timed loop."""
-    import shutil
-
+    CLI run, the f32 ones from the f32 timed loop.  The CLI's run directory
+    stays for phase 7."""
     import numpy as np
     import torch
 
@@ -2495,16 +2534,13 @@ def phase_train(card: str) -> dict:
     from midi_model_tpu_torch.ops import _build
     from midi_model_tpu_torch.train import cli
 
-    config, work, batch_of = training_corpus()
+    config, work, batch_of = corpus
     n_layers = config.net.num_layers + config.net_token.num_layers
     check_train_step0(card, config, batch_of)
 
     # -- the CLI: 5 steps, validation, checkpoint, export, examples; then resume
     out = work / "run"
-    argv = ["--data", str(work / "corpus"), "--config", "tv2o-medium", "--data-val-split", "2",
-            "--max-len", "2048", "--batch-size-train", "2", "--acc-grad", "2",
-            "--batch-size-val", "2", "--max-step", "5", "--val-step", "5", "--warmup-step", "2",
-            "--workers-train", "2", "--batch-size-gen-example", "2", "--out-dir", str(out)]
+    argv = train_cli_argv(work, out, 5)
     _build.LAUNCHES.clear()
     t0 = time.perf_counter()
     state = cli.main(argv)
@@ -2542,10 +2578,249 @@ def phase_train(card: str) -> dict:
     fp32 = timed_training(card, config, batch_of, torch.float32)
     require(fp32["launches"].get("causal_attention_bwd") == n_layers * 2 * 10,
             f"f32 timed loop: backward launches {fp32['launches']}")
-    shutil.rmtree(work, ignore_errors=True)
     return {"causal_attention_bwd": counts["causal_attention_bwd"],
             "causal_attention_f32": fp32["launches"]["causal_attention"],
             "causal_attention_bwd_f32": fp32["launches"]["causal_attention_bwd"]}
+
+
+# the kernels phase 7 must see launched, as the profiler names them
+DECODE_PROFILE_KERNELS = ("event_loop_kernel", "token_row_kernel", "fused_step_kernel")
+# a greedy pick of the artifact runner that differs from generate's must be a
+# near-tie: f32 logits of two f32 implementations (dense attention and cuBLAS
+# products against the paged kernel) differ by ~1e-5 at these magnitudes
+ARTIFACT_TIE_GAP = 1e-3
+
+
+def profiled_kernel_counts(run, names) -> dict:
+    """torch.profiler over ``run()``: launches of the device kernels whose
+    names hold each of ``names``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [(e.key, e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {n: sum(c for k, c in events if n in k) for n in names}
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def first_difference(a, b):
+    """(event, step) of the first token where rows ``a`` and ``b`` [L, T]
+    differ over their common length, or None."""
+    import numpy as np
+
+    n = min(len(a), len(b))
+    diff = np.argwhere(a[:n] != b[:n])
+    return None if not len(diff) else tuple(int(x) for x in diff[0])
+
+
+def phase_api(card: str, corpus) -> dict:
+    """The user surface at tv2o-medium's full width, on the weights phase
+    6's CLI wrote (``build/chip_smoke_train/run/checkpoints``):
+
+    1. ``MIDIModel.from_pretrained`` (bf16) and ``generate`` at bs=32 on
+       the default path, 259 events, twice, in turns with
+       ``sampling.generate`` on the same arguments: events/s of both (the
+       facade adds no work), the grammar, the decode kernels' launches
+       (wrapper counts and torch.profiler);
+    2. ``train.cli --task lora --ckpt`` for 5 steps (r 64, alpha 128):
+       finite losses, the backward kernel launched (12 + 3 layers) x 2
+       microbatches x 5 times, the adapter written; then
+       ``load_merge_lora`` of it and ``generate`` (bs=32) through the
+       decode kernels;
+    3. the LoRA step (r 64) and the full step under every remat policy
+       (none, full, dots, dots_all) timed on one fixed batch (bs 2 x acc 2
+       x 2048 events, bf16 compute): a falling loss, ms per step, peak
+       memory, the attention kernels' device ms by kernel; the forward
+       kernel's launches per step show what each policy recomputes (none
+       and dots_all: once a layer a microbatch; full and dots: twice);
+    4. ``publish`` of the run directory in bf16 and fp32, reloaded: the
+       run's weights, cast;
+    5. ``export_artifacts`` at batch 1, f32 weights, max_seq 256 (seconds
+       timed), and ``ArtifactGenerator``'s greedy rows against
+       ``MIDIModel.generate(greedy=True)`` with the same f32 weights, each
+       continuing four 16-event prompts of the corpus up to 80 events:
+       identical, but where the first differing pick is a near-tie (its
+       logit gap within ARTIFACT_TIE_GAP, by ``tie_gaps``).
+
+    Returns the wrapper launches of steps 1 and 2 by kernel."""
+    import numpy as np
+    import torch
+
+    from midi_model_tpu_torch.interop import load_file
+    from midi_model_tpu_torch.interop.export import export_artifacts
+    from midi_model_tpu_torch.interop.publish import publish
+    from midi_model_tpu_torch.models import MIDIModel
+    from midi_model_tpu_torch.ops import _build
+    from midi_model_tpu_torch.sampling import build_mask_table, generate
+    from midi_model_tpu_torch.serve.artifact_runner import ArtifactGenerator
+    from midi_model_tpu_torch.train import cli
+    from midi_model_tpu_torch.train.checkpoint import CheckpointManager
+
+    config, work, batch_of = corpus
+    tokenizer = config.tokenizer
+    table = build_mask_table(tokenizer)
+    n_layers = config.net.num_layers + config.net_token.num_layers
+    ckpt = work / "run" / "checkpoints"
+    launches = {}
+
+    # 1. the facade on the default decode path
+    model = MIDIModel.from_pretrained(str(ckpt))
+    require(model.model.dtype == torch.bfloat16 and model.device.type == "cuda",
+            f"from_pretrained: {model.model.dtype} on {model.device}")
+    model.generate(batch_size=32, max_len=20, seed=0)  # warm-up
+    # the facade and sampling.generate on the same arguments, in turns
+    rates = {"MIDIModel.generate": [], "sampling.generate": []}
+    for seed, facade in ((1, True), (1, False), (2, False), (2, True)):
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        rows = (model.generate(batch_size=32, max_len=260, seed=seed) if facade
+                else generate(model.model, config, batch_size=32, max_len=260, seed=seed))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        require(rows.shape[0] == 32 and rows.shape[1] > 1, f"MIDIModel.generate rows {rows.shape}")
+        check_rows(rows[:, 1:], table, tokenizer, "MIDIModel.generate bs=32")
+        rates["MIDIModel.generate" if facade else "sampling.generate"].append(
+            32 * (rows.shape[1] - 1) / dt)
+    for name in ("event_loop", "token_row", "fused_step", "causal_attention"):
+        require(counts.get(name, 0) > 0, f"MIDIModel.generate never launched {name}: {counts}")
+    add_counts(launches, counts)
+    profiled = profiled_kernel_counts(
+        lambda: model.generate(batch_size=32, max_len=20, seed=3),
+        DECODE_PROFILE_KERNELS + ATTENTION_FWD_KERNELS)
+    require(all(profiled[n] for n in DECODE_PROFILE_KERNELS + ("fwd_wgmma_kernel",)),
+            f"MIDIModel.generate's profile: {profiled}")
+    emit({"phase": "api_generate", "batch": 32, "events": rows.shape[1] - 1,
+          "events_per_s": rates, "launches": counts, "profiled_launches_19_events": profiled,
+          "card": card})
+
+    # 2. LoRA fine-tune through the CLI, then merge the adapter and generate
+    out = work / "lora"
+    argv = train_cli_argv(work, out, 5) + [
+        "--task", "lora", "--ckpt", str(ckpt / "model.safetensors"), "--lora-r", "64",
+        "--lora-alpha", "128", "--lr", "1e-3", "--gen-example-interval", "0"]
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    state = cli.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    logs = [json.loads(line) for line in (out / "logs" / "metrics.jsonl").read_text().splitlines()]
+    lora_losses = [r["train/loss"] for r in logs if "train/loss" in r]
+    adapter = out / "checkpoints" / "adapter"
+    require(state.step == 5 and all(".lora_" in n for n in state.params)
+            and len(lora_losses) == 5 and all(np.isfinite(lora_losses)),
+            f"lora cli: step {state.step}, losses {lora_losses}")
+    require(counts.get("causal_attention_bwd") == n_layers * 2 * 5,
+            f"lora cli: backward launches {counts} (expected {n_layers * 2 * 5})")
+    require((adapter / "adapter_model.safetensors").exists()
+            and (adapter / "adapter_config.json").exists(), "lora cli: no adapter written")
+    add_counts(launches, counts)
+    del state
+    torch.cuda.empty_cache()
+    q0 = model.model.net.layers[0].self_attn.q_proj.weight.detach().clone()
+    model.load_merge_lora(str(adapter), alpha=128.0)
+    moved = float((model.model.net.layers[0].self_attn.q_proj.weight - q0).abs().max())
+    require(moved > 0, "load_merge_lora left the weights as they were")
+    _build.LAUNCHES.clear()
+    merged_rows = model.generate(batch_size=32, max_len=40, seed=4)
+    torch.cuda.synchronize()
+    merged_counts = dict(_build.LAUNCHES)
+    check_rows(merged_rows[:, 1:], table, tokenizer, "generate after load_merge_lora")
+    require(merged_counts.get("event_loop", 0) > 0 and merged_counts.get("token_row", 0) > 0,
+            f"generate after load_merge_lora: {merged_counts}")
+    emit({"phase": "api_lora_cli", "steps": 5, "rank": 64, "alpha": 128, "seconds": cli_s,
+          "losses": lora_losses, "launches": counts, "merged_q_proj_max_change": moved,
+          "merged_generate_launches": merged_counts, "card": card})
+    del model, q0
+    torch.cuda.empty_cache()
+
+    # 3. the LoRA step and the remat policies on one fixed batch
+    lora = timed_training(card, config, batch_of, torch.bfloat16, steps=5, lora_rank=64,
+                          lr=1e-3, phase="api_lora_timed")
+    require(lora["launches"].get("causal_attention_bwd") == n_layers * 2 * 5,
+            f"lora step: backward launches {lora['launches']}")
+    policies = {}
+    for remat in (False, "full", "dots", "dots_all"):
+        r = timed_training(card, config, batch_of, torch.bfloat16, steps=4, remat=remat,
+                           phase="api_remat_timed")
+        recomputes = remat in ("full", "dots")
+        want = n_layers * 2 * 4 * (2 if recomputes else 1)
+        require(r["launches"].get("causal_attention") == want,
+                f"remat {remat!r}: forward launches {r['launches']} (expected {want})")
+        policies[str(remat or "none")] = {k: r[k] for k in ("ms_per_step", "peak_memory_gb",
+                                                            "train_tokens_per_s")}
+    emit({"phase": "api_remat", "policies": policies,
+          "lora_step": {k: lora[k] for k in ("ms_per_step", "peak_memory_gb",
+                                              "train_tokens_per_s")}, "card": card})
+
+    # 4. publish the run directory, bf16 and fp32, and read it back
+    saved = CheckpointManager(str(ckpt), config).load_params()
+    pub = {}
+    for dtype, torch_dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        t0 = time.perf_counter()
+        path = publish(str(ckpt), "tv2o-medium", str(work / f"published_{dtype}"), dtype=dtype)
+        pub[dtype] = time.perf_counter() - t0
+        sd = load_file(f"{path}/model.safetensors")
+        require(sorted(sd) == sorted(saved) and all(
+            np.array_equal(sd[n], p.to(torch_dtype).float().numpy()) for n, p in saved.items()),
+            f"publish {dtype}: the file is not the run's weights")
+        reloaded = MIDIModel.from_pretrained(path, dtype=torch.float32)
+        require(all(np.array_equal(p.detach().cpu().numpy(), sd[n])
+                    for n, p in reloaded.model.named_parameters()),
+                f"publish {dtype}: from_pretrained differs from the file")
+        del reloaded, sd
+    del saved
+    emit({"phase": "api_publish", "seconds": pub, "card": card})
+
+    # 5. torch.export programs and the artifact runner against generate, f32,
+    #    continuing four 16-event prompts of the corpus (a greedy row from
+    #    the bos prompt alone ends at eos within a few events)
+    f32 = MIDIModel.from_pretrained(str(ckpt), dtype=torch.float32)
+    t0 = time.perf_counter()
+    export_artifacts(f32.model, config, str(work / "artifacts"), batch_size=1, max_seq=256,
+                     dtype=torch.float32)
+    export_s = time.perf_counter() - t0
+    runner = ArtifactGenerator(str(work / "artifacts"))
+    prompts = batch_of(4, 16, 2)
+    compared, art_events, art_s, differences = 0, 0, 0.0, []
+    for prompt in prompts:
+        t0 = time.perf_counter()
+        art = runner.generate(prompt=prompt[None], max_len=80, greedy=True)
+        art_s += time.perf_counter() - t0
+        ref = f32.generate(prompt=prompt, batch_size=1, max_len=80, greedy=True)
+        check_rows(art[:, 16:], table, tokenizer, "artifact runner")
+        art_events += art.shape[1] - 16
+        where = first_difference(art[0], ref[0])
+        if where is None:
+            require(art.shape == ref.shape, f"artifact rows {art.shape}, generate's {ref.shape}")
+            compared += art.shape[1] - 16
+            continue
+        event = where[0]
+        compared += event - 16
+        with torch.no_grad():
+            hidden, _ = f32.model(torch.as_tensor(ref[:, :event], device="cuda"))
+        gaps = tie_gaps(f32.model, hidden[:, -1], torch.as_tensor(art[:, event], device="cuda"),
+                        torch.as_tensor(ref[:, event], device="cuda"), torch.ones(1, device="cuda"))
+        differences.append({"at": where, "logit_gap": gaps[0]})
+        require(abs(gaps[0]) <= ARTIFACT_TIE_GAP,
+                f"artifact rows differ from generate's at {where}, logit gap {gaps[0]}")
+    emit({"phase": "api_export", "batch": 1, "max_seq": 256, "dtype": "float32",
+          "export_seconds": export_s, "prompts": len(prompts), "prompt_events": 16,
+          "artifact_events": art_events, "artifact_events_per_s": art_events / art_s,
+          "events_compared_identical": compared, "near_tie_differences": differences,
+          "card": card})
+    del f32, runner
+    torch.cuda.empty_cache()
+    return launches
 
 
 SOURCES = {
@@ -2595,6 +2870,10 @@ def main(argv=()) -> int:
                         help="build with ptxas' register and spill report, run the paged "
                         "decode checks of phase 2 and their cold-cache timings, and stop "
                         "(no result line)")
+    parser.add_argument("--api", action="store_true",
+                        help="build, write a run directory with one step of phase 6's CLI, "
+                        "run phase 7 (the MIDIModel facade, LoRA, remat policies, publish, "
+                        "export) on it, and stop (no result line)")
     args = parser.parse_args(list(argv))
     if not (ROOT / "midi_model_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: the midi_model_tpu_torch package is not beside this script",
@@ -2616,6 +2895,15 @@ def main(argv=()) -> int:
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
     phase_build(card, verbose=args.attention or args.paged or args.sampler)
+    if args.api:
+        from midi_model_tpu_torch.train import cli
+
+        corpus = training_corpus()
+        cli.main(train_cli_argv(corpus[1], corpus[1] / "run", 1)
+                 + ["--gen-example-interval", "0"])
+        phase_api(card, corpus)
+        shutil.rmtree(corpus[1], ignore_errors=True)
+        return 0
     if args.sampler:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(1234)
@@ -2639,6 +2927,7 @@ def main(argv=()) -> int:
         check_train_step0(card, config, batch_of)
         for dtype in (torch.bfloat16, torch.float32):
             timed_training(card, config, batch_of, dtype)
+        shutil.rmtree(work, ignore_errors=True)
         return 0
     results = phase_kernels(card)
     phase_oracle(card)
@@ -2654,7 +2943,10 @@ def main(argv=()) -> int:
           "card": card})
     require(pair_rate > split_rate, f"the int8 batcher's default (the per-event pair, "
             f"{pair_rate} events/s) is not the faster path (split scan {split_rate})")
-    launches.update(phase_train(card))
+    corpus = training_corpus()
+    launches.update(phase_train(card, corpus))
+    api_launches = phase_api(card, corpus)
+    shutil.rmtree(corpus[1], ignore_errors=True)
     require("jax" not in sys.modules, "jax was imported")
     require(not any(m == "midi_model_tpu" or m.startswith("midi_model_tpu.")
                     for m in sys.modules), "the JAX package was imported")
@@ -2662,7 +2954,8 @@ def main(argv=()) -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[name], **{k: results[name][k] for k in keys}}
+         "launches": launches[name], "api_launches": api_launches.get(name, 0),
+         **{k: results[name][k] for k in keys}}
         for name, (src, replaces) in SOURCES.items()]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,8 +16,8 @@ loads with ``load_state_dict``.  Weights are torch ``[out, in]`` matrices.
 Three ways through the stack:
 
 - :meth:`LlamaStack.forward` — no cache (causal attention kernel on CUDA,
-  differentiable: the training forward), or a small dense cache (the
-  8-position token net);
+  differentiable: the training forward, with selective recompute), or a
+  small dense cache (the 8-position token net, and the exported programs);
 - :meth:`LlamaStack.prefill_paged` — a whole prompt, K/V written straight
   into paged pools (``ops.paged_allheads`` layout);
 - :meth:`LlamaStack.decode_paged` — one token per slot over the pools, with
@@ -26,6 +26,7 @@ Three ways through the stack:
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -153,27 +154,71 @@ class LlamaLayer(nn.Module):
         return self.finish(x, causal_attention(q, k, v).reshape(b, s, -1))
 
 
+# ``--remat`` policies: what each saves of a layer's forward for its
+# backward (the JAX package's ``jax.checkpoint`` policies); the rest is
+# recomputed.  "full" saves nothing but the layer's input; "dots" the outputs
+# of its projection products (``dots_with_no_batch_dims_saveable``: norms,
+# RoPE, SwiGLU and attention recomputed); "dots_all" also the attention
+# forward's output and log-sum-exp (``dots_saveable``: JAX's attention
+# einsums are dots).  The attention kernel is named through its operator
+# (``ops.attention.causal_attention_forward``), as a policy sees only the
+# dispatcher's operators.
+_MATMULS = (torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.linear)
+REMAT_SAVES = {"full": (), "dots": _MATMULS,
+               "dots_all": _MATMULS + (torch.ops.midi_model_tpu_torch.causal_attention_forward,)}
+
+
+def remat_policy(remat: Union[bool, str]) -> Optional[str]:
+    """``remat`` as one of :data:`REMAT_SAVES`'s keys, or None for no
+    recompute: True is "full", a false value none."""
+    if remat is True:
+        return "full"
+    if not remat:
+        return None
+    if remat not in REMAT_SAVES:
+        raise ValueError(f"remat {remat!r}: one of {sorted(REMAT_SAVES)}")
+    return remat
+
+
+def _saving(saved):
+    """A ``context_fn`` for ``torch.utils.checkpoint``: keep the outputs of
+    the ``saved`` operators, recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return create_selective_checkpoint_contexts(policy)
+
+
 def _recomputed(layer: LlamaLayer, x: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor) -> torch.Tensor:
+                sin: torch.Tensor, policy: str) -> torch.Tensor:
     """``layer(x)`` under ``torch.utils.checkpoint``, recomputed in the
-    backward.  The layer's weights go in as inputs and the recompute binds
-    them again: under ``torch.func.functional_call`` (the trainer's cast
-    weights) they are not the module's own once the call has returned."""
+    backward but for what ``policy`` (a key of :data:`REMAT_SAVES`) saves.
+    The layer's weights go in as inputs and the recompute binds them again:
+    under ``torch.func.functional_call`` (the trainer's cast weights) they
+    are not the module's own once the call has returned."""
     names, weights = zip(*layer.named_parameters())
+    saved = REMAT_SAVES[policy]
 
     def run(x, *weights):
         return torch.func.functional_call(layer, dict(zip(names, weights)), (x, cos, sin))
 
-    return torch.utils.checkpoint.checkpoint(run, x, *weights, use_reentrant=False)
+    context = (functools.partial(_saving, saved) if saved
+               else torch.utils.checkpoint.noop_context_fn)
+    return torch.utils.checkpoint.checkpoint(run, x, *weights, use_reentrant=False,
+                                             context_fn=context)
 
 
 class DenseCache(NamedTuple):
     """Small dense KV cache ``k, v: [L, B, T, Hkv, Dh]`` with an aligned
-    write index (the token net's 8 positions)."""
+    write index: an int, or a 0-d integer tensor (the exported programs'
+    calling convention, ``interop.export``)."""
 
     k: torch.Tensor
     v: torch.Tensor
-    index: int
+    index: Union[int, torch.Tensor]
 
     @staticmethod
     def zeros(cfg: TransformerConfig, batch: int, max_seq: int, dtype,
@@ -197,42 +242,51 @@ class LlamaStack(nn.Module):
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype, device)
 
     def forward(self, emb: torch.Tensor, cache: Optional[DenseCache] = None,
-                remat: bool = False) -> Tuple[torch.Tensor, Optional[DenseCache]]:
+                remat: Union[bool, str] = False
+                ) -> Tuple[torch.Tensor, Optional[DenseCache]]:
         """``emb [B, S, D]`` -> (hidden after the final norm, cache).
 
         Without a cache: causal self-attention over the S rows — the
         training forward (``causal_attention`` is differentiable; the pools
         of the paged paths are written in place and are not).  With one:
-        positions start at ``cache.index``, the new K/V are written into the
-        cache in place and attention spans all cached positions.
+        positions start at ``cache.index`` (an int or a 0-d tensor), the new
+        K/V are written into copies of the cache's layers (``index_copy``:
+        shapes that do not depend on the index, so the step exports) and
+        attention spans all cached positions; the returned cache holds them
+        and ``index + S``.
 
         ``remat`` (cacheless only): each layer runs under
-        ``torch.utils.checkpoint`` and is recomputed in the backward — the
-        JAX package's ``remat=True`` (``--remat full``)."""
+        ``torch.utils.checkpoint`` and is recomputed in the backward, but
+        for what the policy saves (:func:`remat_policy`: True or "full" the
+        JAX package's ``remat=True``, "dots" / "dots_all" its selective
+        policies)."""
         b, s, _ = emb.shape
         cfg = self.cfg
+        policy = remat_policy(remat)
         start = 0 if cache is None else cache.index
-        positions = torch.arange(start, start + s, device=emb.device)
+        positions = start + torch.arange(s, device=emb.device)
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         if cache is not None:
-            if remat:
+            if policy:
                 raise ValueError("remat applies to the cacheless forward only")
             k_pos = torch.arange(cache.k.shape[2], device=emb.device)
             bias = torch.where(k_pos[None, :] <= positions[:, None], 0.0,
                                -torch.inf)[None, None]
+            ks, vs = [], []
 
         x = emb
         for li, layer in enumerate(self.layers):
             if cache is None:
-                x = _recomputed(layer, x, cos, sin) if remat else layer(x, cos, sin)
+                x = _recomputed(layer, x, cos, sin, policy) if policy else layer(x, cos, sin)
             else:
                 q, k, v = layer.qkv(x, cos, sin)
-                cache.k[li, :, start:start + s] = k
-                cache.v[li, :, start:start + s] = v
-                attn = attention_reference(q, cache.k[li], cache.v[li], bias)
+                ks.append(cache.k[li].index_copy(1, positions, k))
+                vs.append(cache.v[li].index_copy(1, positions, v))
+                attn = attention_reference(q, ks[-1], vs[-1], bias)
                 x = layer.finish(x, attn.reshape(b, s, -1))
-        if cache is not None:
-            cache = cache._replace(index=start + s)
+        if cache is not None:  # (a stack of no layers keeps its empty cache)
+            cache = DenseCache(torch.stack(ks) if ks else cache.k,
+                               torch.stack(vs) if vs else cache.v, start + s)
         return self.norm(x), cache
 
     def prefill_paged(self, emb: torch.Tensor, pools: pa.PagedPools, *,

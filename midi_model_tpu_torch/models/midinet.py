@@ -16,7 +16,7 @@ on their compute-dtype copies (``torch.func.functional_call``).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -58,13 +58,13 @@ class MIDINet(nn.Module):
         return emb.to(self.dtype).sum(dim=-2)
 
     def forward(self, x: torch.Tensor, cache: Optional[DenseCache] = None,
-                remat: bool = False) -> Tuple[torch.Tensor, Optional[DenseCache]]:
+                remat: Union[bool, str] = False) -> Tuple[torch.Tensor, Optional[DenseCache]]:
         """Event net: ``x [B, L, T]`` -> (hidden ``[B, L, D]``, cache)."""
         return self.net(self.embed_events(x), cache, remat=remat)
 
     def forward_token(self, hidden_state: Optional[torch.Tensor],
                       x: Optional[torch.Tensor],
-                      cache: Optional[DenseCache] = None, remat: bool = False
+                      cache: Optional[DenseCache] = None, remat: Union[bool, str] = False
                       ) -> Tuple[torch.Tensor, Optional[DenseCache]]:
         """Token net + lm_head.  hidden_state [B, D] (sequence position 0) or
         None when continuing from a cache; x [B, T] token ids or None.

@@ -22,6 +22,7 @@ formulas in plain PyTorch — on CPU tensors.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -198,12 +199,29 @@ def causal_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+@torch.library.custom_op("midi_model_tpu_torch::causal_attention_forward", mutates_args=())
+def causal_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, f32 log-sum-exp): the forward kernel (or plain version) as an
+    operator of the dispatcher, so that a selective-recompute policy
+    (``models.llama``'s ``--remat dots_all``) can name it and save its
+    outputs; the kernel's ctypes launch inside is invisible there."""
+    out, lse = _forward(q, k, v, with_lse=True)
+    return out, lse
+
+
+@causal_attention_forward.register_fake
+def _(q, k, v):
+    b, s, h, dh = q.shape
+    return q.new_empty((b, s, h, dh)), q.new_empty((b, h, s), dtype=torch.float32)
+
+
 class _CausalAttention(torch.autograd.Function):
     """Causal attention with its backward kernel (or plain version)."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        out, lse = _forward(q, k, v, with_lse=True)
+        out, lse = causal_attention_forward(q, k, v)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 

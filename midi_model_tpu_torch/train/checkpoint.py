@@ -6,7 +6,8 @@ Counterpart of ``midi_model_tpu/train/checkpoint.py`` (orbax there): one
 optimizer state; the manager keeps the last save (the ``--resume`` point)
 and the best one by validation loss (``scores.json``), and deletes the
 rest.  ``config.json`` sits beside them.  The export goes through the port's
-own safetensors writer (``interop.safetensors_io``).
+own safetensors writer (``interop.safetensors_io``), as does the peft-layout
+adapter export of a LoRA run.
 """
 
 from __future__ import annotations
@@ -74,13 +75,21 @@ class CheckpointManager:
             if old not in keep:
                 os.remove(self._path(old))
 
-    def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:
-        """The saved state at ``step`` (default: the latest) on the devices and
-        dtypes of ``state``'s tensors."""
+    def _load(self, step: Optional[int]) -> dict:
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
-        blob = torch.load(self._path(step), map_location="cpu", weights_only=True)
+        return torch.load(self._path(step), map_location="cpu", weights_only=True)
+
+    def load_params(self, step: Optional[int] = None) -> dict:
+        """The weights saved at ``step`` (default: the latest), f32 on the CPU,
+        without an optimizer state to restore into (``interop.publish``)."""
+        return self._load(step)["params"]
+
+    def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:
+        """The saved state at ``step`` (default: the latest) on the devices and
+        dtypes of ``state``'s tensors."""
+        blob = self._load(step)
 
         def like(saved: dict, template: dict) -> dict:
             return {n: saved[n].to(device=t.device, dtype=t.dtype).requires_grad_(t.requires_grad)
@@ -97,3 +106,30 @@ class CheckpointManager:
         path = path or os.path.join(self.directory, "model.safetensors")
         save_file({n: p.detach().float().cpu() for n, p in params.items()}, path)
         return path
+
+    def export_peft_adapter(self, lora: dict, rank: int = 64, alpha: float = 128.0,
+                            directory: Optional[str] = None) -> str:
+        """Write the adapters (``models.lora``) in peft's layout,
+        ``adapter_model.safetensors`` (f32) and ``adapter_config.json``, as
+        the JAX package's ``export_peft_adapter`` does; returns the
+        directory (default ``<checkpoints>/adapter``)."""
+        from ..models.lora import _PEFT_NAMES, lora_to_peft_state_dict
+
+        directory = directory or os.path.join(self.directory, "adapter")
+        os.makedirs(directory, exist_ok=True)
+        save_file(lora_to_peft_state_dict(lora),
+                  os.path.join(directory, "adapter_model.safetensors"))
+        adapter_config = {
+            "peft_type": "LORA",
+            "task_type": None,
+            "r": rank,
+            "lora_alpha": alpha,
+            "lora_dropout": 0.0,
+            "bias": "none",
+            "fan_in_fan_out": False,
+            # peft matches module-name suffixes
+            "target_modules": sorted({v.split(".")[-1] for v in _PEFT_NAMES.values()}),
+        }
+        with open(os.path.join(directory, "adapter_config.json"), "w") as f:
+            json.dump(adapter_config, f, indent=2)
+        return directory

@@ -5,10 +5,12 @@
 The same flags as ``midi_model_tpu/train/cli.py``, plus ``--device``
 (default ``cuda``; ``cpu`` runs the kernels' plain versions, as the tests
 do).  One device only: ``--dp``/``--tp`` above 1 and ``--multihost`` wait
-for the multi-device port, ``--task lora`` for the LoRA port, and
-``--remat dots``/``dots_all`` (XLA checkpoint policies) for a selective
-recompute policy of the port's own (ROADMAP); ``--remat`` / ``--remat
-full`` recomputes each layer whole.
+for the multi-device port (ROADMAP).  ``--task lora --ckpt W`` fine-tunes
+LoRA adapters (``--lora-r``, ``--lora-alpha``) on the frozen weights W and
+exports them in peft's layout at each new best validation loss.
+``--remat`` / ``--remat full`` recomputes each layer whole in the backward;
+``--remat dots`` saves the layers' projection products and ``dots_all``
+also their attention outputs (``models.llama.REMAT_SAVES``).
 
 SIGTERM/SIGINT request a checkpoint at the next step boundary, then a clean
 exit; ``--resume`` restarts from the latest checkpoint.
@@ -29,9 +31,6 @@ _NOT_PORTED = {
     "dp": "data parallelism waits for the multi-device port (ROADMAP Queue A 10)",
     "tp": "tensor parallelism waits for the multi-device port (ROADMAP Queue A 10)",
     "multihost": "multi-host training waits for the multi-device port (ROADMAP Queue A 10)",
-    "lora": "--task lora waits for the LoRA port (ROADMAP Queue A 7)",
-    "remat": ("--remat dots / dots_all are XLA checkpoint policies; the port recomputes "
-              "whole layers only (--remat full; ROADMAP Queue A 8)"),
 }
 
 
@@ -72,7 +71,8 @@ def parse_args(argv=None):
     p.add_argument("--remat", nargs="?", const="full", default="",
                    choices=["", "full", "dots", "dots_all"],
                    help="activation checkpointing: 'full' (bare --remat) recomputes "
-                        "each layer in the backward; 'dots' / 'dots_all' are not ported")
+                        "each layer in the backward; 'dots' saves its projection products, "
+                        "'dots_all' also its attention output")
     p.add_argument("--dp", type=int, default=0, help="data-parallel size (1 device)")
     p.add_argument("--tp", type=int, default=1, help="tensor-parallel size (1 device)")
     p.add_argument("--multihost", action="store_true", default=False,
@@ -92,14 +92,13 @@ def _check_supported(args) -> None:
         raise ValueError(_NOT_PORTED["tp"])
     if args.multihost:
         raise ValueError(_NOT_PORTED["multihost"])
-    if args.task == "lora":
-        raise ValueError(_NOT_PORTED["lora"])
-    if args.remat in ("dots", "dots_all"):
-        raise ValueError(_NOT_PORTED["remat"])
+    if args.task == "lora" and not args.ckpt:
+        raise ValueError("--ckpt must be set to train lora")
 
 
 def main(argv=None):
-    """Train; returns the final :class:`~.trainer.TrainState`."""
+    """Train; returns the final :class:`~.trainer.TrainState` (with ``--task lora``
+    its params are the adapters)."""
     args = parse_args(argv)
     _check_supported(args)
     import torch
@@ -110,8 +109,8 @@ def main(argv=None):
     from .data import DataLoader, MidiDataset, find_midi_files
     from .metrics import MetricsWriter
     from .sched import linear_warmup_decay
-    from .trainer import (eval_step, init_params, init_train_state, make_optimizer,
-                          make_train_step)
+    from .trainer import (eval_step, init_params, init_train_state, make_lora_train_step,
+                          make_optimizer, make_train_step)
 
     device = resolve_device(args.device)
     random.seed(args.seed)
@@ -136,11 +135,11 @@ def main(argv=None):
                              workers=args.workers_train, seed=args.seed))
 
     if args.ckpt:
-        from ..interop import load_state_dict
+        from ..interop import load_state_dict, params_from_state_dict
 
-        sd = load_state_dict(args.ckpt)
-        params = {n: torch.as_tensor(np.asarray(sd[n]), dtype=torch.float32, device=device)
-                  for n in init_params(config, device="meta")}
+        model = params_from_state_dict(load_state_dict(args.ckpt), config, device=device)
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        del model
     else:
         params = init_params(config, seed=args.seed, device=device)
 
@@ -149,10 +148,35 @@ def main(argv=None):
                                grad_clip=args.grad_clip)
     compute_dtype = torch.float32 if args.fp32 else torch.bfloat16
     token_chunk = args.token_chunk or (2048 if args.sample_seq else None)
-    step_fn = make_train_step(config, optimizer, accum_steps=args.acc_grad,
-                              compute_dtype=compute_dtype, remat=args.remat == "full",
-                              token_chunk=token_chunk)
-    state = init_train_state(params, optimizer)
+    kw = dict(accum_steps=args.acc_grad, compute_dtype=compute_dtype, remat=args.remat,
+              token_chunk=token_chunk)
+    if args.task == "lora":
+        # adapter-only fine-tune: the state holds only the (A, B) factors; the
+        # frozen base is the step's separate argument
+        from ..models import lora as lora_mod
+
+        gen = torch.Generator(device=device)
+        gen.manual_seed(args.seed + 1)
+        lora = lora_mod.init_lora(params, gen, rank=args.lora_r)
+        print(f"lora adapters initialized (r={args.lora_r}, alpha={args.lora_alpha})")
+        lora_step = make_lora_train_step(config, optimizer, lora_alpha=args.lora_alpha, **kw)
+        base = params
+
+        def step_fn(state, batch):
+            return lora_step(state, base, batch)
+
+        @torch.no_grad()
+        def merged_params(state):
+            return lora_mod.merge_lora(base, state.params, alpha=args.lora_alpha)
+
+        state = init_train_state(lora, optimizer)
+    else:
+        step_fn = make_train_step(config, optimizer, **kw)
+
+        def merged_params(state):
+            return state.params
+
+        state = init_train_state(params, optimizer)
     del params
 
     mgr = CheckpointManager(os.path.join(args.out_dir, "checkpoints"), config)
@@ -186,14 +210,20 @@ def main(argv=None):
                 writer.log(step, {"train/loss": loss, "train/lr": schedule(step),
                                   "train/tokens_per_sec": tokens_per_batch / max(dt, 1e-9)})
             if args.val_step and step % args.val_step == 0:
-                val_metrics = run_validation(eval_step, state.params, config, val_ds,
+                eval_params = merged_params(state)
+                val_metrics = run_validation(eval_step, eval_params, config, val_ds,
                                              args.batch_size_val, args.max_len)
                 writer.log(step, {f"val/{k}": v for k, v in val_metrics.items()})
                 mgr.save(step, state, metrics=val_metrics)
                 if val_metrics["loss"] < best_val:
                     best_val = val_metrics["loss"]
-                    mgr.export_safetensors(state.params)
-                gen_examples(state.params, config, val_ds, args, step, device)
+                    if args.task == "lora":
+                        mgr.export_peft_adapter(state.params, rank=args.lora_r,
+                                                alpha=args.lora_alpha)
+                    else:
+                        mgr.export_safetensors(state.params)
+                gen_examples(eval_params, config, val_ds, args, step, device)
+                del eval_params
             if stop_requested["flag"]:
                 mgr.save(step, state)
                 print(f"checkpointed at step {step}; exiting on signal")

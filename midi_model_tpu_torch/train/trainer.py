@@ -1,8 +1,8 @@
 """The training step on one device.
 
-Counterpart of ``midi_model_tpu/train/trainer.py`` (its single-device step;
-the data/tensor-parallel variants wait for the multi-device port, the LoRA
-step for ``models/lora.py``):
+Counterpart of ``midi_model_tpu/train/trainer.py`` (its single-device
+steps, full and LoRA; the data/tensor-parallel variants wait for the
+multi-device port):
 
 - AdamW (β 0.9/0.99, eps 1e-8 outside the square root) with no weight
   decay on the JAX layout's 1-D leaves (the final norms), a linear
@@ -27,7 +27,7 @@ moments IN PLACE (the JAX step donates its state).
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -58,7 +58,8 @@ def _decays(name: str, p: torch.Tensor) -> bool:
     ``ndim >= 2`` of ITS layout, where each net's per-layer weights — the
     layer norm scales too — are stacked on a leading layer axis.  So the
     decay skips only the two final norms (1-D there as here), not the
-    per-layer norm scales that the reference's ``no_decay`` exempts."""
+    per-layer norm scales that the reference's ``no_decay`` exempts.  LoRA
+    factors (``[L, r, in]`` / ``[L, out, r]`` there) all decay."""
     return p.ndim >= 2 or ".layers." in name
 
 
@@ -135,7 +136,7 @@ def compute_params(params: Params, compute_dtype) -> Params:
 
 def loss_fn(params: Params, config: MIDIModelConfig, batch: torch.Tensor,
             compute_dtype=torch.bfloat16, sample_positions: Optional[torch.Tensor] = None,
-            remat: bool = False, token_chunk: Optional[int] = None):
+            remat: Union[bool, str] = False, token_chunk: Optional[int] = None):
     """Next-event token cross-entropy (mean over non-pad targets) and masked
     accuracy of ``batch [B, L, T]`` (the device of ``params``).
 
@@ -191,39 +192,79 @@ def loss_fn(params: Params, config: MIDIModelConfig, batch: torch.Tensor,
     return loss, {"loss": loss, "acc": acc}
 
 
+def _accumulated_step(state: TrainState, batch, accum_steps: int, optimizer: Optimizer,
+                      loss_of) -> tuple:
+    """One optimizer update of ``state.params`` from the microbatches of
+    ``batch [accum_steps, B, L, T]``: ``loss_of(params, mb)`` -> (loss,
+    metrics) differentiated per microbatch, the gradients summed, times
+    ``1 / accum_steps``; the weights and moments update in place."""
+    device = next(iter(state.params.values())).device
+    batch = torch.as_tensor(batch, device=device)
+    if batch.shape[0] != accum_steps:
+        raise ValueError(f"batch of {batch.shape[0]} microbatches, "
+                         f"accum_steps={accum_steps}")
+    params = state.params
+    for p in params.values():
+        p.requires_grad_(True)
+        p.grad = None
+    sums = {"loss": torch.zeros((), device=device), "acc": torch.zeros((), device=device)}
+    for mb in batch:
+        loss, metrics = loss_of(params, mb)
+        loss.backward()
+        sums = {k: v + metrics[k].detach() for k, v in sums.items()}
+    scale = 1.0 / accum_steps
+    grads = {n: p.grad * scale for n, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    updates, opt_state = optimizer.update(grads, state.opt_state, params)
+    with torch.no_grad():
+        for n, p in params.items():
+            p.add_(updates[n])
+    return (TrainState(state.step + 1, params, opt_state),
+            {k: v * scale for k, v in sums.items()})
+
+
 def make_train_step(config: MIDIModelConfig, optimizer: Optimizer, accum_steps: int = 1,
-                    compute_dtype=torch.bfloat16, remat: bool = False,
+                    compute_dtype=torch.bfloat16, remat: Union[bool, str] = False,
                     token_chunk: Optional[int] = None):
     """``step(state, batch [accum_steps, B, L, T]) -> (state, metrics)``:
     the gradients of the microbatches summed, times ``1 / accum_steps``,
-    then one optimizer update; metrics are the microbatches' means."""
+    then one optimizer update; metrics are the microbatches' means.
+    ``remat``: False, True / "full", "dots" or "dots_all"
+    (``models.llama.remat_policy``)."""
+
+    def loss_of(params, mb):
+        return loss_fn(params, config, mb, compute_dtype, remat=remat, token_chunk=token_chunk)
 
     def train_step(state: TrainState, batch):
-        device = next(iter(state.params.values())).device
-        batch = torch.as_tensor(batch, device=device)
-        if batch.shape[0] != accum_steps:
-            raise ValueError(f"batch of {batch.shape[0]} microbatches, "
-                             f"accum_steps={accum_steps}")
-        params = state.params
-        for p in params.values():
-            p.requires_grad_(True)
-            p.grad = None
-        sums = {"loss": torch.zeros((), device=device), "acc": torch.zeros((), device=device)}
-        for mb in batch:
-            loss, metrics = loss_fn(params, config, mb, compute_dtype, remat=remat,
-                                    token_chunk=token_chunk)
-            loss.backward()
-            sums = {k: v + metrics[k].detach() for k, v in sums.items()}
-        scale = 1.0 / accum_steps
-        grads = {n: p.grad * scale for n, p in params.items()}
-        for p in params.values():
-            p.grad = None
-        updates, opt_state = optimizer.update(grads, state.opt_state, params)
-        with torch.no_grad():
-            for n, p in params.items():
-                p.add_(updates[n])
-        return (TrainState(state.step + 1, params, opt_state),
-                {k: v * scale for k, v in sums.items()})
+        return _accumulated_step(state, batch, accum_steps, optimizer, loss_of)
+
+    return train_step
+
+
+def make_lora_train_step(config: MIDIModelConfig, optimizer: Optimizer,
+                         lora_alpha: float = 128.0, accum_steps: int = 1,
+                         compute_dtype=torch.bfloat16, remat: Union[bool, str] = False,
+                         token_chunk: Optional[int] = None):
+    """The LoRA fine-tune step, ``step(state, base_params, batch) -> (state,
+    metrics)`` (the JAX trainer's ``make_lora_train_step``).  The adapters
+    (``models.lora``) are the only leaves of ``state.params``, so the only
+    ones the optimizer updates; the frozen base weights are a separate
+    argument that requires no gradient and is never written.  Each
+    microbatch differentiates ``loss_fn`` through ``apply_lora`` (W +
+    (α/r)·B@A), so gradients reach only the (A, B) factors — through the
+    attention kernels' autograd function on the card."""
+    from ..models.lora import apply_lora
+
+    def train_step(state: TrainState, base_params: Params, batch):
+        if any(p.requires_grad for p in base_params.values()):
+            raise ValueError("the base weights of a LoRA step must not require grad")
+
+        def loss_of(lora, mb):
+            return loss_fn(apply_lora(base_params, lora, alpha=lora_alpha), config, mb,
+                           compute_dtype, remat=remat, token_chunk=token_chunk)
+
+        return _accumulated_step(state, batch, accum_steps, optimizer, loss_of)
 
     return train_step
 

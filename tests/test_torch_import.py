@@ -61,7 +61,8 @@ def test_import_whole_port_without_jax():
         assert "triton" not in sys.modules and "safetensors" not in sys.modules
         for new in ("train.cli", "train.trainer", "train.data", "train.checkpoint",
                     "train.metrics", "train.sched", "midi.codec", "midi.utils",
-                    "interop.safetensors_io", "ops.attention"):
+                    "interop.safetensors_io", "ops.attention", "models.api", "models.lora",
+                    "interop.publish", "interop.export", "serve.artifact_runner"):
             assert "midi_model_tpu_torch." + new in names, new
         print(len(names))
     """)

@@ -256,3 +256,51 @@ def test_init_params_are_f32_on_the_named_device(tiny):
     assert set(params) == set(tiny[3])
     assert all(p.dtype == torch.float32 and p.device.type == "cpu" for p in params.values())
     assert torch.equal(params["net.norm.weight"], torch.ones_like(params["net.norm.weight"]))
+
+
+@pytest.mark.parametrize("policy", ["dots", "dots_all"])
+def test_selective_remat_matches_full(tiny, batch, policy, monkeypatch):
+    """``--remat dots`` / ``dots_all`` (the JAX package's
+    ``dots_with_no_batch_dims_saveable`` / ``dots_saveable``): f32 loss and
+    gradients within 1e-6 of ``--remat full``.  What each saves shows in
+    what the backward runs again: "full" recomputes every product and every
+    attention forward, "dots" the attention forwards but no product,
+    "dots_all" neither (its attention outputs are saved through the
+    forward's operator)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from midi_model_tpu_torch.ops import attention as at
+
+    _, cfg, _, ours = tiny
+    mb = batch[0]
+    calls = {"attention": 0, "mm": 0}
+    reference = at._reference_with_lse
+
+    def counted(*args):
+        calls["attention"] += 1
+        return reference(*args)
+
+    class CountMatmuls(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket in (torch.ops.aten.mm, torch.ops.aten.addmm):
+                calls["mm"] += 1
+            return func(*args, **(kwargs or {}))
+
+    monkeypatch.setattr(at, "_reference_with_lse", counted)
+    runs = {}
+    for remat in (False, "full", policy):
+        calls.update(attention=0, mm=0)
+        with CountMatmuls():
+            loss, _, grads = _port_loss_and_grads(ours, cfg, mb, compute_dtype=torch.float32,
+                                                  remat=remat)
+        runs[remat] = (loss, grads, dict(calls))
+    full, ours_ = runs["full"], runs[policy]
+    assert abs(ours_[0] - full[0]) <= 1e-6
+    for n in full[1]:
+        torch.testing.assert_close(ours_[1][n], full[1][n], rtol=0, atol=1e-6)
+    n_layers = cfg.net.num_layers + cfg.net_token.num_layers
+    plain, counts_full, counts = runs[False][2], full[2], ours_[2]
+    assert plain["attention"] == n_layers and counts_full["attention"] == 2 * n_layers
+    assert counts_full["mm"] > plain["mm"]  # full recomputes the products
+    assert counts["mm"] == plain["mm"]  # the selective policies save them
+    assert counts["attention"] == (2 * n_layers if policy == "dots" else n_layers)

@@ -1,8 +1,9 @@
 """The port's training CLI and data pipeline on the CPU (``--device cpu``),
 mirroring ``tests/test_cli.py`` and the data tests of ``tests/test_train.py``:
 a smoke run with validation, checkpoint and export; a resume; SIGTERM
-checkpoint-and-exit; the flags that wait for other ports; the port's
-``midi`` copy and ``MidiDataset`` held equal to the JAX package's."""
+checkpoint-and-exit; ``--task lora`` and ``--remat dots`` / ``dots_all``;
+the flags that wait for other ports; the port's ``midi`` copy and
+``MidiDataset`` held equal to the JAX package's."""
 
 import json
 import os
@@ -126,12 +127,62 @@ def test_sigterm_checkpoints_and_exits(corpus, tmp_path, monkeypatch):
     assert signal.getsignal(signal.SIGTERM) is before
 
 
-@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"], ["--multihost"],
-                                   ["--task", "lora"], ["--remat", "dots"]],
-                         ids=["dp", "tp", "multihost", "lora", "remat_dots"])
+@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"], ["--multihost"]],
+                         ids=["dp", "tp", "multihost"])
 def test_unported_flags_name_their_roadmap_item(flags):
     with pytest.raises(ValueError, match="ROADMAP"):
         cli.main(["--device", "cpu"] + flags)
+
+
+def test_lora_needs_ckpt():
+    with pytest.raises(ValueError, match="--ckpt"):
+        cli.main(["--device", "cpu", "--task", "lora"])
+
+
+def test_lora_cli(corpus, tmp_path):
+    """``--task lora --ckpt W``: 2 steps train only the adapters (the state
+    holds nothing else), the adapter is exported in peft's layout at the
+    validation, and ``--resume`` restores the adapter state."""
+    from midi_model_tpu_torch.interop import save_file
+    from midi_model_tpu_torch.models.lora import load_peft_adapter
+
+    cfg = MIDIModelConfig.get_config("v2", True, **TINY)
+    base = trainer.init_params(cfg, seed=3, device="cpu")
+    ckpt = tmp_path / "base.safetensors"
+    save_file(base, str(ckpt))
+    out_dir = tmp_path / "lora_run"
+    args = _args(corpus, tmp_path, out_dir, **{"--task": "lora", "--ckpt": str(ckpt),
+                                               "--lora-r": "4", "--lora-alpha": "8",
+                                               "--gen-example-interval": "1",
+                                               "--batch-size-gen-example": "1"})
+    state = cli.main(args + ["--fp32"])
+    assert state.step == 2 and state.opt_state.count == 2
+    assert all(".lora_" in n for n in state.params) and len(state.params) == 2 * 7 * 5
+    assert state.params["net.layers.0.self_attn.q_proj.lora_A.weight"].shape == (4, 64)
+    adapter = out_dir / "checkpoints" / "adapter"
+    config = json.loads((adapter / "adapter_config.json").read_text())
+    assert config["r"] == 4 and config["lora_alpha"] == 8.0
+    saved = load_peft_adapter(str(adapter / "adapter_model.safetensors"), cfg)
+    for n, p in state.params.items():
+        np.testing.assert_array_equal(saved[n].numpy(), p.detach().numpy())
+    assert any(p.detach().abs().max() > 0 for n, p in state.params.items() if "lora_B" in n)
+    assert list((out_dir / "sample" / "2").glob("*.mid"))  # from the merged weights
+    resumed = cli.main(args + ["--fp32", "--resume", "1"])  # max-step 2: nothing to run
+    assert resumed.step == 2 and resumed.opt_state.count == 2
+    for n, p in state.params.items():
+        assert torch.equal(resumed.params[n].detach(), p.detach()), n
+
+
+@pytest.mark.parametrize("policy", ["dots", "dots_all"])
+def test_remat_policy_cli(corpus, tmp_path, policy):
+    """``--remat dots`` / ``dots_all`` train: the same weights after two f32
+    steps as ``--remat full``."""
+    runs = {}
+    for remat in ("full", policy):
+        args = _args(corpus, tmp_path, tmp_path / remat, **{"--val-step": "0"})
+        runs[remat] = cli.main(args + ["--fp32", "--remat", remat])
+    for n, p in runs["full"].params.items():
+        torch.testing.assert_close(runs[policy].params[n], p, rtol=0, atol=1e-6)
 
 
 def test_midi_codec_copy_matches_jax(goldens):
