@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``midi_model_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--attention | --paged | --sampler | --api]
+    python3 chip_smoke.py [--attention | --paged | --sampler | --api | --app]
 
 With ``--attention``: phase 1 with ptxas' register and spill report, the
 causal attention checks of phase 2, phase 6's step-0 checks and its timed
@@ -11,7 +11,8 @@ training loops (bf16 and f32 compute), and no result line.  With
 result line.  ``--sampler``: phase 1 with the same report, phase 2's sampler
 checks and timings and its token row check (the sample phase's µs at top_k
 20 and 128), and no result line.  ``--api``: phase 1, one step of phase 6's
-CLI to write a run directory, phase 7 on it, and no result line.  Otherwise
+CLI to write a run directory, phase 7 on it, and no result line.  ``--app``:
+phase 1, phase 8 on random bf16 weights, and no result line.  Otherwise
 all phases, each printing one JSON line; any failed check raises, so the
 script exits non-zero:
 
@@ -100,10 +101,27 @@ script exits non-zero:
              LoRA CLI (5 steps) and ``load_merge_lora`` + ``generate``, the
              LoRA step and the four remat policies timed with their peak
              memory, ``publish`` in bf16 and fp32 read back, and the
-             ``torch.export`` programs' greedy rows against ``generate``.
+             ``torch.export`` programs' greedy rows against ``generate``;
+8. app     — the serving app and the host data path (``phase_app``): the
+             native extensions built with g++ (required) and held to the
+             Python codec and scan on every golden, timed beside them;
+             ``train.preprocess.main`` over ~2,000 golden copies with and
+             without them (the same verdicts, files/s); the
+             ``MidiGenerationService`` loaded as ``serve.app.main`` loads
+             phase 6's checkpoint, batched (32 slots, chunk 16, context
+             2048, batch 4): four concurrent sessions of 256 events
+             (instruments, a MIDI prompt, allow_cc off, a continuation),
+             with eos and again with the shared batch's eos disabled, rows
+             checked against the grammar and the bans, ``.mid`` files read
+             back, a seeded session identical alone and beside others,
+             events/s and the seconds to each first chunk, the ragged event
+             loop and the attention forward launched; one aligned session
+             through the 8-event loop; ``examples/demo_torch.py`` on the
+             card.
 
 Then the kernel summary line (with each kernel's launches in phase 7 as
-``api_launches``), the card's ``nvidia-smi`` name and power limit,
+``api_launches`` and in phase 8 as ``app_launches``), the card's
+``nvidia-smi`` name and power limit,
 and the result line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the package beside it, the script fails before any result.
 """
@@ -2823,6 +2841,395 @@ def phase_api(card: str, corpus) -> dict:
     return launches
 
 
+APP_SESSIONS = ("custom", "midi", "no_cc", "continue")
+APP_EVENTS = 256
+# the preprocessing corpus: the golden blobs copied under distinct names
+PREPROCESS_FILES = 2000
+NATIVE_ROUNDS = 20
+
+
+def native_and_preprocess(card: str) -> None:
+    """Phase 8's host side: both native extensions built with g++ (no
+    Python-path fallback allowed here), held to the Python paths on every
+    golden, timed beside them; then ``train.preprocess.main`` over a corpus
+    of ~2,000 golden copies with the native build and without it
+    (``MIDI_TPU_NATIVE=0``): the same verdicts, files/s of each."""
+    import contextlib
+    import gc
+    import io
+    import os
+    import statistics
+    import tempfile
+    import threading
+
+    from midi_model_tpu_torch import native
+    from midi_model_tpu_torch.midi import codec
+    from midi_model_tpu_torch.native import build as native_build
+    from midi_model_tpu_torch.tokenizer import MIDITokenizer
+    from midi_model_tpu_torch.tokenizer import base as tok_base
+    from midi_model_tpu_torch.train import preprocess
+
+    t0 = time.perf_counter()
+    try:
+        paths = native_build.build(verbose=False)
+    except subprocess.CalledProcessError as exc:
+        raise RuntimeError(f"check failed: the native build: {exc.stderr}") from exc
+    build_s = time.perf_counter() - t0
+    codec_mod, scan_mod = native.native_codec(), native.native_tokenizer_scan()
+    require(codec_mod is not None and scan_mod is not None,
+            f"the native extensions did not load from {paths}")
+    goldens = pickle.loads((ROOT / "tests/golden/codec.pkl").read_bytes())
+    for name, g in goldens.items():
+        require(codec_mod.midi2score(g["bytes"])
+                == codec._py_opus2score(codec._py_midi2opus(g["bytes"])),
+                f"native midi2score differs from Python on {name}")
+    good = {k: g["bytes"] for k, g in goldens.items() if not k.startswith("bad_")}
+    scores = {k: codec_mod.midi2score(b) for k, b in good.items()}
+    native_scan = tok_base._native_scan
+
+    def tokenize_all(tok):
+        return [tok.tokenize(s) for s in scores.values()]
+
+    def timed(fn):
+        """ms of one call, with the collector off (as timeit): after the earlier
+        phases its full passes over the heap would land in either path's timing"""
+        gc.collect()
+        gc.disable()
+        try:
+            t = time.perf_counter()
+            fn()
+            return (time.perf_counter() - t) * 1e3
+        finally:
+            gc.enable()
+
+    def python_scan(fn):
+        tok_base._native_scan = lambda: None
+        try:
+            return fn()
+        finally:
+            tok_base._native_scan = native_scan
+
+    # NATIVE_ROUNDS rounds of one pass over the blobs a path, the two paths
+    # in turns (the host is shared): each path's least and median pass, and
+    # the spread of the rounds' own ratios
+    samples = {}
+    for version in ("v1", "v2"):
+        tok = MIDITokenizer(version)
+        rows = tokenize_all(tok)
+        require(python_scan(lambda: tokenize_all(tok)) == rows,
+                f"{version}: the native scan's rows differ")
+        for _ in range(NATIVE_ROUNDS):
+            samples.setdefault(f"tokenize_{version}_python_ms", []).append(
+                python_scan(lambda: timed(lambda: tokenize_all(tok))))
+            samples.setdefault(f"tokenize_{version}_native_ms", []).append(
+                timed(lambda: tokenize_all(tok)))
+    for _ in range(NATIVE_ROUNDS):
+        samples.setdefault("midi2score_native_ms", []).append(
+            timed(lambda: [codec_mod.midi2score(b) for b in good.values()]))
+        samples.setdefault("midi2score_python_ms", []).append(
+            timed(lambda: [codec._py_opus2score(codec._py_midi2opus(b))
+                           for b in good.values()]))
+    times = {k: min(v) for k, v in samples.items()}
+    medians = {k: statistics.median(v) for k, v in samples.items()}
+    ratios, median_ratios, round_ratios = {}, {}, {}
+    for k in ("midi2score", "tokenize_v1", "tokenize_v2"):
+        py, nat = f"{k}_python_ms", f"{k}_native_ms"
+        ratios[k] = times[py] / times[nat]
+        median_ratios[k] = medians[py] / medians[nat]
+        each = [p / n for p, n in zip(samples[py], samples[nat])]
+        round_ratios[k] = [min(each), statistics.median(each), max(each)]
+    emit({"phase": "app_native", "build_s": build_s, "blobs": len(good),
+          "rounds": NATIVE_ROUNDS, "threads": threading.active_count(),
+          "least_ms_per_pass": times, "median_ms_per_pass": medians,
+          "python_over_native": ratios, "python_over_native_of_medians": median_ratios,
+          "round_ratios_min_median_max": round_ratios, "card": card})
+
+    jobs = min(8, len(os.sched_getaffinity(0)))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_app_") as tmp:
+        src = Path(tmp) / "corpus"
+        src.mkdir()
+        copies = -(-PREPROCESS_FILES // len(good))
+        for i in range(copies):
+            for name, data in good.items():
+                (src / f"{name}_{i:03d}.mid").write_bytes(data)
+        # one copy of each blob through process_file in this process: the
+        # per-file cost without the pool's start-up (spawned workers import torch)
+        one_copy = [(str(src / f"{name}_000.mid"), "v2", True) for name in good]
+        serial = {}
+        for label, scan in (("native", native_scan), ("python", lambda: None)):
+            native_codec = codec._native_codec
+            tok_base._native_scan = scan
+            if label == "python":
+                codec._native_codec = lambda: None
+            try:
+                verdicts = [preprocess.process_file(a) for a in one_copy]
+                serial[label] = (min(timed(lambda: [preprocess.process_file(a) for a in one_copy])
+                                     for _ in range(3)) / len(one_copy), verdicts)
+            finally:
+                tok_base._native_scan, codec._native_codec = native_scan, native_codec
+        require(serial["native"][1] == serial["python"][1],
+                f"process_file verdicts: native {serial['native'][1]}, python {serial['python'][1]}")
+        runs = {}
+        for label in ("native", "python"):
+            dst = Path(tmp) / label
+            before = os.environ.get("MIDI_TPU_NATIVE")
+            os.environ["MIDI_TPU_NATIVE"] = "1" if label == "native" else "0"
+            try:
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    accepted, rejected = preprocess.main(
+                        ["--src", str(src), "--dst", str(dst), "--jobs", str(jobs)])
+                seconds = time.perf_counter() - t0
+            finally:
+                if before is None:
+                    os.environ.pop("MIDI_TPU_NATIVE")
+                else:
+                    os.environ["MIDI_TPU_NATIVE"] = before
+            verdicts = {}
+            for path in dst.rglob("*.mid"):
+                verdicts.setdefault(str(path.parent.relative_to(dst)), set()).add(path.name)
+            runs[label] = {"seconds": seconds, "files_per_s": (accepted + rejected) / seconds,
+                           "accepted": accepted, "rejected": rejected,
+                           "by_reason": {k: len(v) for k, v in sorted(verdicts.items())},
+                           "verdicts": verdicts}
+        n_files = copies * len(good)
+        require(runs["native"]["verdicts"] == runs["python"]["verdicts"]
+                and runs["native"]["accepted"] + runs["native"]["rejected"] == n_files,
+                f"preprocess verdicts: native {runs['native']['by_reason']}, "
+                f"python {runs['python']['by_reason']}")
+    for run in runs.values():
+        del run["verdicts"]
+    emit({"phase": "app_preprocess", "files": n_files, "jobs": jobs, "runs": runs,
+          "native_speedup": runs["python"]["seconds"] / runs["native"]["seconds"],
+          "process_file_ms_serial": {k: v[0] for k, v in serial.items()},
+          "process_file_serial_speedup": serial["python"][0] / serial["native"][0],
+          "card": card})
+
+
+def app_sessions(service, requests: dict, continue_from):
+    """One round of concurrent sessions on threads, as the UI's handlers
+    call the service: the custom-prompt, MIDI-prompt and allow_cc=False
+    sessions through ``run`` with their prompt rows, the last through
+    ``continue_run`` from ``continue_from`` (each row continues its own).
+    Returns {session: (prompt [B, P, T], generated [B, n, T], seconds to
+    the first chunk or None)} and the round's wall seconds."""
+    import threading
+
+    import numpy as np
+
+    results, errors = {}, []
+
+    def session(name):
+        try:
+            req = requests[name]
+            t0 = time.perf_counter()
+            if name == "continue":
+                prompt = np.asarray(continue_from)
+                stream = service.continue_run(req, prompt, [0], select=0)
+            else:
+                if name == "midi":
+                    rows, dpc, dch = service.midi_prompt(req), False, None
+                else:
+                    rows, dpc, dch = service.custom_prompt(req)
+                prompt = np.asarray([rows] * service.batch_size)
+                stream = service.run(req, prompt_rows=rows, disable_patch_change=dpc,
+                                     disable_channels=dch)
+            # a session whose every variation ends on eos at once streams nothing
+            chunks = [np.zeros((service.batch_size, 0, prompt.shape[2]), np.int64)]
+            first = None
+            for chunk in stream:
+                first = first if first is not None else time.perf_counter() - t0
+                chunks.append(chunk)
+            results[name] = (prompt, np.concatenate(chunks, axis=1), first)
+        except BaseException as exc:  # re-raised by the caller's thread
+            errors.append(exc)
+
+    names = [n for n in APP_SESSIONS if n in requests]
+    threads = [threading.Thread(target=session, args=(n,)) for n in names]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    require(set(results) == set(names), f"sessions unfinished: {set(names) - set(results)}")
+    return results, wall
+
+
+def check_sessions(service, requests: dict, results: dict, out_dir: Path, what: str):
+    """Every streamed row obeys the grammar tables, a session with
+    instruments uses no disabled channel and no patch change, the
+    allow_cc=False session no control change; ``finish`` writes .mid files
+    that ``midi2score`` reads back.  Returns the generated events."""
+    import numpy as np
+
+    from midi_model_tpu_torch.midi import midi2score
+    from midi_model_tpu_torch.sampling import build_mask_table
+
+    tok = service.tokenizer
+    table = build_mask_table(tok)
+    events = 0
+    for name, (prompt, rows, _) in results.items():
+        flat = rows.reshape(-1, rows.shape[-1])
+        flat = flat[flat[:, 0] != tok.pad_id]  # a variation that ended is pad-filled
+        events += len(flat)
+        check_rows(flat, table, tok, f"{what} {name}")
+        req = requests[name]
+        if req.instruments:
+            _, _, disabled = service.custom_prompt(req)
+            banned = {tok.vocab.param_base("channel") + c for c in disabled}
+            require(not (set(flat.ravel().tolist()) & banned)
+                    and not (flat[:, 0] == tok.event_ids["patch_change"]).any(),
+                    f"{what} {name}: a disabled channel or a patch change")
+        if not req.allow_cc:
+            require(not (flat[:, 0] == tok.event_ids["control_change"]).any(),
+                    f"{what} {name}: a control change with allow_cc off")
+        seqs = np.concatenate([prompt, rows.astype(prompt.dtype)], axis=1)
+        paths = service.finish(seqs, out_dir=str(out_dir / f"{what}_{name}"))
+        require(len(paths) == service.batch_size, f"{what} {name}: {len(paths)} files")
+        for p in paths:
+            score = midi2score(Path(p).read_bytes())
+            require(score[0] == 480 and len(score) > 1, f"{what} {name}: {p} reads back {score[:1]}")
+    return events
+
+
+def phase_app(card: str, ckpt=None) -> dict:
+    """The serving app at tv2o-medium's full width (``serve/app.py``):
+
+    1. the native extensions and preprocessing (``native_and_preprocess``);
+    2. ``MidiGenerationService`` loaded as ``main`` loads it (``--ckpt``:
+       ``load_model`` with config.json beside the checkpoint, bf16; random
+       bf16 weights when ``ckpt`` is None) on the batched path
+       (``batcher_slots`` 32, ``chunk_size`` 16, ``context_limit`` 2048),
+       ``batch_size`` 4: one custom-prompt session alone, then four
+       sessions of 256 events at once on threads (the custom prompt with
+       instruments, bpm, time and key signature; a MIDI prompt from a
+       golden blob; allow_cc off; a continuation of the first session's
+       output); the same rounds again with the shared batcher's eos
+       disabled (every session to its budget: the streaming rate, as phase
+       5's budget churn).  The seeded custom session must give the same
+       rows alone and beside the others; events/s over all sessions, the
+       seconds to each session's first chunk;
+    3. one aligned session (``batcher_slots`` 0): ``sampling.generate`` on
+       a worker thread through the 8-event loop;
+    4. ``examples/demo_torch.py --events 64 --batch 4`` in a subprocess on
+       the card.
+
+    Returns the wrapper launches of steps 2 and 3 by kernel."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from midi_model_tpu_torch.models import MIDIModelConfig
+    from midi_model_tpu_torch.models.midinet import init_model
+    from midi_model_tpu_torch.ops import _build
+    from midi_model_tpu_torch.serve import BatcherService, ContinuousBatcher
+    from midi_model_tpu_torch.serve import app
+    from midi_model_tpu_torch.serve.app import GenerationRequest, MidiGenerationService
+
+    t_phase = time.perf_counter()
+    native_and_preprocess(card)
+    if ckpt is not None:
+        model, config = app.load_model(str(ckpt), "auto", device="cuda")
+    else:
+        config = MIDIModelConfig.from_name("tv2o-medium")
+        model = init_model(config, seed=8, dtype=torch.bfloat16, device="cuda")
+    require(model.dtype == torch.bfloat16 and model.device.type == "cuda",
+            f"app model: {model.dtype} on {model.device}")
+    blob = pickle.loads((ROOT / "tests/golden/codec.pkl").read_bytes())["rand_01"]["bytes"]
+    requests = {
+        "custom": GenerationRequest(instruments=["Acoustic Grand", "Violin", "Flute"],
+                                    drum_kit="Standard", bpm=120, time_signature="4/4",
+                                    key_signature=15, gen_events=APP_EVENTS, seed=1),
+        "midi": GenerationRequest(midi_bytes=blob, midi_events=128, gen_events=APP_EVENTS,
+                                  seed=2),
+        "no_cc": GenerationRequest(bpm=100, allow_cc=False, gen_events=APP_EVENTS, seed=3),
+        "continue": GenerationRequest(gen_events=APP_EVENTS, seed=4),
+    }
+    service = MidiGenerationService(model, config, batch_size=4, chunk_size=16,
+                                    context_limit=2048, batcher_slots=32)
+    require(service.batcher_service.batcher.path == "event_loop",
+            f"app batcher path: {service.batcher_service.batcher.path}")
+    launches = {}
+    rounds = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_app_out_") as tmp:
+        out_dir = Path(tmp)
+        for label in ("eos", "budget"):
+            if label == "budget":  # the shared batch with eos disabled
+                service.batcher_service.close()
+                service.batcher_service = BatcherService(ContinuousBatcher(
+                    model, config, n_slots=32, max_seq=2048, chunk=16, disable_eos=True))
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            alone, alone_s = app_sessions(service, {"custom": requests["custom"]}, None)
+            sessions, wall = app_sessions(service, requests, np.concatenate(
+                [alone["custom"][0], alone["custom"][1]], axis=1))
+            torch.cuda.synchronize()
+            counts = dict(_build.LAUNCHES)
+            add_counts(launches, counts)
+            events = check_sessions(service, requests, sessions, out_dir, f"app_{label}")
+            same = np.array_equal(alone["custom"][1], sessions["custom"][1])
+            require(same, f"app {label}: the seeded session's rows alone "
+                    f"{alone['custom'][1].shape} differ from its rows beside others "
+                    f"{sessions['custom'][1].shape}")
+            require(counts.get("event_loop_ragged", 0) > 0
+                    and counts.get("causal_attention", 0) > 0,
+                    f"app {label}: launches {counts}")
+            firsts = sorted(s[2] for s in sessions.values() if s[2] is not None)
+            rounds[label] = {
+                "events": events, "wall_s": wall, "events_per_s": events / wall,
+                "first_chunk_s": {n: s[2] for n, s in sessions.items()},
+                "first_chunk_s_p50": float(np.median(firsts)) if firsts else None,
+                "first_chunk_s_max": firsts[-1] if firsts else None,
+                "rows_per_session": {n: int(s[1].shape[1]) for n, s in sessions.items()},
+                "alone": {"events": int((alone["custom"][1][:, :, 0]
+                                         != config.tokenizer.pad_id).sum()),
+                          "wall_s": alone_s, "first_chunk_s": alone["custom"][2]},
+                "launches": counts}
+        service.close()
+        require(rounds["budget"]["events"] == 4 * 4 * APP_EVENTS,
+                f"app budget round: {rounds['budget']['events']} events")
+        emit({"phase": "app_batched", "slots": 32, "batch_size": 4, "chunk_size": 16,
+              "context_limit": 2048, "weights": "checkpoint" if ckpt else "random",
+              "rounds": rounds, "card": card})
+
+        # 3. the aligned path: one session, generate on a worker thread
+        aligned = MidiGenerationService(model, config, batch_size=4, chunk_size=16,
+                                        context_limit=2048)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        one, wall = app_sessions(aligned, {"custom": requests["custom"]}, None)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        add_counts(launches, counts)
+        events = check_sessions(aligned, requests, one, out_dir, "app_aligned")
+        require(counts.get("event_loop", 0) > 0, f"app aligned: launches {counts}")
+        emit({"phase": "app_aligned", "batch_size": 4, "events": events, "wall_s": wall,
+              "events_per_s": events / wall, "first_chunk_s": one["custom"][2],
+              "launches": counts, "card": card})
+        del aligned, service, model
+        torch.cuda.empty_cache()
+
+        # 4. the demo script on the card
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / "demo_torch.py"), "--events", "64",
+             "--batch", "4", "--out", str(out_dir / "demo")],
+            capture_output=True, text=True, timeout=600, cwd=str(ROOT))
+        demo_s = time.perf_counter() - t0
+        mids = sorted((out_dir / "demo").glob("*.mid"))
+        require(proc.returncode == 0 and len(mids) == 4,
+                f"demo_torch.py: rc {proc.returncode}, {len(mids)} files: {proc.stderr[-2000:]}")
+        emit({"phase": "app_demo", "seconds": demo_s, "files": len(mids),
+              "stdout_tail": proc.stdout.strip().splitlines()[-5:], "card": card})
+    emit({"phase": "app", "seconds": time.perf_counter() - t_phase, "launches": launches,
+          "card": card})
+    return launches
+
+
 SOURCES = {
     "sampler": ("midi_model_tpu_torch/csrc/sampler.cu", "midi_model_tpu/ops/sampler.py:39"),
     "paged_decode": ("midi_model_tpu_torch/csrc/paged_decode.cu",
@@ -2874,6 +3281,10 @@ def main(argv=()) -> int:
                         help="build, write a run directory with one step of phase 6's CLI, "
                         "run phase 7 (the MIDIModel facade, LoRA, remat policies, publish, "
                         "export) on it, and stop (no result line)")
+    parser.add_argument("--app", action="store_true",
+                        help="build, run phase 8 (the native extensions, preprocessing, the "
+                        "serving app batched and aligned, the demo) on random bf16 weights, "
+                        "and stop (no result line)")
     args = parser.parse_args(list(argv))
     if not (ROOT / "midi_model_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: the midi_model_tpu_torch package is not beside this script",
@@ -2895,6 +3306,9 @@ def main(argv=()) -> int:
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
     phase_build(card, verbose=args.attention or args.paged or args.sampler)
+    if args.app:
+        phase_app(card)
+        return 0
     if args.api:
         from midi_model_tpu_torch.train import cli
 
@@ -2946,6 +3360,7 @@ def main(argv=()) -> int:
     corpus = training_corpus()
     launches.update(phase_train(card, corpus))
     api_launches = phase_api(card, corpus)
+    app_launches = phase_app(card, corpus[1] / "run" / "checkpoints" / "model.safetensors")
     shutil.rmtree(corpus[1], ignore_errors=True)
     require("jax" not in sys.modules, "jax was imported")
     require(not any(m == "midi_model_tpu" or m.startswith("midi_model_tpu.")
@@ -2955,6 +3370,7 @@ def main(argv=()) -> int:
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "api_launches": api_launches.get(name, 0),
+         "app_launches": app_launches.get(name, 0),
          **{k: results[name][k] for k in keys}}
         for name, (src, replaces) in SOURCES.items()]})
     print(card, flush=True)

@@ -1,7 +1,8 @@
 """Standard MIDI File codec: ``bytes`` ⇄ ``opus`` ⇄ ``score``.
 
-The port's own copy of ``midi_model_tpu/midi/codec.py``, Python only (the
-JAX package's optional native decoder is not ported).
+The port's own copy of ``midi_model_tpu/midi/codec.py``; decoding
+dispatches to the port's native C++ decoder (``midi_model_tpu_torch.native``)
+where it builds, and runs the Python path below otherwise.
 
 Event model (kept list-based for drop-in familiarity with the reference API,
 see the reference's MIDI.py:41-77 for the event catalogue):
@@ -45,6 +46,12 @@ __all__ = [
     "midi2ms_score",
 ]
 
+
+def _native_codec():
+    """The optional C++ decoder (``native/midicodec.cpp``), or None."""
+    from ..native import native_codec
+
+    return native_codec()
 
 # Meta-event command byte -> event name for fixed-layout metas handled specially.
 _TEXT_META_NAMES = {
@@ -238,9 +245,13 @@ def midi2opus(midi: bytes = b"") -> list:
     Parity: reference midi2opus (the reference's MIDI.py:304-343), including its
     graceful handling of malformed headers/tracks (returns partial results).
 
-    The port's copy is Python only (the JAX package's native C++ decoder is
-    not ported).
+    Dispatches to the native C++ decoder when it builds
+    (midi_model_tpu_torch.native); the python path below is the
+    always-available reference implementation.
     """
+    native = _native_codec()
+    if native is not None:
+        return native.midi2opus(bytes(midi))
     return _py_midi2opus(midi)
 
 
@@ -273,6 +284,9 @@ def opus2score(opus: Optional[list] = None) -> list:
     - a fused note is emitted at the position of its note_off in the stream;
     - unterminated notes are closed at the final track time and appended last.
     """
+    native = _native_codec()
+    if native is not None and isinstance(opus, list) and len(opus) >= 2:
+        return native.opus2score(opus)
     return _py_opus2score(opus)
 
 
@@ -310,6 +324,9 @@ def _py_opus2score(opus: Optional[list] = None) -> list:
 
 def midi2score(midi: bytes = b"") -> list:
     """MIDI bytes -> score. Parity: reference midi2score (MIDI.py:398)."""
+    native = _native_codec()
+    if native is not None:
+        return native.midi2score(bytes(midi))
     return _py_opus2score(_py_midi2opus(midi))
 
 

@@ -27,6 +27,8 @@ from typing import List, Tuple
 
 import torch
 
+from ..utils.build import build_once
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "midi_model_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -101,12 +103,11 @@ def nvcc_commands(out: Path) -> Tuple[List[List[str]], List[str]]:
 
 def build(verbose: bool = False) -> Path:
     """Compile the library if this source hash has none yet; return its path."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    compiles, link = nvcc_commands(tmp)
+    return build_once(library_path(), functools.partial(_compile, verbose=verbose))
+
+
+def _compile(out: Path, verbose: bool) -> None:
+    compiles, link = nvcc_commands(out)
     if verbose:
         for cmd in compiles:
             cmd[1:1] = ["-Xptxas", "-v"]
@@ -120,11 +121,9 @@ def build(verbose: bool = False) -> Path:
             _check_nvcc(cmd, code, err, verbose)
         proc = subprocess.run(link, capture_output=True, text=True)
         _check_nvcc(link, proc.returncode, proc.stderr, verbose)
-        os.replace(tmp, out)
     finally:
         for cmd in compiles:
             Path(cmd[cmd.index("-o") + 1]).unlink(missing_ok=True)
-    return out
 
 
 def _check_nvcc(cmd: List[str], code: int, stderr: str, verbose: bool) -> None:

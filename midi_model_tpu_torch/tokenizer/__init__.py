@@ -2,8 +2,9 @@
 
 The port's own copy of ``midi_model_tpu/tokenizer/`` (the port imports
 nothing of the JAX package); held equal to it by
-``tests/test_torch_tokenizer.py``.  The C++ scan of the JAX package's
-``native/`` is not ported yet: tokenizing always takes the Python scan."""
+``tests/test_torch_tokenizer.py``.  Tokenizing takes the port's C++ scan
+(``midi_model_tpu_torch.native``) where it builds, the Python scan
+otherwise; both give the same rows."""
 
 from .base import EventTokenizerBase
 from .v1 import MIDITokenizerV1

@@ -806,10 +806,11 @@ class EventTokenizerBase:
 
 
 def _native_scan():
-    """The optional C++ scan-phase module.  The port has no native extension
-    yet (the JAX package's native/tokenizer_scan.cpp is still to port), so
-    the Python scan runs."""
-    return None
+    """The optional C++ scan-phase module (native/tokenizer_scan.cpp), or
+    None where it does not build: then the Python scan runs."""
+    from ..native import native_tokenizer_scan
+
+    return native_tokenizer_scan()
 
 
 class _ScanState:

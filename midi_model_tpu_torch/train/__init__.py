@@ -1,29 +1,32 @@
 """Training on one device: data pipeline, optimizer and schedule, the
-train step, checkpoints, and the CLI (``python -m
-midi_model_tpu_torch.train.cli``)."""
+train step, checkpoints, the CLI (``python -m
+midi_model_tpu_torch.train.cli``) and corpus preprocessing (``python -m
+midi_model_tpu_torch.train.preprocess``).
 
-from .data import DataLoader, MidiDataset, find_midi_files
-from .sched import linear_warmup_decay
-from .trainer import (
-    TrainState,
-    eval_step,
-    init_params,
-    init_train_state,
-    loss_fn,
-    make_optimizer,
-    make_train_step,
-)
+The names below load with their module on first access, so a process that
+needs only the host side (a preprocessing worker: ``preprocess`` and
+``data``) does not import torch."""
 
-__all__ = [
-    "DataLoader",
-    "MidiDataset",
-    "TrainState",
-    "eval_step",
-    "find_midi_files",
-    "init_params",
-    "init_train_state",
-    "linear_warmup_decay",
-    "loss_fn",
-    "make_optimizer",
-    "make_train_step",
-]
+import importlib
+
+_EXPORTS = {
+    "DataLoader": "data",
+    "MidiDataset": "data",
+    "find_midi_files": "data",
+    "linear_warmup_decay": "sched",
+    "TrainState": "trainer",
+    "eval_step": "trainer",
+    "init_params": "trainer",
+    "init_train_state": "trainer",
+    "loss_fn": "trainer",
+    "make_optimizer": "trainer",
+    "make_train_step": "trainer",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    if name in _EXPORTS:
+        return getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

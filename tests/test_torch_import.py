@@ -59,17 +59,25 @@ def test_import_whole_port_without_jax():
                         or (m == "midi_model_tpu" and sys.modules[m] is not None))
         assert not loaded, loaded
         assert "triton" not in sys.modules and "safetensors" not in sys.modules
+        # importing builds nothing and imports no UI toolkit
+        assert "gradio" not in sys.modules and "fluidsynth" not in sys.modules
+        from midi_model_tpu_torch import native
+        assert native._modules == {}
+        assert not any(m.endswith("._midicodec") or m.endswith("._tokenizer_scan")
+                       for m in sys.modules)
         for new in ("train.cli", "train.trainer", "train.data", "train.checkpoint",
                     "train.metrics", "train.sched", "midi.codec", "midi.utils",
                     "interop.safetensors_io", "ops.attention", "models.api", "models.lora",
-                    "interop.publish", "interop.export", "serve.artifact_runner"):
+                    "interop.publish", "interop.export", "serve.artifact_runner",
+                    "native", "native.build", "train.preprocess", "utils",
+                    "utils.profiling", "utils.build", "serve.app", "serve.synth"):
             assert "midi_model_tpu_torch." + new in names, new
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 32
+    assert int(out.stdout.strip()) >= 39
 
 
 def test_chip_smoke_imports_nothing_of_jax():
@@ -120,6 +128,30 @@ def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device() == torch.device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_app_defaults_to_the_card(monkeypatch, tmp_path):
+    """The serving app's loader and ``main`` build on the card: without one,
+    and without ``--device cpu``, they raise before any UI is built; the
+    service follows the model's device."""
+    from midi_model_tpu_torch.interop import save_file, synthesize_state_dict
+    from midi_model_tpu_torch.serve import MidiGenerationService
+    from midi_model_tpu_torch.serve import app
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    layout = [(k, tuple(v.shape)) for k, v in
+              MIDINet(SMALL, device="meta").state_dict().items()]
+    save_file(synthesize_state_dict(layout, 0), str(tmp_path / "model.safetensors"))
+    SMALL.save_pretrained(str(tmp_path))
+    ckpt = str(tmp_path / "model.safetensors")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        app.load_model(ckpt)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        app.main(["--ckpt", ckpt])
+    assert app.resolve_batcher_slots(-1) == 32
+    model, config = app.load_model(ckpt, device="cpu")
+    service = MidiGenerationService(model, config, batch_size=1)
+    assert service.device.type == "cpu" and model.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("name", KERNELS)

@@ -1,12 +1,13 @@
 """The port's own tokenizer (``midi_model_tpu_torch.tokenizer``) against the
 JAX package's and the reference goldens (``tests/golden/tokenizer.pkl``),
 mirroring ``tests/test_tokenizer.py``: vocab layout, tokenize, detokenize
-and the second pass identical, ``to_dict`` equal, and the Python scan (the
-port has no native scan) equal to the JAX package's tokenizer, whichever
-scan that one runs."""
+and the second pass identical, ``to_dict`` equal, and both of the port's
+scans (Python, and native where it builds) equal to the JAX package's
+tokenizer, whichever scan that one runs."""
 
 import pickle
 import random
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -70,10 +71,22 @@ def test_tokenize_and_detokenize_match_golden(goldens, scores, key):
 
 
 @pytest.mark.parametrize("key", CONFIGS)
-def test_python_scan_matches_jax_tokenizer(scores, key):
-    """The port always takes the Python scan; the JAX package's tokenizer
-    (native scan when built) gives the same rows."""
-    assert torch_base._native_scan() is None
+def test_python_scan_matches_jax_tokenizer(scores, key, monkeypatch):
+    """The port's Python scan (the native one patched away) gives the JAX
+    package's tokenizer's rows (native scan when built)."""
+    monkeypatch.setattr(torch_base, "_native_scan", lambda: None)
+    tok, jtok = make_tok(key), make_tok(key, JaxTokenizer)
+    for name, score in scores.items():
+        assert tok.tokenize(score) == jtok.tokenize(score), f"{key}/{name}"
+
+
+@pytest.mark.parametrize("key", CONFIGS)
+def test_native_scan_matches_jax_tokenizer(scores, key):
+    """The port's native scan (``native/tokenizer_scan.cpp``, built at first
+    use) gives the JAX package's tokenizer's rows too."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is missing: the native scan cannot build")
+    assert torch_base._native_scan() is not None
     tok, jtok = make_tok(key), make_tok(key, JaxTokenizer)
     for name, score in scores.items():
         assert tok.tokenize(score) == jtok.tokenize(score), f"{key}/{name}"

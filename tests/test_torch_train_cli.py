@@ -186,8 +186,8 @@ def test_remat_policy_cli(corpus, tmp_path, policy):
 
 
 def test_midi_codec_copy_matches_jax(goldens):
-    """The port's Python-only ``midi`` copy decodes and re-encodes every
-    golden like the JAX package (and the goldens)."""
+    """The port's ``midi`` copy (its native decoder where it builds) decodes
+    and re-encodes every golden like the JAX package (and the goldens)."""
     for name, g in goldens.items():
         assert midi.midi2opus(g["bytes"]) == jax_midi2opus(g["bytes"]) == g["opus"], name
         score = midi.midi2score(g["bytes"])
