@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``midi_model_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--attention | --paged | --sampler | --api | --app]
+    python3 chip_smoke.py [--attention | --paged | --sampler | --api | --app | --mesh]
 
 With ``--attention``: phase 1 with ptxas' register and spill report, the
 causal attention checks of phase 2, phase 6's step-0 checks and its timed
@@ -12,9 +12,9 @@ result line.  ``--sampler``: phase 1 with the same report, phase 2's sampler
 checks and timings and its token row check (the sample phase's µs at top_k
 20 and 128), and no result line.  ``--api``: phase 1, one step of phase 6's
 CLI to write a run directory, phase 7 on it, and no result line.  ``--app``:
-phase 1, phase 8 on random bf16 weights, and no result line.  Otherwise
-all phases, each printing one JSON line; any failed check raises, so the
-script exits non-zero:
+phase 1, phase 8 on random bf16 weights, and no result line.  ``--mesh``:
+phase 1, phase 9, and no result line.  Otherwise all phases, each printing
+one JSON line; any failed check raises, so the script exits non-zero:
 
 1. build   — compile the port's CUDA kernels from ``midi_model_tpu_torch/csrc``
              and count HGMMA / HMMA in the SASS of each attention kernel
@@ -74,7 +74,8 @@ script exits non-zero:
              kernels read from its own run; a timed prefill + 256-event
              ``decode_events`` run with eos disabled on five paths in turns
              (8-event launches, per-event fused launches, split; int8 pair,
-             int8 split), with kernel launches per event; and
+             int8 split; the fused ones twice, the split ones once), with
+             kernel launches per event; and
              ``generate`` from a random 1024-event prompt; every generated
              row must obey the grammar mask tables;
 5. batcher — the continuous batcher at 32 slots, max_seq 2048, chunk 16,
@@ -117,10 +118,32 @@ script exits non-zero:
              events/s and the seconds to each first chunk, the ragged event
              loop and the attention forward launched; one aligned session
              through the 8-event loop; ``examples/demo_torch.py`` on the
-             card.
+             card;
+9. mesh    — multi-device serving (``phase_mesh``), every rank a process
+             on a card.  On one card NCCL refuses two ranks, so the
+             multi-rank runs go over gloo (CUDA tensors all-reduced through
+             the host), and one world-size-1 run over NCCL; with several
+             cards the ranks spread over them and the NCCL run takes two.
+             Two ranks: rank 0 holds the paged cell and streaming kernels
+             at a tp=2 shard's 8 heads and the causal attention forward at
+             [32, 1024, 8, 64] against their plain versions; tp=2 at
+             tv2o-large's full width and depth, greedy, on f32 weights with
+             f32 and int8 pools and on bf16 (``generate_tp`` at bs=32,
+             256 + 64 events, against one device's split path on the same
+             token path; the tp batcher at 32 slots over 48 requests, 16
+             on f32 weights, against the single-device batcher): every
+             differing row a near-tie, the hidden after 24 layers within
+             TP_DEEP_TOLS;
+             dp=2 at tv2o-medium (``generate_dp`` shards and the dp batcher
+             equal to one device's).  Four ranks: the dp=2 x tp=2 batcher
+             at tv2o-medium's width and 4 layers.  NCCL: ``make_mesh()``,
+             an all-reduce, ``generate_tp`` equal to ``generate`` (near-ties
+             at tp=2).  Readings: launches per rank, events/s, all-reduces
+             per event and their ms.  No reading is a scaling figure.
 
 Then the kernel summary line (with each kernel's launches in phase 7 as
-``api_launches`` and in phase 8 as ``app_launches``), the card's
+``api_launches``, in phase 8 as ``app_launches`` and in phase 9's mesh
+runs, rank 0's, as ``mesh_launches``), the card's
 ``nvidia-smi`` name and power limit,
 and the result line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the package beside it, the script fails before any result.
@@ -128,6 +151,7 @@ device, or without the package beside it, the script fails before any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pickle
 import shutil
@@ -482,10 +506,11 @@ def check_sampler(card: str, gen) -> dict:
     return result
 
 
-def check_paged_cell(card: str, gen) -> dict:
+def check_paged_cell(card: str, gen, heads: int = 16) -> dict:
     """The cell paged kernel with append against its plain version at B=32,
-    16 heads x 64, pages of 64 rows, capacity 1024: the main path's MHA on
-    f32 and bf16 pools, and GQA (16 over 4 heads) on f32 pools; empty
+    ``heads`` x 64 (16; 8 a model shard's under tp=2), pages of 64 rows,
+    capacity 1024: the main path's MHA on f32 and bf16 pools, and GQA
+    (``heads`` over a quarter as many kv heads) on f32 pools; empty
     slots, one row, page edges and a slot at capacity whose clipped append
     lands on a row the call reads.  o within 1e-4 (f32 sums in another
     order); the pools after the append equal kv_append's.  Returns the
@@ -495,7 +520,7 @@ def check_paged_cell(card: str, gen) -> dict:
     from midi_model_tpu_torch.ops import paged_allheads as pa
 
     dev = torch.device("cuda")
-    b, h, d, ps, pps, n_layers = 32, 16, 64, 64, 16, 2
+    b, h, d, ps, pps, n_layers = 32, heads, 64, 64, 16, 2
     cap = ps * pps
     lengths = torch.tensor(SMOKE_LENGTHS, dtype=torch.int32, device=dev)
     li = 1
@@ -504,7 +529,7 @@ def check_paged_cell(card: str, gen) -> dict:
     wpages = base + write_pos // ps
     woffs = write_pos % ps
     worst = {}
-    for dtype, hkv in ((torch.float32, 16), (torch.bfloat16, 16), (torch.float32, 4)):
+    for dtype, hkv in ((torch.float32, h), (torch.bfloat16, h), (torch.float32, h // 4)):
         w = hkv * pa.head_stride(d, hkv)
         k_pool = torch.randn((n_layers * b * pps, ps, w), generator=gen, device=dev).to(dtype)
         v_pool = torch.randn((n_layers * b * pps, ps, w), generator=gen, device=dev).to(dtype)
@@ -535,6 +560,62 @@ def check_paged_cell(card: str, gen) -> dict:
     return worst
 
 
+def attention_case(b: int, s: int, h: int, hkv: int, dh: int, dtype, strided: bool,
+                   timed: bool, g) -> dict:
+    """One case of :func:`check_attention` (its checks and, ``timed``, its
+    times beside SDPA and its bound); inputs drawn from ``g``."""
+    import torch
+
+    from midi_model_tpu_torch.ops import attention as at
+
+    dev = torch.device("cuda")
+    f32_tol = dict(atol=5e-5, rtol=1e-4)
+    bf16_tol = dict(atol=2e-2, rtol=2e-2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    name = f"{dtype}[{b},{s},{h},{hkv},{dh}]"
+    if strided:
+        q = torch.randn((b, s, h, 2 * dh), generator=g, device=dev).to(dtype)[..., :dh]
+    else:
+        q = torch.randn((b, s, h, dh), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, s, hkv, dh), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, s, hkv, dh), generator=g, device=dev).to(dtype)
+    out = at.causal_attention(q, k, v)
+    out_l, lse = at._forward(q, k, v, with_lse=True)
+    ref, lse_r = at._reference_with_lse(q, k, v, at.causal_bias(s, dev))
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    lse_err = float((lse - lse_r).abs().max())
+    require(bool(torch.isfinite(out.float()).all()), f"causal attention {name}: non-finite")
+    require(torch.allclose(out.float(), ref.float(), **(f32_tol if dtype == f32 else bf16_tol)),
+            f"causal attention {name}: differs by {float(diff.max())}")
+    require(torch.equal(out_l, out), f"causal attention {name}: the output differs "
+            f"when the LSE is written")
+    require(torch.allclose(lse, lse_r, **LSE_TOL),
+            f"causal attention {name}: the LSE differs by {lse_err}")
+    case = {"max_abs_err": float(diff.max()), "mean_abs_err": float(diff.mean()),
+            "lse_max_abs_err": lse_err}
+    del out, out_l, lse, ref, lse_r, diff
+    if timed:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        size = 2 if dtype == bf16 else 4
+        # q, k, v read and out written once; two products over the causal pairs
+        n_bytes, n_ops = 4 * b * s * h * dh * size, 4 * b * h * dh * s * (s + 1) // 2
+        case.update({
+            "ms": time_ms(lambda: at.causal_attention(q, k, v), 10),
+            "plain_ms": time_ms(lambda: at.attention_reference(
+                q, k, v, at.causal_bias(s, dev)), 3),
+            # one PyTorch call for the same function, timed here only
+            "library_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 10),
+            **bound(n_bytes, n_ops, attention_route(dtype, dh)),
+        })
+        if dtype == f32:  # the same work on the CUDA cores' f32 rate
+            case["bound_ffma_ms"] = bound(n_bytes, n_ops, "f32")["bound_ms"]
+    del q, k, v
+    torch.cuda.empty_cache()
+    return case
+
+
 def check_attention(card: str, gen) -> dict:
     """The causal attention forward against its plain version
     (``attention_reference`` under the causal bias, on the same inputs):
@@ -557,11 +638,7 @@ def check_attention(card: str, gen) -> dict:
     (``_reference_with_lse``) within LSE_TOL."""
     import torch
 
-    from midi_model_tpu_torch.ops import attention as at
-
     dev = torch.device("cuda")
-    f32_tol = dict(atol=5e-5, rtol=1e-4)
-    bf16_tol = dict(atol=2e-2, rtol=2e-2)
     bf16, f32 = torch.bfloat16, torch.float32
     # the first three cases draw from the phase's generator, the others from
     # their own, so the later checks' inputs do not depend on this case list
@@ -583,48 +660,8 @@ def check_attention(card: str, gen) -> dict:
               (2, 2047, 16, 4, 64, f32, True, False, f32_gen)]
     by_case = {}
     for b, s, h, hkv, dh, dtype, strided, timed, g in cases:
-        name = f"{dtype}[{b},{s},{h},{hkv},{dh}]"
-        if strided:
-            q = torch.randn((b, s, h, 2 * dh), generator=g, device=dev).to(dtype)[..., :dh]
-        else:
-            q = torch.randn((b, s, h, dh), generator=g, device=dev).to(dtype)
-        k = torch.randn((b, s, hkv, dh), generator=g, device=dev).to(dtype)
-        v = torch.randn((b, s, hkv, dh), generator=g, device=dev).to(dtype)
-        out = at.causal_attention(q, k, v)
-        out_l, lse = at._forward(q, k, v, with_lse=True)
-        ref, lse_r = at._reference_with_lse(q, k, v, at.causal_bias(s, dev))
-        torch.cuda.synchronize()
-        diff = (out.float() - ref.float()).abs()
-        lse_err = float((lse - lse_r).abs().max())
-        require(bool(torch.isfinite(out.float()).all()), f"causal attention {name}: non-finite")
-        require(torch.allclose(out.float(), ref.float(), **(f32_tol if dtype == f32 else bf16_tol)),
-                f"causal attention {name}: differs by {float(diff.max())}")
-        require(torch.equal(out_l, out), f"causal attention {name}: the output differs "
-                f"when the LSE is written")
-        require(torch.allclose(lse, lse_r, **LSE_TOL),
-                f"causal attention {name}: the LSE differs by {lse_err}")
-        case = {"max_abs_err": float(diff.max()), "mean_abs_err": float(diff.mean()),
-                "lse_max_abs_err": lse_err}
-        del out, out_l, lse, ref, lse_r, diff
-        if timed:
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            size = 2 if dtype == bf16 else 4
-            # q, k, v read and out written once; two products over the causal pairs
-            n_bytes, n_ops = 4 * b * s * h * dh * size, 4 * b * h * dh * s * (s + 1) // 2
-            case.update({
-                "ms": time_ms(lambda: at.causal_attention(q, k, v), 10),
-                "plain_ms": time_ms(lambda: at.attention_reference(
-                    q, k, v, at.causal_bias(s, dev)), 3),
-                # one PyTorch call for the same function, timed here only
-                "library_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 10),
-                **bound(n_bytes, n_ops, attention_route(dtype, dh)),
-            })
-            if dtype == f32:  # the same work on the CUDA cores' f32 rate
-                case["bound_ffma_ms"] = bound(n_bytes, n_ops, "f32")["bound_ms"]
-        by_case[name] = case
-        del q, k, v
-        torch.cuda.empty_cache()
+        by_case[f"{dtype}[{b},{s},{h},{hkv},{dh}]"] = attention_case(
+            b, s, h, hkv, dh, dtype, strided, timed, g)
     result = dict(by_case[f"{bf16}[4,2048,16,16,64]"])
     result["max_abs_err"] = max(c["max_abs_err"] for n, c in by_case.items() if str(bf16) in n)
     result_f32 = dict(by_case[f"{f32}[2,2047,16,16,64]"])
@@ -643,10 +680,11 @@ SMOKE_LENGTHS = ([0, 1, 63, 64, 1000, 1024, 65, 127, 128, 500, 999, 2] * 3)[:32]
 RAGGED_LENGTHS = [0, 0, 320, 256, 1, 63, 64, 65, 2048, 1000, 2047, 500, 5, 17, 129, 700] * 2
 
 
-def check_paged_stream(card: str, gen) -> dict:
+def check_paged_stream(card: str, gen, heads: int = 16) -> dict:
     """The streaming paged decode on bf16, f32 and int8 pools and the cell
     kernel on int8 pools, against the plain version, at the batcher's
-    shapes: B=32, 16 heads x 64, pages of 64, capacity 2048.  Ragged
+    shapes: B=32, ``heads`` x 64 (16; 8 a model shard's under tp=2), pages
+    of 64, capacity 2048.  Ragged
     lengths: 0, an inactive slot (length 0), one full block plus one page
     (320 rows), whole blocks, one row, and a slot at capacity whose clipped
     append lands on a row the call reads; the GQA form too.  o, m, l within
@@ -659,7 +697,7 @@ def check_paged_stream(card: str, gen) -> dict:
     from midi_model_tpu_torch.ops import paged_allheads as pa
 
     dev = torch.device("cuda")
-    b, h, d, ps, pps, n_layers = 32, 16, 64, 64, 32, 2
+    b, h, d, ps, pps, n_layers = 32, heads, 64, 64, 32, 2
     cap = ps * pps
     lengths = torch.tensor(RAGGED_LENGTHS, dtype=torch.int32, device=dev)
     inactive = 1  # the batcher gives an inactive slot length 0
@@ -698,9 +736,9 @@ def check_paged_stream(card: str, gen) -> dict:
     def clone(pools):
         return pa.PagedPools(*(None if t is None else t.clone() for t in pools))
 
-    cases = [("bf16", torch.bfloat16, 16, True), ("f32", torch.float32, 16, True),
-             ("int8", torch.int8, 16, True), ("int8 cell", torch.int8, 16, False),
-             ("f32 gqa", torch.float32, 4, True), ("int8 gqa", torch.int8, 4, True)]
+    cases = [("bf16", torch.bfloat16, h, True), ("f32", torch.float32, h, True),
+             ("int8", torch.int8, h, True), ("int8 cell", torch.int8, h, False),
+             ("f32 gqa", torch.float32, h // 4, True), ("int8 gqa", torch.int8, h // 4, True)]
     for name, dtype, hkv, streaming in cases:
         decode = pa.paged_decode_stream if streaming else pa.paged_decode_cell
         w = hkv * pa.head_stride(d, hkv)
@@ -735,18 +773,20 @@ def check_paged_stream(card: str, gen) -> dict:
 COLD_SWEEP_BYTES = 100e6
 
 
-def paged_bytes(lengths, b: int, h: int, hkv: int, d: int, w: int, dtype) -> int:
-    """The bytes a paged decode call with append must move: each live row's
-    k and v once (int8: one bf16 k and one v scale per kv head), q in,
-    o, m, l out, the appended rows in and out (int8: with their scale row),
-    and the four int32 vectors."""
+def paged_bytes(lengths, b: int, h: int, hkv: int, d: int, w: int, dtype,
+                append: bool = True) -> int:
+    """The bytes a paged decode call (with append) must move: each live
+    row's k and v once (int8: one bf16 k and one v scale per kv head), q
+    in, o, m, l out, the appended rows in and out (int8: with their scale
+    row), and the four int32 vectors."""
     import torch
 
     from midi_model_tpu_torch.ops import paged_allheads as pa
 
     elt = torch.empty((), dtype=dtype).element_size()
     row = 2 * w * elt + (2 * hkv * 2 if dtype == torch.int8 else 0)
-    append = 2 * 2 * b * w * elt + (2 * b * pa.LANE * 2 if dtype == torch.int8 else 0)
+    append = (2 * 2 * b * w * elt + (2 * b * pa.LANE * 2 if dtype == torch.int8 else 0)
+              if append else 0)
     return int(sum(lengths)) * row + b * h * d * 4 * 2 + b * h * 8 + append + b * 16
 
 
@@ -2014,8 +2054,9 @@ def phase_slice(card: str) -> dict:
         emit({"phase": "slice_generate", "path": path, "batch": batch,
               "rows_shape": list(rows.shape), "launches": counts, "card": card})
 
-    # bench.py-shaped timed run: prefill + 256 events, eos disabled, three
-    # paths in turns (8-event launches, per-event fused launches, split; twice)
+    # bench.py-shaped timed run: prefill + 256 events, eos disabled, the
+    # paths below in turns: the fused ones twice, the host-bound split ones
+    # (~16 s a run) once
     n_events = 256
     prompt = normalize_prompt(tokenizer, None, batch)
     table_ne = build_mask_table(tokenizer, disable_eos=True)
@@ -2042,7 +2083,7 @@ def phase_slice(card: str) -> dict:
     per_event = {}
     for path in paths:
         run(8, path)  # warm-up
-    for path in list(paths) * 2:
+    for path in list(paths) + [path for path, (fused, _, _) in paths.items() if fused]:
         torch.cuda.synchronize()
         _build.LAUNCHES.clear()
         t0 = time.perf_counter()
@@ -2090,6 +2131,50 @@ def phase_slice(card: str) -> dict:
     return launches
 
 
+BANNED_CHANNELS = [2, 9]  # every fifth queued request bans them
+
+
+def random_prompt(tok, rng, n: int):
+    """A random ``[n, T]`` prompt from ``rng``, bos first."""
+    rows = rng.integers(3, tok.vocab_size, (n, tok.max_token_seq))
+    rows[0] = tok.pad_id
+    rows[0, 0] = tok.bos_id
+    return rows
+
+
+def request_queue(tok, rng, n: int, prompts: tuple, budgets: tuple) -> list:
+    """``n`` requests (prompt rows, budget, submit keywords) drawn from
+    ``rng``: prompt lengths and budgets from ``prompts`` / ``budgets``
+    (half-open); every fourth request with its own temp / top_p / top_k,
+    every fifth with BANNED_CHANNELS."""
+    out = []
+    for i in range(n):
+        extra = {}
+        if i % 4 == 1:
+            extra.update(temp=0.9, top_p=0.9, top_k=8)
+        if i % 5 == 2:
+            extra.update(disable_channels=BANNED_CHANNELS)
+        out.append((random_prompt(tok, rng, int(rng.integers(*prompts))),
+                    int(rng.integers(*budgets)), extra))
+    return out
+
+
+def check_queue(records, requests, tok, disable_eos: bool, what: str) -> None:
+    """Each request's (rows, reason) in ``records`` ended on eos or decoded
+    its budget, obeys the grammar and its bans."""
+    from midi_model_tpu_torch.sampling import build_mask_table
+
+    table = build_mask_table(tok, disable_eos=disable_eos)
+    chan = {tok.vocab.param_base("channel") + c for c in BANNED_CHANNELS}
+    for i, ((rows, reason), (_, budget, extra)) in enumerate(zip(records, requests)):
+        require(len(rows) <= budget and (reason == "eos" or len(rows) == budget),
+                f"{what} request {i}: {len(rows)} rows of {budget}, reason {reason}")
+        if len(rows):
+            check_rows(rows[None], table, tok, f"{what} request {i}")
+            if "disable_channels" in extra:
+                require(not set(rows.ravel().tolist()) & chan, f"{what} request {i}: a ban")
+
+
 def phase_batcher(card: str, kv_int8: bool, fused=None):
     """The continuous batcher at tv2o-medium's full width, bf16 weights:
     32 slots, max_seq 2048, chunk 16, a queue of requests with prompts of
@@ -2116,7 +2201,6 @@ def phase_batcher(card: str, kv_int8: bool, fused=None):
     from midi_model_tpu_torch.models import MIDIModelConfig
     from midi_model_tpu_torch.models.midinet import init_model
     from midi_model_tpu_torch.ops import _build
-    from midi_model_tpu_torch.sampling import build_mask_table
     from midi_model_tpu_torch.serve import ContinuousBatcher
 
     dev = torch.device("cuda")
@@ -2127,27 +2211,10 @@ def phase_batcher(card: str, kv_int8: bool, fused=None):
     path = "split" if fused is False else "pair" if kv_int8 else "event_loop"
     rng = np.random.default_rng(21 if kv_int8 else 20)
     n_req = 48 if kv_int8 else 64
-    banned = [2, 9]
-    chan_ids = {tok.vocab.param_base("channel") + c for c in banned}
-
-    def prompt(n):
-        rows = rng.integers(3, tok.vocab_size, (n, tok.max_token_seq))
-        rows[0] = tok.pad_id
-        rows[0, 0] = tok.bos_id
-        return rows
-
-    requests = []
-    for i in range(n_req):
-        extra = {}
-        if i % 4 == 1:
-            extra.update(temp=0.9, top_p=0.9, top_k=8)
-        if i % 5 == 2:
-            extra.update(disable_channels=banned)
-        requests.append((prompt(int(rng.integers(16, 1025))), int(rng.integers(64, 513)), extra))
+    requests = request_queue(tok, rng, n_req, (16, 1025), (64, 513))
 
     def run_queue(disable_eos: bool) -> dict:
         """The whole queue through one batcher; its metrics and launches."""
-        table = build_mask_table(tok, disable_eos=disable_eos)
         batcher = ContinuousBatcher(model, config, disable_eos=disable_eos, **kw)
         require(batcher.path == path and batcher.pipeline,
                 f"batcher path: {batcher.path}, pipeline={batcher.pipeline}")
@@ -2187,17 +2254,9 @@ def phase_batcher(card: str, kv_int8: bool, fused=None):
         counts = dict(_build.LAUNCHES)
         require(set(results) == set(rids),
                 f"batcher: {len(rids) - len(results)} requests unfinished")
-        events = 0
-        for rid, (_, budget, extra) in zip(rids, requests):
-            fin = results[rid]
-            require(len(fin.rows) <= budget and (fin.reason == "eos" or len(fin.rows) == budget),
-                    f"request {rid}: {len(fin.rows)} rows of {budget}, reason {fin.reason}")
-            if len(fin.rows):
-                check_rows(fin.rows[None], table, tok, f"batcher request {rid}")
-                if "disable_channels" in extra:
-                    require(not (set(fin.rows.ravel().tolist()) & chan_ids),
-                            f"request {rid}: a banned channel")
-            events += len(fin.rows) + (fin.reason == "eos")
+        check_queue([(results[r].rows, results[r].reason) for r in rids], requests, tok,
+                    disable_eos, "batcher")
+        events = sum(len(results[r].rows) + (results[r].reason == "eos") for r in rids)
         n_chunks = len(dispatched)
         if path == "pair":
             require(counts.get("token_row", 0) > 0
@@ -2243,7 +2302,7 @@ def phase_batcher(card: str, kv_int8: bool, fused=None):
     # window: 4 chunks timed after two, then 2 more profiled (every slot decodes)
     steady = ContinuousBatcher(model, config, disable_eos=True, **kw)
     for _ in range(32):
-        steady.submit(prompt(int(rng.integers(16, 1025))), 512)
+        steady.submit(random_prompt(tok, rng, int(rng.integers(16, 1025))), 512)
     for _ in range(2):
         steady.step()
     torch.cuda.synchronize()
@@ -2269,8 +2328,9 @@ def phase_batcher(card: str, kv_int8: bool, fused=None):
     del steady
 
     if not kv_int8:  # one seeded request, alone in its prompt bucket, in two batches
-        solo = prompt(10)
-        others = [(prompt(int(rng.integers(40, 300))), 96, {}) for _ in range(6)]
+        solo = random_prompt(tok, rng, 10)
+        others = [(random_prompt(tok, rng, int(rng.integers(40, 300))), 96, {})
+                  for _ in range(6)]
         runs = []
         for before in (0, 5):  # eos disabled: the request decodes its whole budget
             b2 = ContinuousBatcher(model, config, disable_eos=True, **kw)
@@ -3230,6 +3290,722 @@ def phase_app(card: str, ckpt=None) -> dict:
     return launches
 
 
+# ---- phase 9: the (data, model) mesh ---------------------------------------
+#
+# Several ranks share the one card: NCCL refuses two ranks on one device, so
+# the multi-rank runs are processes on cuda:0 over gloo (which all-reduces
+# CUDA tensors through the host); one world-size-1 run goes over NCCL.  No
+# reading here is a scaling figure: the ranks share the card.
+
+MESH_SEED = 9
+# tv2o-large bf16 at tp=2 against one device: the hidden after all 24 layers
+# and the final norm at each prompt's last row.  Two correct bf16 stacks
+# differ there by the rounding flips that summation order seeds and depth
+# compounds.  The yardstick, as BF16_DEEP_TOL's: the single-device stack on
+# the CPU against the same on the card, on the prompt's first two rows
+# (``cpu_vs_card``, printed by every run: 0.0703 in runs AK and AM, PERF.md
+# section 6); the bound is 1.6x it, rounded up, and holds the tp hidden on
+# those two rows (0.0791, run AM).  The largest difference over all 32 rows
+# is printed beside it (0.109 in AK and AM).
+BF16_TP_DEEP_TOL = 0.115
+# f32 weights, f32 pools: the same hidden after the prefill, bounded the same
+# way from the f32 stack's CPU-against-card reading on rows 0-1: 1.41e-5 in
+# run AO (PERF.md section 6), so 1.6x it, rounded up; tp there 1.20e-5 (1.70e-5
+# over all 32 rows).
+F32_TP_DEEP_TOL = 2.5e-5
+# f32 weights, int8 pools: the prefill never reads the pools, so the hidden
+# is taken after a greedy 16-event decode chunk, which attends over them at
+# every layer, on the rows whose 16 events agree; bounded from the same
+# chunk's CPU-against-card reading on rows 0-1: 3.68e-4 in run AO, so 1.6x
+# it, rounded up; tp there 1.68e-4 (3.93e-4 over all 32 rows).
+INT8_TP_DEEP_TOL = 6e-4
+# tp=2 sums each row-parallel product from two halves, which differs from one
+# device's product in the last bits, and 24 layers carry that to the logits:
+# no tp run can promise every row identical.  The runs are greedy, and every
+# row that differs must part at a near-tie: at its first differing step the
+# single-device model's logit of its own pick beats the tp pick by at most
+# TIE_GAPS[kind].  f32: as ARTIFACT_TIE_GAP.  int8 pools: a last-bit
+# difference now and then crosses a quantization boundary and moves a cached
+# value a whole int8 step (1/127 of its head's largest); the rows that parted
+# did so at gaps of 0.0034 and 0.0053 (runs AM, AN), and the bound is about 4x
+# the larger.  bf16: as the token row's greedy check (phase 2).
+TIE_GAPS = {"f32": ARTIFACT_TIE_GAP, "int8": 0.02, "bf16": 0.0625}
+# the tp=2 runs: name -> (weights' dtype, tie-gap kind, int8 pools, the
+# hidden compared with one device's: after the "prefill" or the "chunk",
+# the tp batcher's requests: the first n of the queue).  The tp batcher's
+# time goes to its admissions (prefills whose all-reduces carry [G, S,
+# 1024] activations between processes): 19-22 s for 48 requests in runs AO
+# and AQ.  bf16 takes all 48, so 16 wait for a freed slot; f32 and int8
+# pools take 16, all admitted at once (the dp x tp run holds f32 slot reuse
+# under tp to one device's rows).
+TP_RUNS = {"f32": ("float32", "f32", False, "prefill", 16),
+           "f32_int8": ("float32", "int8", True, "chunk", 16),
+           "bf16": ("bfloat16", "bf16", False, "prefill", 48)}
+TP_DEEP_TOLS = {"f32": F32_TP_DEEP_TOL, "f32_int8": INT8_TP_DEEP_TOL,
+                "bf16": BF16_TP_DEEP_TOL}
+TP_CHUNK = 16  # the events of the decode chunk after the prefill
+MESH_LIMITS = dict(init_timeout_s=300.0)  # a collective that waits longer fails
+
+
+def cuda_settings() -> None:
+    """Full-fp32 matmuls (no TF32) and f32 reductions in bf16 products, in
+    every process that checks the kernels."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def mesh_prompt(tok, batch: int, p_len: int):
+    """A random ``[batch, p_len, T]`` prompt with bos rows first."""
+    import numpy as np
+
+    rows = np.random.default_rng(MESH_SEED).integers(3, tok.vocab_size,
+                                                     (batch, p_len, tok.max_token_seq))
+    rows[:, 0] = tok.pad_id
+    rows[:, 0, 0] = tok.bos_id
+    return rows
+
+
+def drive_queue(batcher, requests) -> dict:
+    """Every request through ``batcher``; the records in request order, the
+    wall seconds, the events decoded, the launches and the batcher's path."""
+    import torch
+
+    from midi_model_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    rids = [batcher.submit(p, budget, **extra) for p, budget, extra in requests]
+    results = batcher.run_all()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(set(results) == set(rids), f"batcher: {len(rids) - len(results)} unfinished")
+    records = [(results[r].rows, results[r].reason) for r in rids]
+    return {"records": records, "wall_s": wall, "launches": dict(_build.LAUNCHES),
+            "events": sum(len(rows) for rows, _ in records), "path": batcher.path}
+
+
+def differing(records, ref) -> list:
+    """Indices of the requests whose rows or reason differ."""
+    return [i for i, ((rows, reason), (rows_r, reason_r)) in enumerate(zip(records, ref))
+            if reason != reason_r or rows.shape != rows_r.shape or (rows != rows_r).any()]
+
+
+def first_tie_gap(model, prompt, ref, got) -> float:
+    """At the first event where ``got`` (rows [n, T]) departs from ``ref``:
+    the single-device ``model``'s logit of ref's token minus got's at the
+    first differing step, teacher-forced over the prompt, ref's earlier rows
+    and the row's shared prefix (``tie_gaps``)."""
+    import numpy as np
+    import torch
+
+    n = min(len(ref), len(got))
+    diff = np.nonzero((ref[:n] != got[:n]).any(axis=1))[0]
+    require(len(diff) > 0, "rows differ only in length")
+    e = int(diff[0])
+    seq = torch.as_tensor(np.concatenate([prompt, ref[:e]])[None], device=model.device)
+    with torch.no_grad():
+        hidden, _ = model(seq)
+    row, row_r = (torch.as_tensor(x[e][None], device=model.device) for x in (got, ref))
+    return tie_gaps(model, hidden[:, -1], row, row_r, torch.ones(1, device=model.device))[0]
+
+
+def mesh_local_kernels(card: str) -> dict:
+    """A tp=2 rank's kernels at its local shapes: the cell and streaming
+    paged kernels at 8 heads x 64 against their plain versions (bf16, f32
+    and int8 pools, ragged lengths, an inactive slot, a slot at capacity;
+    the bounds of phase 2), timed warm beside the plain version with their
+    byte bound; the causal attention forward at the admission prefill's
+    [32, 1024, 8, 64] in bf16 and f32, timed beside SDPA."""
+    import torch
+
+    from midi_model_tpu_torch.ops import paged_allheads as pa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    heads, d, ps, b = 8, 64, 64, 32
+    worst = check_paged_cell(card, gen, heads=heads)
+    worst.update(check_paged_stream(card, gen, heads=heads))
+    timed = {}
+    for name, kernel, lens, pps, dtype in (
+            ("cell bf16", pa.paged_decode_cell, SMOKE_LENGTHS, 16, torch.bfloat16),
+            ("stream bf16", pa.paged_decode_stream, RAGGED_LENGTHS, 32, torch.bfloat16),
+            ("stream int8", pa.paged_decode_stream, RAGGED_LENGTHS, 32, torch.int8)):
+        w = heads * pa.head_stride(d, heads)
+        n_pages = b * pps
+        if dtype == torch.int8:
+            pools = pa.PagedPools(*(torch.randint(-127, 128, (n_pages, ps, w), generator=gen,
+                                                  device=dev, dtype=torch.int8)
+                                    for _ in range(2)),
+                                  (torch.rand((n_pages, ps, pa.LANE), generator=gen,
+                                              device=dev) * 0.02 + 1e-3).to(torch.bfloat16))
+        else:
+            pools = pa.PagedPools(*(torch.randn((n_pages, ps, w), generator=gen,
+                                                device=dev).to(dtype) for _ in range(2)))
+        q = torch.randn((b, heads, d), generator=gen, device=dev) * d ** -0.5
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        base = (torch.arange(b, device=dev) * pps).to(torch.int32)
+        kw = dict(page_size=ps, pages_per_slot=pps, kv_heads=heads, head_dim=d)
+        extra = {"max_length": max(lens)} if kernel is pa.paged_decode_cell else {}
+        n_bytes = paged_bytes(lens, b, heads, heads, d, w, dtype, append=False)
+        timed[name] = {
+            "ms": time_ms(lambda: kernel(q, pools, lengths, base, **kw, **extra), 50),
+            "plain_ms": time_ms(lambda: pa.decode_reference(q, pools, lengths, base, **kw), 3),
+            "library_ms": None, "l2": "warm",
+            **bound(n_bytes, sum(lens) * heads * d * 4,
+                    {torch.int8: "int8", torch.bfloat16: "bf16"}[dtype])}
+        del pools
+    attention = {f"{dtype}[32,1024,8,8,64]": attention_case(32, 1024, 8, 8, 64, dtype, False,
+                                                            True, gen)
+                 for dtype in (torch.bfloat16, torch.float32)}
+    torch.cuda.empty_cache()
+    out = {"paged_o_max_abs_err": worst, "paged_timed": timed, "causal_attention": attention}
+    emit({"phase": "mesh_local_kernels", "heads": heads, **out, "card": card})
+    return out
+
+
+def timed_all_reduces(stats: list):
+    """A stand-in for ``torch.distributed.all_reduce`` that synchronizes the
+    card before and after the call and appends its seconds to ``stats``."""
+    import torch
+    import torch.distributed as dist
+
+    real = dist.all_reduce
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        stats.append(time.perf_counter() - t0)
+        return out
+
+    return real, timed
+
+
+def mesh_tp_part(mesh, tp_queue) -> dict:
+    """One rank's share of the tp=2 runs at tv2o-large's full width and
+    depth (8 heads and an MLP of 2048 a rank), each of ``TP_RUNS``:
+    greedy ``generate_tp`` at bs=32, a 256-event prompt and 64 new events;
+    the hidden after the prefill and after a greedy ``TP_CHUNK``-event
+    decode chunk, with every all-reduce of the chunk timed; and the greedy
+    tp batcher over ``tp_queue`` (eos disabled)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from midi_model_tpu_torch.models import MIDIModelConfig
+    from midi_model_tpu_torch.models.midinet import init_model
+    from midi_model_tpu_torch.ops import _build
+    from midi_model_tpu_torch.sampling import build_mask_table, mask_tensors
+    from midi_model_tpu_torch.sampling.sharded import (decode_events_tp, generate_tp,
+                                                       prefill_tp, tp_shard_params)
+    from midi_model_tpu_torch.serve import ContinuousBatcher
+
+    config = MIDIModelConfig.from_name("tv2o-large")
+    tok = config.tokenizer
+    prompt = mesh_prompt(tok, 32, 256)
+    out = {"generate": {}, "batcher": {}}
+    for dtype in ("float32", "bfloat16"):
+        full = init_model(config, seed=MESH_SEED, dtype=getattr(torch, dtype),
+                          device=mesh.device)
+        local = tp_shard_params(full, mesh)
+        runs = {name: run for name, run in TP_RUNS.items() if run[0] == dtype}
+        for name, (_, _, kv_int8, _, _) in runs.items():
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            rows = generate_tp(local, config, mesh, prompt=prompt, batch_size=32,
+                               max_len=256 + 64, greedy=True, kv_int8=kv_int8)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out["generate"][name] = {"rows": rows, "wall_s": wall,
+                                     "launches": dict(_build.LAUNCHES)}
+            if mesh.model_rank == 0:
+                emit({"phase": "mesh_rank_run", "run": f"generate_tp {name}", "wall_s": wall})
+            state = prefill_tp(local, config, prompt, 256 + 64, mesh, kv_int8=kv_int8)
+            run = out["generate"][name]
+            run["hidden_prefill"] = state.hidden.float().cpu().numpy()
+            # every all-reduce of the chunk timed alone
+            stats = []
+            real, timed = timed_all_reduces(stats)
+            dist.all_reduce = timed
+            try:
+                masks = mask_tensors(build_mask_table(tok), mesh.device)
+                state, chunk, n_done = decode_events_tp(local, config, state, masks, TP_CHUNK,
+                                                        1.0, 0.98, 20, None, mesh, greedy=True)
+            finally:
+                dist.all_reduce = real
+            run["hidden_chunk"] = state.hidden.float().cpu().numpy()
+            run["chunk_rows"] = chunk.cpu().numpy()
+            run["all_reduce"] = {"per_event": len(stats) / n_done,
+                                 "mean_ms": float(np.mean(stats)) * 1e3,
+                                 "bytes": 32 * config.n_embd * local.dtype.itemsize,
+                                 "dtype": dtype}
+            del state
+        del local
+        for name, (_, _, kv_int8, _, n_requests) in runs.items():
+            batcher = ContinuousBatcher(full, config, n_slots=32, max_seq=2048, chunk=16,
+                                        seed=11, disable_eos=True, greedy=True,
+                                        kv_int8=kv_int8, mesh=mesh)
+            require(batcher.path == "split" and batcher.config.net.num_heads == 8,
+                    f"tp batcher: path {batcher.path}, {batcher.config.net.num_heads} heads")
+            out["batcher"][name] = drive_queue(batcher, tp_queue[:n_requests])
+            if mesh.model_rank == 0:
+                emit({"phase": "mesh_rank_run", "run": f"tp batcher {name}",
+                      "wall_s": out["batcher"][name]["wall_s"]})
+            del batcher
+            torch.cuda.empty_cache()
+        del full
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_dp_part(mesh, dp_queue) -> dict:
+    """One rank's share of the dp=2 runs at tv2o-medium's full width and
+    depth, bf16: ``generate_dp`` at bs=32 (16 a rank, the event loop), 64
+    events sampled; the dp batcher at 32 slots (16 a rank, the ragged event
+    loop) over ``dp_queue``, sampled, eos disabled."""
+    import torch
+
+    from midi_model_tpu_torch.models import MIDIModelConfig
+    from midi_model_tpu_torch.models.midinet import init_model
+    from midi_model_tpu_torch.ops import _build
+    from midi_model_tpu_torch.sampling.sharded import generate_dp
+    from midi_model_tpu_torch.serve import ContinuousBatcher
+
+    config = MIDIModelConfig.from_name("tv2o-medium")
+    model = init_model(config, seed=MESH_SEED + 1, dtype=torch.bfloat16, device=mesh.device)
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    rows = generate_dp(model, config, mesh, batch_size=32, max_len=65, seed=3)
+    torch.cuda.synchronize()
+    out = {"generate": {"rows": rows, "wall_s": time.perf_counter() - t0,
+                        "launches": dict(_build.LAUNCHES)}}
+    batcher = ContinuousBatcher(model, config, n_slots=32, max_seq=2048, chunk=16, seed=11,
+                                disable_eos=True, mesh=mesh)
+    require(batcher.path == "event_loop", f"dp batcher path {batcher.path}")
+    out["batcher"] = drive_queue(batcher, dp_queue)
+    if mesh.data_rank == 0:
+        emit({"phase": "mesh_rank_run", "run": "dp", "generate_dp_wall_s":
+              out["generate"]["wall_s"], "batcher_wall_s": out["batcher"]["wall_s"]})
+    return out
+
+
+def mesh_rank_pair(out_dir: str, card: str, tp_queue, dp_queue) -> None:
+    """Rank program of the two-rank runs (gloo, both on cuda:0): rank 0's
+    local kernel checks, the tp=2 part, then the dp=2 part; each rank
+    pickles its results to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    from midi_model_tpu_torch.parallel import make_mesh
+
+    cuda_settings()
+    rank = dist.get_rank()
+    mesh = make_mesh(tp=2)
+    res = {}
+    seconds = {}
+    t0 = time.perf_counter()
+    if rank == 0:
+        res["kernels"] = mesh_local_kernels(card)
+    dist.barrier(group=mesh.host_group)
+    seconds["kernels"] = time.perf_counter() - t0
+    res["tp"] = mesh_tp_part(mesh, tp_queue)
+    torch.cuda.empty_cache()
+    seconds["tp"] = time.perf_counter() - t0 - seconds["kernels"]
+    res["dp"] = mesh_dp_part(make_mesh(dp=2), dp_queue)
+    seconds["dp"] = time.perf_counter() - t0 - seconds["kernels"] - seconds["tp"]
+    if rank == 0:
+        emit({"phase": "mesh_rank_parts", "seconds": seconds})
+    (Path(out_dir) / f"pair{rank}.pkl").write_bytes(pickle.dumps(res))
+
+
+DPTP_DIMS = dict(n_layer=4, n_head=16, n_embd=1024, n_inner=4096)  # tv2o-medium's width
+
+
+def mesh_rank_dptp(out_dir: str, queue) -> None:
+    """Rank program of the dp=2 x tp=2 batcher on four ranks (gloo, all on
+    cuda:0): tv2o-medium's width at 4 layers, f32, 8 slots (4 a data
+    shard), greedy."""
+    import torch
+    import torch.distributed as dist
+
+    from midi_model_tpu_torch.models import MIDIModelConfig
+    from midi_model_tpu_torch.models.midinet import init_model
+    from midi_model_tpu_torch.parallel import make_mesh
+    from midi_model_tpu_torch.serve import ContinuousBatcher
+
+    cuda_settings()
+    mesh = make_mesh(dp=2, tp=2)
+    config = MIDIModelConfig.get_config("v2", True, **DPTP_DIMS)
+    model = init_model(config, seed=MESH_SEED + 2, dtype=torch.float32, device=mesh.device)
+    batcher = ContinuousBatcher(model, config, n_slots=8, max_seq=1024, chunk=16, seed=11,
+                                disable_eos=True, greedy=True, mesh=mesh)
+    run = drive_queue(batcher, queue)
+    (Path(out_dir) / f"dptp{dist.get_rank()}.pkl").write_bytes(pickle.dumps(run))
+
+
+def mesh_rank_nccl(out_dir: str) -> None:
+    """Rank program of the NCCL run, one rank a card (one card: world size
+    1): ``make_mesh(tp=world)``, an NCCL all-reduce over the default group
+    and ``all_reduce_sum`` over the model group, then ``generate_tp`` beside
+    ``generate`` (tv2o-medium, f32; sampled at world size 1, greedy on
+    several cards).  Rank 0 pickles the results to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    from midi_model_tpu_torch.models import MIDIModelConfig
+    from midi_model_tpu_torch.models.midinet import init_model
+    from midi_model_tpu_torch.ops import _build
+    from midi_model_tpu_torch.parallel import all_reduce_sum, make_mesh
+    from midi_model_tpu_torch.sampling import generate
+    from midi_model_tpu_torch.sampling.sharded import generate_tp, tp_shard_params
+
+    cuda_settings()
+    world = dist.get_world_size()
+    mesh = make_mesh(tp=world)
+    base = torch.arange(1024, dtype=torch.float32)
+    x = torch.arange(1024, dtype=torch.float32, device=mesh.device)
+    dist.all_reduce(x)  # over the default group: NCCL
+    y = x.clone()
+    same = all_reduce_sum(y, mesh.model_group) is y
+    config = MIDIModelConfig.from_name("tv2o-medium")
+    model = init_model(config, seed=MESH_SEED + 3, dtype=torch.float32, device=mesh.device)
+    kw = dict(batch_size=8, max_len=33, seed=4, greedy=world > 1)
+    _build.LAUNCHES.clear()
+    rows_tp = generate_tp(tp_shard_params(model, mesh), config, mesh, **kw)
+    launches = dict(_build.LAUNCHES)
+    rows = generate(model, config, **kw)
+    res = {"backend": dist.get_backend(), "world": world, "devices": str(mesh.device),
+           "all_reduce_ok": bool(torch.equal(x.cpu(), base * world)
+                                 and torch.equal(y.cpu(), base * world * world)),
+           "all_reduce_sum_in_place": same, "rows_tp": rows_tp, "rows": rows,
+           "launches": launches}
+    if dist.get_rank() == 0:
+        (Path(out_dir) / "nccl0.pkl").write_bytes(pickle.dumps(res))
+
+
+@contextlib.contextmanager
+def group_of_one():
+    """A gloo process group of this process alone.  Given to one device's
+    split path as ``tp_group`` it makes every all-reduce a no-op and takes
+    the tp run's token path (the token-row kernel), so that a row that parts
+    from the tp run's parts through the tp sums alone."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def timed_generate(model, config, prompt, **kw):
+    """Single-device ``generate`` on the split path at bs=32, 64 events
+    after ``prompt``: its rows and wall seconds."""
+    import torch
+
+    from midi_model_tpu_torch.sampling import generate
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = generate(model, config, prompt=prompt, batch_size=32, max_len=256 + 64,
+                    fused=False, **kw)
+    torch.cuda.synchronize()
+    return rows, time.perf_counter() - t0
+
+
+def single_device_hidden(model, config, prompt, kv_int8: bool, at: str,
+                         tp_group=None) -> dict:
+    """One device's hidden after the prefill of ``prompt`` (``at``
+    "prefill") or after a greedy ``TP_CHUNK``-event decode chunk on the
+    split path, with the chunk's rows ("chunk"), as ``mesh_tp_part`` takes
+    them on the tp ranks."""
+    from midi_model_tpu_torch.sampling import (build_mask_table, decode_events,
+                                               mask_tensors, prefill)
+
+    state = prefill(model, config, prompt, 256 + 64, kv_int8=kv_int8)
+    if at == "prefill":
+        return {"hidden_prefill": state.hidden.float().cpu().numpy()}
+    masks = mask_tensors(build_mask_table(config.tokenizer), state.hidden.device)
+    state, chunk, _ = decode_events(model, config, state, masks, TP_CHUNK, 1.0, 0.98, 20,
+                                    None, greedy=True, fused=False, tp_group=tp_group)
+    return {"hidden_chunk": state.hidden.float().cpu().numpy(),
+            "chunk_rows": chunk.cpu().numpy()}
+
+
+def deep_hidden_errors(name: str, model, config, prompt, tp_run, card_run) -> dict:
+    """The tp run's hidden after 24 layers against one device's, where
+    ``TP_RUNS[name]`` takes it: the largest difference over the rows (after
+    the chunk: the rows whose chunk agrees) and on rows 0-1, the bounded
+    one; beside them the yardstick, the single-device stack on the CPU (the
+    plain versions, on a copy of the weights) against the card on rows
+    0-1."""
+    import numpy as np
+
+    from midi_model_tpu_torch.models.midinet import MIDINet
+
+    _, _, kv_int8, at, _ = TP_RUNS[name]
+    t0 = time.perf_counter()
+    cpu_model = MIDINet(config, dtype=model.dtype, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    cpu_run = single_device_hidden(cpu_model, config, prompt[:2], kv_int8, at)
+    del cpu_model
+    key = f"hidden_{at}"
+    agree = np.arange(len(prompt))
+    cpu_agree = np.arange(2)
+    if at == "chunk":
+        same = lambda a, b: (a == b).all(axis=(1, 2))  # noqa: E731
+        agree = np.nonzero(same(tp_run["chunk_rows"], card_run["chunk_rows"]))[0]
+        cpu_agree = np.nonzero(same(cpu_run["chunk_rows"], card_run["chunk_rows"][:2]))[0]
+        require(set(agree) >= {0, 1} and len(cpu_agree) == 2,
+                f"{name}: the chunk's rows 0-1 part (tp agrees on {agree.tolist()}, "
+                f"the CPU on {cpu_agree.tolist()})")
+    err = np.abs(tp_run[key][agree] - card_run[key][agree]).max(axis=1)
+    return {"hidden_at": at, "hidden_rows_compared": len(agree),
+            "hidden_max_abs_err": float(err.max()),
+            "hidden_max_abs_err_rows_0_1": float(err[:2].max()),
+            "bound": TP_DEEP_TOLS[name],
+            "cpu_vs_card": float(np.abs(cpu_run[key] - card_run[key][:2]).max()),
+            "cpu_vs_card_s": time.perf_counter() - t0}
+
+
+def phase_mesh(card: str) -> dict:
+    """Phase 9: the mesh paths (``parallel``, ``sampling.sharded``, the
+    batcher's ``mesh``), each rank a process on a card (all on the one
+    card where the machine has one):
+
+    1. two gloo ranks: rank 0's kernels at the tp shard's shapes
+       (``mesh_local_kernels``); tp=2 at tv2o-large's full width and depth
+       (``mesh_tp_part``) against one device on the split path with the tp
+       run's token path (``group_of_one``), greedy, on f32 weights with f32
+       and with int8 pools and on bf16 weights: ``generate_tp`` against
+       ``generate`` and the tp batcher (48 requests; 16 on f32 weights)
+       against the single-device batcher, the rows that differ counted and
+       each parting
+       at a near-tie (``TIE_GAPS``); the hidden after 24 layers on rows 0-1
+       within ``TP_DEEP_TOLS`` (after the prefill; int8 pools: after a
+       decode chunk); the grammar on every row; readings: each rank's
+       launches, events/s, the all-reduces per event (48 expected) and
+       their mean ms.  Then dp=2 at tv2o-medium (``mesh_dp_part``):
+       ``generate_dp`` shard i equal to single-device ``generate`` on its
+       rows with ``shard_seed(3, i)``, the dp batcher's records equal to the
+       single-device batcher's;
+    2. four gloo ranks: the greedy dp=2 x tp=2 batcher at tv2o-medium's
+       width and 4 layers, every rank admitting, records equal to the
+       single-device batcher's but for near-ties;
+    3. NCCL: on one card one rank, ``make_mesh()``, an NCCL all-reduce,
+       ``generate_tp`` at tp=1 equal to ``generate``; on a machine with
+       several cards two ranks on two cards, tp=2, greedy rows equal to
+       ``generate``'s but for near-ties.
+
+    Returns rank 0's launches over the mesh runs, by kernel."""
+    import numpy as np
+    import torch
+
+    from midi_model_tpu_torch.models import MIDIModelConfig
+    from midi_model_tpu_torch.models.midinet import init_model
+    from midi_model_tpu_torch.parallel import spawn
+    from midi_model_tpu_torch.sampling import build_mask_table, generate
+    from midi_model_tpu_torch.sampling.sharded import shard_seed
+    from midi_model_tpu_torch.serve import ContinuousBatcher
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "mesh_smoke"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    large = MIDIModelConfig.from_name("tv2o-large")
+    medium = MIDIModelConfig.from_name("tv2o-medium")
+    tok = large.tokenizer
+    # budgets of 16-32 keep the tp runs' event steps few (each takes 48
+    # all-reduces between processes)
+    tp_queue = request_queue(tok, np.random.default_rng(90), 48, (16, 513), (16, 33))
+    dp_queue = request_queue(tok, np.random.default_rng(91), 48, (16, 513), (32, 129))
+    dptp_queue = request_queue(tok, np.random.default_rng(92), 12, (16, 129), (16, 49))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    spawn(mesh_rank_pair, 2, (str(out_dir), card, tp_queue, dp_queue), timeout_s=480,
+          **MESH_LIMITS)
+    pair_s = time.perf_counter() - t0
+    emit({"phase": "mesh_pair_processes", "seconds": pair_s})
+    pair = [pickle.loads((out_dir / f"pair{r}.pkl").read_bytes()) for r in range(2)]
+    for part in ("tp", "dp"):
+        a, b = (pickle.dumps(p[part]["batcher"]["records"] if part == "dp" else
+                             {n: r["records"] for n, r in p[part]["batcher"].items()})
+                for p in pair)
+        require(a == b, f"{part}: the ranks' batcher records differ")
+    tp0, dp0 = pair[0]["tp"], pair[0]["dp"]
+    launches = {}
+
+    def count(run):
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+    # 1a-b. tp generate and the tp batcher against one device, whose split
+    # path takes the tp run's token path
+    prompt = mesh_prompt(tok, 32, 256)
+    for dtype in ("float32", "bfloat16"):
+        model = init_model(large, seed=MESH_SEED, dtype=getattr(torch, dtype), device="cuda")
+        runs = {name: run for name, run in TP_RUNS.items() if run[0] == dtype}
+        for name, (_, kind, kv_int8, at, _) in runs.items():
+            run = tp0["generate"][name]
+            count(run)
+            with group_of_one() as one:
+                ref, ref_s = timed_generate(model, large, prompt, greedy=True,
+                                            kv_int8=kv_int8, tp_group=one)
+                card_run = single_device_hidden(model, large, prompt, kv_int8, at, one)
+            rows = run["rows"]
+            require(pickle.dumps(rows) == pickle.dumps(pair[1]["tp"]["generate"][name]["rows"]),
+                    f"generate_tp {name}: the ranks' rows differ")
+            require(rows.shape == ref.shape, f"generate_tp {name}: {rows.shape} vs {ref.shape}")
+            check_rows(rows[:, 256:], build_mask_table(tok), tok, f"generate_tp {name}")
+            differ = [i for i in range(32) if (rows[i] != ref[i]).any()]
+            entry = {"rows_differing": len(differ), "events_per_s": 32 * 64 / run["wall_s"],
+                     "single_device_events_per_s": 32 * 64 / ref_s,
+                     "launches_rank0": run["launches"],
+                     "launches_rank1": pair[1]["tp"]["generate"][name]["launches"],
+                     "tie_gaps": [first_tie_gap(model, prompt[i], ref[i, 256:], rows[i, 256:])
+                                  for i in differ], "tie_gap_bound": TIE_GAPS[kind],
+                     **deep_hidden_errors(name, model, large, prompt, run, card_run),
+                     "all_reduce": run["all_reduce"]}
+            emit({"phase": "mesh_tp", "run": f"generate_tp {name}", **entry, "card": card})
+            cell = "paged_decode_int8" if kv_int8 else "paged_decode"
+            require(all(run["launches"].get(k, 0) for k in (
+                "token_row", cell, "paged_decode_stream", "causal_attention"))
+                and not {"fused_step", "fused_step_int8", "event_loop", "sampler"}
+                & set(run["launches"]), f"generate_tp {name} launches {run['launches']}")
+            require(all(abs(g) <= TIE_GAPS[kind] for g in entry["tie_gaps"]),
+                    f"generate_tp {name}: tie gaps {entry['tie_gaps']}")
+            require(entry["hidden_max_abs_err_rows_0_1"] <= entry["bound"],
+                    f"generate_tp {name}: hidden err {entry['hidden_max_abs_err_rows_0_1']}")
+        for name, (_, kind, kv_int8, _, n_requests) in runs.items():
+            run = tp0["batcher"][name]
+            queue = tp_queue[:n_requests]
+            count(run)
+            ref = drive_queue(ContinuousBatcher(model, large, n_slots=32, max_seq=2048,
+                                                chunk=16, seed=11, disable_eos=True,
+                                                greedy=True, kv_int8=kv_int8, fused=False),
+                              queue)
+            check_queue(run["records"], queue, tok, True, f"tp batcher {name}")
+            differ = differing(run["records"], ref["records"])
+            entry = {"requests_differing": len(differ), "events": run["events"],
+                     "events_per_s": run["events"] / run["wall_s"],
+                     "single_device_events_per_s": ref["events"] / ref["wall_s"],
+                     "single_device_path": ref["path"], "launches_rank0": run["launches"],
+                     "launches_rank1": pair[1]["tp"]["batcher"][name]["launches"],
+                     "tie_gaps": [first_tie_gap(model, queue[i][0], ref["records"][i][0],
+                                                run["records"][i][0]) for i in differ],
+                     "tie_gap_bound": TIE_GAPS[kind]}
+            emit({"phase": "mesh_tp", "run": f"tp batcher {name}", **entry, "card": card})
+            require(run["launches"].get("token_row", 0) and run["launches"].get(
+                "paged_decode_stream", 0) and not {"fused_step", "fused_step_int8",
+                                                    "event_loop_ragged"} & set(run["launches"]),
+                    f"tp batcher {name} launches {run['launches']}")
+            require(all(abs(g) <= TIE_GAPS[kind] for g in entry["tie_gaps"]),
+                    f"tp batcher {name}: tie gaps {entry['tie_gaps']}")
+        del model
+        torch.cuda.empty_cache()
+    emit({"phase": "mesh_tp_all_reduce", "config": "tv2o-large", "tp": 2,
+          **tp0["generate"]["bf16"]["all_reduce"], "card": card})
+
+    # 1c. dp=2 against one device
+    require(pickle.dumps(dp0["generate"]["rows"]) == pickle.dumps(pair[1]["dp"]["generate"]["rows"]),
+            "generate_dp: the ranks' rows differ")
+    model = init_model(medium, seed=MESH_SEED + 1, dtype=torch.bfloat16, device="cuda")
+    rows = dp0["generate"]["rows"]
+    count(dp0["generate"])
+    for i in range(2):
+        ref = generate(model, medium, batch_size=16, max_len=65, seed=shard_seed(3, i))
+        mine = rows[16 * i:16 * (i + 1)]
+        require(bool((mine[:, :ref.shape[1]] == ref).all())
+                and bool((mine[:, ref.shape[1]:] == tok.pad_id).all()),
+                f"generate_dp shard {i} differs from generate with its seed")
+    require(dp0["generate"]["launches"].get("event_loop", 0) > 0,
+            f"generate_dp launches {dp0['generate']['launches']}")
+    ref = drive_queue(ContinuousBatcher(model, medium, n_slots=32, max_seq=2048, chunk=16,
+                                        seed=11, disable_eos=True), dp_queue)
+    run = dp0["batcher"]
+    count(run)
+    check_queue(run["records"], dp_queue, tok, True, "dp batcher")
+    differ = differing(run["records"], ref["records"])
+    require(not differ and run["launches"].get("event_loop_ragged", 0) > 0,
+            f"dp batcher: requests {differ} differ; launches {run['launches']}")
+    emit({"phase": "mesh_dp", "config": "tv2o-medium", "dp": 2, "ranks_on_one_card": 2,
+          "generate_dp_events_per_s": 32 * 64 / dp0["generate"]["wall_s"],
+          "generate_dp_launches_rank0": dp0["generate"]["launches"],
+          "batcher_events_per_s": run["events"] / run["wall_s"],
+          "single_device_batcher_events_per_s": ref["events"] / ref["wall_s"],
+          "batcher_launches_rank0": run["launches"],
+          "batcher_launches_rank1": pair[1]["dp"]["batcher"]["launches"],
+          "pair_processes_s": pair_s, "card": card})
+    del model
+    torch.cuda.empty_cache()
+
+    # 2. dp=2 x tp=2 on four ranks
+    t0 = time.perf_counter()
+    spawn(mesh_rank_dptp, 4, (str(out_dir), dptp_queue), timeout_s=240, **MESH_LIMITS)
+    dptp_s = time.perf_counter() - t0
+    runs = [pickle.loads((out_dir / f"dptp{r}.pkl").read_bytes()) for r in range(4)]
+    require(all(pickle.dumps(r["records"]) == pickle.dumps(runs[0]["records"]) for r in runs),
+            "dp x tp: the ranks' records differ")
+    count(runs[0])
+    config = MIDIModelConfig.get_config("v2", True, **DPTP_DIMS)
+    model = init_model(config, seed=MESH_SEED + 2, dtype=torch.float32, device="cuda")
+    ref = drive_queue(ContinuousBatcher(model, config, n_slots=8, max_seq=1024, chunk=16,
+                                        seed=11, disable_eos=True, greedy=True), dptp_queue)
+    check_queue(runs[0]["records"], dptp_queue, tok, True, "dp x tp batcher")
+    differ = differing(runs[0]["records"], ref["records"])
+    gaps = [first_tie_gap(model, dptp_queue[i][0], ref["records"][i][0], runs[0]["records"][i][0])
+            for i in differ]
+    emit({"phase": "mesh_dp_tp", "dims": DPTP_DIMS, "dp": 2, "tp": 2, "ranks_on_one_card": 4,
+          "requests": len(dptp_queue), "events": runs[0]["events"],
+          "requests_differing": len(differ), "tie_gaps": gaps,
+          "events_per_s": runs[0]["events"] / runs[0]["wall_s"],
+          "launches_by_rank": [r["launches"] for r in runs], "processes_s": dptp_s,
+          "card": card})
+    require(all(abs(g) <= TIE_GAPS["f32"] for g in gaps),
+            f"dp x tp batcher: requests {differ} differ, tie gaps {gaps}")
+    require(all(r["launches"].get("causal_attention", 0) for r in runs),
+            f"dp x tp: a rank admitted nothing: {[r['launches'] for r in runs]}")
+    del model
+    torch.cuda.empty_cache()
+
+    # 3. NCCL: one rank on one card; one rank a card, tp over two, where
+    # the machine has several
+    t0 = time.perf_counter()
+    world = min(2, torch.cuda.device_count())
+    spawn(mesh_rank_nccl, world, (str(out_dir),), backend="nccl", timeout_s=180,
+          **MESH_LIMITS)
+    res = pickle.loads((out_dir / "nccl0.pkl").read_bytes())
+    rows_tp, rows = res.pop("rows_tp"), res.pop("rows")
+    differ = [i for i in range(len(rows)) if rows_tp.shape != rows.shape
+              or (rows_tp[i] != rows[i]).any()]
+    gaps = []
+    if differ and world > 1 and rows_tp.shape == rows.shape:
+        model = init_model(medium, seed=MESH_SEED + 3, dtype=torch.float32, device="cuda")
+        gaps = [first_tie_gap(model, rows[i, :1], rows[i, 1:], rows_tp[i, 1:])  # bos prompt
+                for i in differ]
+        del model
+    require(res["backend"] == "nccl" and res["world"] == world and res["all_reduce_ok"]
+            and res["all_reduce_sum_in_place"] and res["launches"].get("token_row", 0) > 0
+            and (not differ if world == 1 else len(gaps) == len(differ)
+                 and all(abs(g) <= TIE_GAPS["f32"] for g in gaps)),
+            f"NCCL world {world}: {res}, rows differing {differ}, tie gaps {gaps}")
+    count(res)
+    emit({"phase": "mesh_nccl", **res, "rows_differing": len(differ), "tie_gaps": gaps,
+          "processes_s": time.perf_counter() - t0, "card": card})
+    shutil.rmtree(out_dir, ignore_errors=True)
+    emit({"phase": "mesh", "seconds": time.perf_counter() - t_phase, "launches": launches,
+          "card": card})
+    return launches
+
+
 SOURCES = {
     "sampler": ("midi_model_tpu_torch/csrc/sampler.cu", "midi_model_tpu/ops/sampler.py:39"),
     "paged_decode": ("midi_model_tpu_torch/csrc/paged_decode.cu",
@@ -3285,6 +4061,10 @@ def main(argv=()) -> int:
                         help="build, run phase 8 (the native extensions, preprocessing, the "
                         "serving app batched and aligned, the demo) on random bf16 weights, "
                         "and stop (no result line)")
+    parser.add_argument("--mesh", action="store_true",
+                        help="build, run phase 9 (the mesh paths: tp=2, dp=2 and dp x tp as "
+                        "processes on the card over gloo, one NCCL rank), and stop (no "
+                        "result line)")
     args = parser.parse_args(list(argv))
     if not (ROOT / "midi_model_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: the midi_model_tpu_torch package is not beside this script",
@@ -3298,9 +4078,7 @@ def main(argv=()) -> int:
     sys.path.insert(0, str(ROOT))
     # fp32 comparisons below mean full fp32: no TF32 in matmuls or convolutions;
     # bf16 products of the plain versions reduce in f32, as the kernels do
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cuda_settings()
 
     card = card_line()
     emit({"phase": "device", "card": card, "torch": torch.__version__,
@@ -3308,6 +4086,9 @@ def main(argv=()) -> int:
     phase_build(card, verbose=args.attention or args.paged or args.sampler)
     if args.app:
         phase_app(card)
+        return 0
+    if args.mesh:
+        phase_mesh(card)
         return 0
     if args.api:
         from midi_model_tpu_torch.train import cli
@@ -3362,6 +4143,7 @@ def main(argv=()) -> int:
     api_launches = phase_api(card, corpus)
     app_launches = phase_app(card, corpus[1] / "run" / "checkpoints" / "model.safetensors")
     shutil.rmtree(corpus[1], ignore_errors=True)
+    mesh_launches = phase_mesh(card)
     require("jax" not in sys.modules, "jax was imported")
     require(not any(m == "midi_model_tpu" or m.startswith("midi_model_tpu.")
                     for m in sys.modules), "the JAX package was imported")
@@ -3371,6 +4153,7 @@ def main(argv=()) -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "api_launches": api_launches.get(name, 0),
          "app_launches": app_launches.get(name, 0),
+         "mesh_launches": mesh_launches.get(name, 0),
          **{k: results[name][k] for k in keys}}
         for name, (src, replaces) in SOURCES.items()]})
     print(card, flush=True)

@@ -34,6 +34,10 @@ class TransformerConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     initializer_range: float = 0.02
+    # per-head width when it is NOT hidden/heads — the tensor-parallel
+    # shard view divides heads but keeps the global hidden width
+    # (sampling/sharded.py tp_local_config)
+    head_dim_override: Optional[int] = None
 
     @property
     def kv_heads(self) -> int:
@@ -41,6 +45,8 @@ class TransformerConfig:
 
     @property
     def head_dim(self) -> int:
+        if self.head_dim_override is not None:
+            return self.head_dim_override
         return self.hidden_size // self.num_heads
 
     def to_hf_dict(self) -> Dict[str, Any]:

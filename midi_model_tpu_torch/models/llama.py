@@ -22,6 +22,13 @@ Three ways through the stack:
   into paged pools (``ops.paged_allheads`` layout);
 - :meth:`LlamaStack.decode_paged` — one token per slot over the pools, with
   the fresh token's own attention term merged in f32.
+
+Each takes an optional ``tp_group``: the stack is then one model shard of a
+Megatron split (``sampling.sharded.tp_shard_params``) — q/k/v, gate and up
+hold this shard's heads and MLP slice, o_proj and down its rows — and
+:meth:`LlamaLayer.finish` sums the two row-parallel products over the group
+(``parallel.all_reduce_sum``) before each residual add.  Without one, the
+code and its results are those of one device.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from torch import nn
 
 from ..ops import paged_allheads as pa
 from ..ops.attention import attention_reference, causal_attention
+from ..parallel.mesh import all_reduce_sum
 from .config import TransformerConfig
 
 
@@ -142,16 +150,19 @@ class LlamaLayer(nn.Module):
         v = self.self_attn.v_proj(hc).view(b, s, cfg.kv_heads, cfg.head_dim)
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
-    def finish(self, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
-        """Residual o-projection then the residual MLP; attn [..., H*Dh]."""
-        x = x + self.self_attn.o_proj(attn)
-        return x + self.mlp(self.post_attention_layernorm(x))
+    def finish(self, x: torch.Tensor, attn: torch.Tensor, tp_group=None) -> torch.Tensor:
+        """Residual o-projection then the residual MLP; attn [..., H*Dh].
+        Under ``tp_group`` each row-parallel product is summed over the
+        model shards before its residual add."""
+        x = x + all_reduce_sum(self.self_attn.o_proj(attn), tp_group)
+        return x + all_reduce_sum(self.mlp(self.post_attention_layernorm(x)), tp_group)
 
-    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                tp_group=None) -> torch.Tensor:
         """The cacheless layer: causal self-attention over x [B, S, D]."""
         b, s, _ = x.shape
         q, k, v = self.qkv(x, cos, sin)
-        return self.finish(x, causal_attention(q, k, v).reshape(b, s, -1))
+        return self.finish(x, causal_attention(q, k, v).reshape(b, s, -1), tp_group)
 
 
 # ``--remat`` policies: what each saves of a layer's forward for its
@@ -242,7 +253,7 @@ class LlamaStack(nn.Module):
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype, device)
 
     def forward(self, emb: torch.Tensor, cache: Optional[DenseCache] = None,
-                remat: Union[bool, str] = False
+                remat: Union[bool, str] = False, tp_group=None
                 ) -> Tuple[torch.Tensor, Optional[DenseCache]]:
         """``emb [B, S, D]`` -> (hidden after the final norm, cache).
 
@@ -259,10 +270,12 @@ class LlamaStack(nn.Module):
         ``torch.utils.checkpoint`` and is recomputed in the backward, but
         for what the policy saves (:func:`remat_policy`: True or "full" the
         JAX package's ``remat=True``, "dots" / "dots_all" its selective
-        policies)."""
+        policies; not with a ``tp_group``)."""
         b, s, _ = emb.shape
         cfg = self.cfg
         policy = remat_policy(remat)
+        if policy and tp_group is not None:
+            raise ValueError("remat with a tp group is not ported")
         start = 0 if cache is None else cache.index
         positions = start + torch.arange(s, device=emb.device)
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
@@ -277,13 +290,14 @@ class LlamaStack(nn.Module):
         x = emb
         for li, layer in enumerate(self.layers):
             if cache is None:
-                x = _recomputed(layer, x, cos, sin, policy) if policy else layer(x, cos, sin)
+                x = (_recomputed(layer, x, cos, sin, policy) if policy
+                     else layer(x, cos, sin, tp_group))
             else:
                 q, k, v = layer.qkv(x, cos, sin)
                 ks.append(cache.k[li].index_copy(1, positions, k))
                 vs.append(cache.v[li].index_copy(1, positions, v))
                 attn = attention_reference(q, ks[-1], vs[-1], bias)
-                x = layer.finish(x, attn.reshape(b, s, -1))
+                x = layer.finish(x, attn.reshape(b, s, -1), tp_group)
         if cache is not None:  # (a stack of no layers keeps its empty cache)
             cache = DenseCache(torch.stack(ks) if ks else cache.k,
                                torch.stack(vs) if vs else cache.v, start + s)
@@ -292,7 +306,7 @@ class LlamaStack(nn.Module):
     def prefill_paged(self, emb: torch.Tensor, pools: pa.PagedPools, *,
                       page_size: int, pages_per_slot: int,
                       slots: Optional[torch.Tensor] = None,
-                      n_slots: Optional[int] = None
+                      n_slots: Optional[int] = None, tp_group=None
                       ) -> Tuple[torch.Tensor, pa.PagedPools]:
         """Run the stack over whole prompts ``emb [G, S, D]``, writing each
         layer's packed K/V straight into its pages of the pools (in place;
@@ -328,7 +342,7 @@ class LlamaStack(nn.Module):
         for li, layer in enumerate(self.layers):
             q, k, v = layer.qkv(x, cos, sin)
             attn = causal_attention(q, k, v)
-            x = layer.finish(x, attn.reshape(g_n, s, -1))
+            x = layer.finish(x, attn.reshape(g_n, s, -1), tp_group)
             if pools.quantized:
                 kq, k_scale = pa.quantize_packed(k, hkv, dh)
                 vq, v_scale = pa.quantize_packed(v, hkv, dh)
@@ -343,7 +357,8 @@ class LlamaStack(nn.Module):
     def decode_paged(self, x: torch.Tensor, pools: pa.PagedPools,
                      index: Union[int, torch.Tensor],
                      active: Optional[torch.Tensor] = None, *, page_size: int,
-                     pages_per_slot: int) -> Tuple[torch.Tensor, pa.PagedPools]:
+                     pages_per_slot: int, tp_group=None
+                     ) -> Tuple[torch.Tensor, pa.PagedPools]:
         """One-token decode step over paged pools.
 
         x: [B, D] input embeddings; index: the per-slot lengths BEFORE this
@@ -404,5 +419,5 @@ class LlamaStack(nn.Module):
             w_self = torch.exp(s_self - m2)
             attn = ((w_cache[..., None] * o + w_self[..., None] * v_rep)
                     / (w_cache + w_self)[..., None])
-            x = layer.finish(x, attn.reshape(b, h * dh).to(x.dtype))
+            x = layer.finish(x, attn.reshape(b, h * dh).to(x.dtype), tp_group)
         return self.norm(x), pools

@@ -58,9 +58,12 @@ class MIDINet(nn.Module):
         return emb.to(self.dtype).sum(dim=-2)
 
     def forward(self, x: torch.Tensor, cache: Optional[DenseCache] = None,
-                remat: Union[bool, str] = False) -> Tuple[torch.Tensor, Optional[DenseCache]]:
-        """Event net: ``x [B, L, T]`` -> (hidden ``[B, L, D]``, cache)."""
-        return self.net(self.embed_events(x), cache, remat=remat)
+                remat: Union[bool, str] = False, tp_group=None
+                ) -> Tuple[torch.Tensor, Optional[DenseCache]]:
+        """Event net: ``x [B, L, T]`` -> (hidden ``[B, L, D]``, cache).
+        ``tp_group``: the event net is one model shard of a Megatron split
+        (``LlamaStack``); the token net and the head are replicated."""
+        return self.net(self.embed_events(x), cache, remat=remat, tp_group=tp_group)
 
     def forward_token(self, hidden_state: Optional[torch.Tensor],
                       x: Optional[torch.Tensor],

@@ -26,6 +26,14 @@ Counterpart of ``midi_model_tpu/sampling/generate.py``:
 - a chunk stops at its end, when every row emits eos in the same event
   (per-event "end" state, the reference's quirk), or at capacity.
 
+``tp_group`` makes the model one shard of a Megatron split
+(``sampling.sharded``: the config is then the local one): the whole-step
+and event-loop kernels cannot all-reduce between layers, so every event
+takes the token-row kernel and then the split ``decode_paged`` with its
+two all-reduces per layer — the JAX package's tensor-parallel step
+(``generate.py:276-284``).  The token net is replicated and every model
+shard draws the same noise, so every shard samples the same rows.
+
 ``kv_int8`` stores the event KV as int8 pages with per-token-per-head bf16
 scales (``ops.paged_allheads``); with bf16 weights it takes the per-event
 pair, whose whole step reads the int8 pools (``generate.py:303-313``'s
@@ -46,7 +54,7 @@ import torch
 
 from ..models.config import MIDIModelConfig
 from ..models.midinet import MIDINet
-from ..ops import event_loop
+from ..ops import event_loop, token_loop
 from ..ops.fused_step import FusedWeights, fused_decode_step, prepare_fused
 from ..ops.paged_allheads import PagedPools, alloc_pools
 from ..ops.sampler import per_row, sample_top_p_k
@@ -102,12 +110,13 @@ def _device(model: MIDINet, device) -> torch.device:
 
 @torch.no_grad()
 def prefill(model: MIDINet, config: MIDIModelConfig, prompt, max_seq: int,
-            kv_int8: bool = False, device=None) -> GenState:
+            kv_int8: bool = False, device=None, tp_group=None) -> GenState:
     """Run the event net over the prompt rows ``[B, P, T]``, writing the
     prompt KV directly into paged pools of capacity ``max_seq`` (rounded up
     to whole pages; int8 pages and scales with ``kv_int8``).  The JAX
     package embeds long prompts in 16-event chunks to bound TPU memory; the
-    values are the same in one pass."""
+    values are the same in one pass.  Under ``tp_group`` the pools hold
+    this model shard's heads only."""
     device = _device(model, device)
     prompt = torch.as_tensor(np.asarray(prompt), device=device).long()
     b, p_len, _ = prompt.shape
@@ -117,7 +126,7 @@ def prefill(model: MIDINet, config: MIDIModelConfig, prompt, max_seq: int,
                         net.head_dim, model.dtype, device, quantized=kv_int8)
     hidden, pools = model.net.prefill_paged(
         model.embed_events(prompt), pools, page_size=PAGE_SIZE,
-        pages_per_slot=pps)
+        pages_per_slot=pps, tp_group=tp_group)
     return GenState(pools=pools, hidden=hidden[:, -1], cur_len=p_len,
                     all_eos=False)
 
@@ -131,9 +140,11 @@ def _geometry(config: MIDIModelConfig, state: GenState):
 def _decode_one_event(model: MIDINet, config: MIDIModelConfig,
                       state: GenState, masks: Masks, temp, top_p, top_k,
                       generator, greedy: bool, eos_possible: bool,
-                      fused: Optional[FusedWeights]):
+                      fused: Optional[FusedWeights], tp_group=None):
     """Sample one row (8 tokens) and advance the event cache by it; the
-    fused path when ``fused`` (``prepare_fused`` of the event net) is given."""
+    fused path when ``fused`` (``prepare_fused`` of the event net) is given,
+    else the split path (under ``tp_group`` with the token-row kernel where
+    it takes the token net)."""
     b = state.hidden.shape[0]
     t_max = config.tokenizer.max_token_seq
     gumbel = None if greedy else gumbel_rows(b, t_max, generator)
@@ -147,13 +158,17 @@ def _decode_one_event(model: MIDINet, config: MIDIModelConfig,
         hidden, pools = fused_decode_step(fused, config.net, emb, state.pools,
                                           index, page_size=ps,
                                           pages_per_slot=pps)
-    else:  # the token net step by step, each draw through the sampler kernel
-        row, ended = decode_token_row_reference(
-            model, config, state.hidden, masks, temp, top_p, top_k, gumbel,
-            greedy=greedy, sample=sample_top_p_k)
+    else:
+        if tp_group is not None and token_loop.kernel_limits(config, b) is None:
+            row, ended = decode_token_row(model, config, state.hidden, masks, temp,
+                                          top_p, top_k, gumbel, greedy=greedy)
+        else:  # the token net step by step, each draw through the sampler kernel
+            row, ended = decode_token_row_reference(
+                model, config, state.hidden, masks, temp, top_p, top_k, gumbel,
+                greedy=greedy, sample=sample_top_p_k)
         hidden, pools = model.net.decode_paged(  # one length: it picks the kernel
             model.embed_events(row[:, None, :])[:, 0], state.pools, state.cur_len,
-            page_size=ps, pages_per_slot=pps)
+            page_size=ps, pages_per_slot=pps, tp_group=tp_group)
     # the host reads `ended` only when eos can be sampled at all
     all_eos = eos_possible and bool(ended.all())
     return GenState(pools=pools, hidden=hidden, cur_len=state.cur_len + 1,
@@ -191,7 +206,7 @@ def _decode_event_block(model: MIDINet, config: MIDIModelConfig,
 def decode_events(model: MIDINet, config: MIDIModelConfig, state: GenState,
                   masks: Masks, n_events_chunk: int, temp, top_p, top_k,
                   generator: Optional[torch.Generator], greedy: bool = False,
-                  fused: Optional[bool] = None):
+                  fused: Optional[bool] = None, tp_group=None):
     """Decode up to ``n_events_chunk`` rows.  Stops early once every row
     emitted eos in the same event, or the event cache is full.  Returns
     (state, rows [B, n_events_chunk, T] int32, n_done); rows beyond n_done
@@ -203,11 +218,17 @@ def decode_events(model: MIDINet, config: MIDIModelConfig, state: GenState,
     plain versions (CPU tensors) need an MHA event net with packed pages.
     On bf16/f32 pools the fused path decodes whole blocks of
     ``event_loop.EVENTS_PER_LAUNCH`` events in one launch each, the rest one
-    event at a time; on int8 pools every event runs the per-event pair."""
+    event at a time; on int8 pools every event runs the per-event pair.
+    Under ``tp_group`` only the split path runs (``fused`` True raises)."""
     b = state.hidden.shape[0]
     tokenizer = config.tokenizer
     device = state.hidden.device
     max_seq = state.capacity(config, b)
+    if tp_group is not None:
+        if fused:
+            raise ValueError("the fused kernels cannot all-reduce between layers: "
+                             "a tp group takes the split path")
+        fused = False
     if fused is None:
         fused = (model.dtype == torch.bfloat16
                  and event_loop.why_not_fused(config, b, max_seq) is None)
@@ -229,7 +250,8 @@ def decode_events(model: MIDINet, config: MIDIModelConfig, state: GenState,
             state, block = _decode_event_block(model, config, state, masks,
                                                *knobs, e)
         else:
-            state, row = _decode_one_event(model, config, state, masks, *knobs)
+            state, row = _decode_one_event(model, config, state, masks, *knobs,
+                                           tp_group=tp_group)
             block = row[:, None]
         rows[:, step:step + block.shape[1]] = block
         step += block.shape[1]
@@ -269,7 +291,8 @@ def generate(model: MIDINet, config: MIDIModelConfig,
              disable_channels: Optional[list] = None,
              chunk_size: Optional[int] = None, context_limit: int = 4096,
              kv_int8: bool = False, event_callback=None,
-             device=None, fused: Optional[bool] = None) -> np.ndarray:
+             device=None, fused: Optional[bool] = None,
+             tp_group=None) -> np.ndarray:
     """Host-facing generation: returns ``[B, L, T]`` int numpy rows (prompt +
     generated), like the JAX package's ``generate``.
 
@@ -278,7 +301,8 @@ def generate(model: MIDINet, config: MIDIModelConfig,
     reproducible on one device and independent of ``chunk_size``; it is not
     the JAX package's draw for the same seed.  ``event_callback(rows)``
     receives each decoded chunk as numpy.  ``fused`` picks the decode path
-    as in :func:`decode_events`; ``kv_int8`` stores int8 pools."""
+    as in :func:`decode_events`; ``kv_int8`` stores int8 pools; ``tp_group``
+    runs a model shard (``sampling.sharded.generate_tp``)."""
     device = _device(model, device)
     tokenizer = config.tokenizer
     prompt = normalize_prompt(tokenizer, prompt, batch_size)
@@ -300,14 +324,16 @@ def generate(model: MIDINet, config: MIDIModelConfig,
 
     remaining = max_len - p_len
     chunk = chunk_size or remaining
-    state = prefill(model, config, prompt, max_len, kv_int8=kv_int8, device=device)
+    state = prefill(model, config, prompt, max_len, kv_int8=kv_int8, device=device,
+                    tp_group=tp_group)
     pieces = [head, prompt] if head.shape[1] else [prompt]
     produced = 0
     while produced < remaining:
         n = min(chunk, remaining - produced)
         state, rows, n_done = decode_events(model, config, state, masks, n,
                                             temp, top_p, top_k, generator,
-                                            greedy=greedy, fused=fused)
+                                            greedy=greedy, fused=fused,
+                                            tp_group=tp_group)
         if n_done:
             rows_np = rows[:, :n_done].cpu().numpy().astype(np.int64)
             pieces.append(rows_np)

@@ -1,7 +1,7 @@
 """Continuous-batch serving: per-slot request admission into a running batch.
 
-Counterpart of ``midi_model_tpu/serve/batcher.py`` on one device (its
-``mesh`` argument and the dp/tp paths are not ported).  A fixed
+Counterpart of ``midi_model_tpu/serve/batcher.py``, on one device or over
+a ``(data, model)`` mesh (``parallel.mesh``; see "Mesh" below).  A fixed
 ``n_slots``-row decode batch lives on the model's device:
 
 - the event-net KV cache is one set of paged pools (``ops.paged_allheads``)
@@ -31,6 +31,19 @@ whatever the chunk size.
 The host keeps a mirror of the device's per-slot index, advanced from the
 rows it reads, so a step fetches nothing but its rows.  With ``pipeline``
 the next chunk is dispatched before the previous chunk's rows are read.
+
+Mesh: every rank runs the same batcher over the same submissions (SPMD),
+so the host state — the global slot table, the queue, admission and
+retirement — is the same on every rank.  Data shard ``d`` owns slots
+``[d * n_slots/dp, (d + 1) * n_slots/dp)``: their pools, hidden and index
+live on its device, and it prefills and decodes only them, with the
+single-device program on its local slots.  Under a model axis the
+event net is this rank's Megatron shard (``sampling.sharded``): the
+admission prefill runs at the local config and the step takes the split
+scan, whose ``decode_paged`` all-reduces over the model group twice a
+layer.  After each chunk the rows of every slot are gathered over the host
+group, so ``step`` and ``run_all`` return the same records on every rank.
+Noise is per request, so a request's rows do not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -48,8 +61,10 @@ from ..ops import token_loop
 from ..ops.fused_step import fused_decode_step, prepare_fused
 from ..ops.paged_allheads import alloc_pools
 from ..ops.sampler import sample_top_p_k
+from ..parallel.mesh import Mesh, gather_shards
 from ..sampling.generate import mask_tensors
 from ..sampling.masks import build_allow_vector, build_mask_table
+from ..sampling.sharded import tp_local_config, tp_shard_params
 from ..sampling.topk_topp import slot_gumbel
 
 PREFILL_BUCKETS = (16, 64, 256, 1024, 4096)
@@ -81,9 +96,16 @@ class ContinuousBatcher:
                  top_p: float = 0.98, top_k: int = 20, seed: int = 0,
                  disable_eos: bool = False, greedy: bool = False,
                  page_size: int = 64, kv_int8: bool = False,
-                 pipeline: Optional[bool] = None, fused: Optional[bool] = None):
+                 pipeline: Optional[bool] = None, fused: Optional[bool] = None,
+                 mesh: Optional[Mesh] = None):
         """The batcher runs on ``model``'s device (the card unless the model
         was built with ``device="cpu"``).
+
+        ``mesh``: this rank's ``parallel.Mesh``; ``n_slots`` must be
+        divisible by its data size, and each data shard decodes its share of
+        the slots.  Under a model axis, ``model`` is the full model: the
+        batcher keeps this rank's shard of it (``tp_shard_params``), and
+        ``fused`` True raises (the split scan is the only path).
 
         ``max_seq`` is rounded up to a multiple of 4 pages: the capacity at
         which slots retire.  ``fused``: True runs each chunk through the
@@ -97,6 +119,22 @@ class ContinuousBatcher:
         None takes it there too.  ``pipeline``: dispatch chunk N+1 before
         reading chunk N's rows (default: on for a CUDA device, off on the
         CPU); per-request rows are the same either way."""
+        dp, tp = (mesh.dp, mesh.tp) if mesh is not None else (1, 1)
+        if n_slots % dp:
+            raise ValueError(f"n_slots={n_slots} not divisible by the mesh's "
+                             f"data axis size {dp}")
+        if tp > 1:
+            if fused:
+                raise ValueError("the fused kernels cannot all-reduce between layers: "
+                                 "a model axis takes the split scan")
+            fused = False
+            model, config = tp_shard_params(model, mesh), tp_local_config(config, tp)
+        self.mesh = mesh
+        self._tp_group = mesh.model_group if tp > 1 else None
+        local_slots = n_slots // dp
+        data_rank = mesh.data_rank if mesh is not None else 0
+        # this rank's slots of the global table
+        self._mine = slice(data_rank * local_slots, (data_rank + 1) * local_slots)
         self.model = model
         self.config = config
         self.tokenizer = config.tokenizer
@@ -112,20 +150,22 @@ class ContinuousBatcher:
         self.masks = mask_tensors(
             build_mask_table(config.tokenizer, disable_eos=disable_eos), self.device)
         net = config.net
-        self._pools = alloc_pools(net.kv_heads, net.num_layers * n_slots * self.pages_per_slot,
+        self._pools = alloc_pools(net.kv_heads,
+                                  net.num_layers * local_slots * self.pages_per_slot,
                                   page_size, net.head_dim, model.dtype, self.device,
                                   quantized=kv_int8)
         if fused is None:
             fused = (model.dtype == torch.bfloat16
-                     and event_loop.why_not_fused(config, n_slots, self.max_seq) is None)
+                     and event_loop.why_not_fused(config, local_slots, self.max_seq) is None)
         self.fused = bool(fused)
         # a chunk's decode: "event_loop" (one launch), "pair" or "split" (per event)
         self.path = ("split" if not self.fused else "pair" if kv_int8 else "event_loop")
         self._weights = prepare_fused(model.net) if self.fused else None
         # the split scan's token row: the kernel where it takes the token net
-        self._token_kernel = token_loop.kernel_limits(config, n_slots) is None
-        self._index = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
-        self._hidden = torch.zeros((n_slots, config.n_embd), dtype=model.dtype,
+        self._token_kernel = token_loop.kernel_limits(config, local_slots) is None
+        # the device state of this rank's slots
+        self._index = torch.zeros((local_slots,), dtype=torch.int32, device=self.device)
+        self._hidden = torch.zeros((local_slots, config.n_embd), dtype=model.dtype,
                                    device=self.device)
         self._active = np.zeros((n_slots,), bool)
         # host mirror of the device index: advanced from the rows, reset on
@@ -209,7 +249,12 @@ class ContinuousBatcher:
     def _prefill_group(self, bucket: int, part: list):
         """One causal forward over the group's prompts padded to ``bucket``
         rows; their K/V go to their slots' pages and each slot's hidden and
-        index are set.  Pad rows after a prompt are never attended by it."""
+        index are set.  Pad rows after a prompt are never attended by it.
+        Under a mesh only this rank's slots of the group."""
+        lo, hi = self._mine.start, self._mine.stop
+        part = [(slot - lo, item) for slot, item in part if lo <= slot < hi]
+        if not part:
+            return
         t_max = self.tokenizer.max_token_seq
         g = len(part)
         padded = np.full((g, bucket, t_max), self.tokenizer.pad_id, np.int64)
@@ -224,7 +269,7 @@ class ContinuousBatcher:
         hidden, self._pools = self.model.net.prefill_paged(
             self.model.embed_events(self._to_device(padded)), self._pools,
             page_size=self.page_size, pages_per_slot=self.pages_per_slot,
-            slots=slots_t, n_slots=self.n_slots)
+            slots=slots_t, n_slots=self._index.shape[0], tp_group=self._tp_group)
         rows = torch.arange(g, device=self.device)
         self._hidden[slots_t] = hidden[rows, p_lens_t - 1]
         self._index[slots_t] = p_lens_t.to(torch.int32)
@@ -252,14 +297,19 @@ class ContinuousBatcher:
                                                                non_blocking=True)
 
     def _device_knobs(self) -> dict:
-        """The per-slot knobs on the device, uploaded when they changed."""
+        """The per-slot knobs of this rank's slots on the device, uploaded
+        when they changed."""
         if self._knobs is None:
+            mine = self._mine
+            allow = self._allow[mine]
             self._knobs = dict(
-                active=self._to_device(self._active), temp=self._to_device(self._temp),
-                top_p=self._to_device(self._top_p), top_k=self._to_device(self._top_k),
-                seed=self._to_device(self._seed),
+                active=self._to_device(self._active[mine]),
+                temp=self._to_device(self._temp[mine]),
+                top_p=self._to_device(self._top_p[mine]),
+                top_k=self._to_device(self._top_k[mine]),
+                seed=self._to_device(self._seed[mine]),
                 # the allow plane enters the kernels only when a slot has a ban
-                allow=None if self._allow.all() else self._to_device(self._allow))
+                allow=None if allow.all() else self._to_device(allow))
         return self._knobs
 
     # ---- decoding --------------------------------------------------------
@@ -298,10 +348,11 @@ class ContinuousBatcher:
 
     @torch.no_grad()
     def _dispatch(self):
-        """Enqueue one chunk; returns (rows, ready, snapshot): the rows
-        [B, chunk, T] on the host (filled when ``ready``, a CUDA event, has
-        passed; None on the CPU) and the dispatch-time (active, request id)
-        of every slot — rows of a slot reused since are discarded."""
+        """Enqueue one chunk; returns (rows, ready, snapshot): this rank's
+        slots' rows [B, chunk, T] on the host (filled when ``ready``, a CUDA
+        event, has passed; None on the CPU) and the dispatch-time (active,
+        request id) of every slot — rows of a slot reused since are
+        discarded."""
         snap = (self._active.copy(), np.asarray([s.request_id for s in self.slots]))
         kn = self._device_knobs()
         t_max = self.tokenizer.max_token_seq
@@ -358,7 +409,7 @@ class ContinuousBatcher:
                                                    self._pools, index, alive, **geometry)
             else:
                 h, self._pools = model.net.decode_paged(emb, self._pools, index, alive,
-                                                        **geometry)
+                                                        tp_group=self._tp_group, **geometry)
             new_index = torch.where(alive, (index + 1).clamp(max=capacity), index)
             hidden = torch.where(alive[:, None], h, hidden)
             # mid-chunk retirement: the eos row went through the event net,
@@ -372,10 +423,13 @@ class ContinuousBatcher:
     def _process(self, rows, ready, snap, on_rows) -> List[Finished]:
         """Host bookkeeping for one chunk's rows; returns finished requests.
         A slot whose occupant changed since the dispatch (pipelined mode)
-        has its rows discarded: they are the previous occupant's overshoot."""
+        has its rows discarded: they are the previous occupant's overshoot.
+        Under a mesh every slot's rows are gathered first."""
         if ready is not None:
             ready.synchronize()
             rows = rows.numpy()
+        if self.mesh is not None:
+            rows = gather_shards(self.mesh, rows)
         snap_active, snap_rid = snap
         cur_rid = np.asarray([s.request_id for s in self.slots])
         own = snap_active & self._active & (snap_rid == cur_rid)

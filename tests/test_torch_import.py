@@ -70,8 +70,12 @@ def test_import_whole_port_without_jax():
                     "interop.safetensors_io", "ops.attention", "models.api", "models.lora",
                     "interop.publish", "interop.export", "serve.artifact_runner",
                     "native", "native.build", "train.preprocess", "utils",
-                    "utils.profiling", "utils.build", "serve.app", "serve.synth"):
+                    "utils.profiling", "utils.build", "serve.app", "serve.synth",
+                    "parallel", "parallel.mesh", "sampling.sharded"):
             assert "midi_model_tpu_torch." + new in names, new
+        # the multi-process tests' rank programs load no jax either
+        sys.path.insert(0, "tests")
+        import _torch_mesh_worker  # noqa: F401
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
