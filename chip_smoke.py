@@ -119,8 +119,8 @@ one JSON line; any failed check raises, so the script exits non-zero:
              loop and the attention forward launched; one aligned session
              through the 8-event loop; ``examples/demo_torch.py`` on the
              card;
-9. mesh    — multi-device serving (``phase_mesh``), every rank a process
-             on a card.  On one card NCCL refuses two ranks, so the
+9. mesh    — multi-device serving and training (``phase_mesh``), every
+             rank a process on a card.  On one card NCCL refuses two ranks, so the
              multi-rank runs go over gloo (CUDA tensors all-reduced through
              the host), and one world-size-1 run over NCCL; with several
              cards the ranks spread over them and the NCCL run takes two.
@@ -129,21 +129,32 @@ one JSON line; any failed check raises, so the script exits non-zero:
              [32, 1024, 8, 64] against their plain versions; tp=2 at
              tv2o-large's full width and depth, greedy, on f32 weights with
              f32 and int8 pools and on bf16 (``generate_tp`` at bs=32,
-             256 + 64 events, against one device's split path on the same
-             token path; the tp batcher at 32 slots over 48 requests, 16
-             on f32 weights, against the single-device batcher): every
+             256 + 32 events, against one device's split path on the same
+             token path; the tp batcher at 32 slots over 16 requests,
+             against the single-device batcher): every
              differing row a near-tie, the hidden after 24 layers within
              TP_DEEP_TOLS;
              dp=2 at tv2o-medium (``generate_dp`` shards and the dp batcher
-             equal to one device's).  Four ranks: the dp=2 x tp=2 batcher
-             at tv2o-medium's width and 4 layers.  NCCL: ``make_mesh()``,
-             an all-reduce, ``generate_tp`` equal to ``generate`` (near-ties
+             equal to one device's).  Training on the same two ranks: rank 0
+             holds the causal attention backward at the tp=2 shard's
+             [2, 2047, 8, 64] and [4094, 8, 2, 256] (bf16, f32) to its plain
+             version, timed beside SDPA's backward; tp=2 and dp=2 at
+             tv2o-medium's full width and depth (``mesh_train_part``): step
+             0's loss and sampled gradients in f32 and bf16 against one
+             device's within TRAIN_MESH_TOLS, then 3 bf16 steps on a fixed
+             batch with a falling loss.  Four ranks: the dp=2 x tp=2
+             batcher at tv2o-medium's width and 4 layers, then the training
+             CLI at ``--dp 2 --tp 2`` (3 steps, a validation, a checkpoint
+             and an export in the single-device layout), then ``--resume``
+             on one device for a 4th step.  NCCL: ``make_mesh()``, an
+             all-reduce, ``generate_tp`` equal to ``generate`` (near-ties
              at tp=2).  Readings: launches per rank, events/s, all-reduces
-             per event and their ms.  No reading is a scaling figure.
+             per event and per training step and their ms, ms a training
+             step, peak memory per rank.  No reading is a scaling figure.
 
 Then the kernel summary line (with each kernel's launches in phase 7 as
 ``api_launches``, in phase 8 as ``app_launches`` and in phase 9's mesh
-runs, rank 0's, as ``mesh_launches``), the card's
+runs, rank 0's, serving and training, as ``mesh_launches``), the card's
 ``nvidia-smi`` name and power limit,
 and the result line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the package beside it, the script fails before any result.
@@ -1495,11 +1506,7 @@ def check_attention_bwd(card: str, gen) -> dict:
     with and without its log-sum-exp output."""
     import torch
 
-    from midi_model_tpu_torch.ops import attention as at
-
     dev = torch.device("cuda")
-    f32_tol = dict(atol=1e-4, rtol=1e-4)
-    bf16_tol = dict(atol=2e-2, rtol=2e-2)
     # the GQA bf16 case draws from its own generator (see check_attention)
     added = torch.Generator(device=dev)
     added.manual_seed(4322)
@@ -1508,34 +1515,11 @@ def check_attention_bwd(card: str, gen) -> dict:
              (2, 300, 16, 4, 64, torch.float32, gen), (2, 2047, 16, 4, 64, torch.bfloat16, added)]
     errs = {}
     for b, s, h, hkv, dh, dtype, g in cases:
-        name = f"{dtype}[{b},{s},{h},{hkv},{dh}]"
-        wide = torch.randn((b, s, h, 2 * dh), generator=g, device=dev).to(dtype)
-        q = wide[..., :dh]  # strided: no copy
-        k = torch.randn((b, s, hkv, dh), generator=g, device=dev).to(dtype)
-        v = torch.randn((b, s, hkv, dh), generator=g, device=dev).to(dtype)
-        dout = torch.randn((b, s, h, dh), generator=g, device=dev).to(dtype)
-        out, lse = at._forward(q, k, v, with_lse=True)
-        lse_r = at._reference_with_lse(q, k, v, at.causal_bias(s, dev))[1]
-        grads = at.causal_attention_backward(q, k, v, out, dout, lse)
-        ref = at.causal_attention_backward_reference(q, k, v, out, dout, lse_r)
-        torch.cuda.synchronize()
-        tol = f32_tol if dtype == torch.float32 else bf16_tol
-        case = {"lse": float((lse - lse_r).abs().max())}
-        require(torch.allclose(lse, lse_r, **LSE_TOL),
-                f"attention backward {name}: the forward's LSE differs by {case['lse']}")
-        del lse_r
-        for g_name, ours, want in zip(("dq", "dk", "dv"), grads, ref):
-            require(ours.shape == want.shape and bool(torch.isfinite(ours.float()).all()),
-                    f"attention backward {name}: {g_name} shape or non-finite")
-            case[g_name] = float((ours.float() - want.float()).abs().max())
-            require(torch.allclose(ours.float(), want.float(), **tol),
-                    f"attention backward {name}: {g_name} differs by {case[g_name]}")
-        errs[name] = case
-        if hkv == h and b * s * h * dh > 1 << 20:  # the training shapes, timed
-            case.update(time_attention_bwd(q, k, v, out, dout, lse, full=(
-                dtype == torch.bfloat16 and dh == 64)))
-        del wide, q, k, v, dout, out, lse, grads, ref
-        torch.cuda.empty_cache()
+        # the training shapes, timed
+        timed = hkv == h and b * s * h * dh > 1 << 20
+        errs[f"{dtype}[{b},{s},{h},{hkv},{dh}]"] = attention_bwd_case(
+            b, s, h, hkv, dh, dtype, g, timed, full=timed and dtype == torch.bfloat16
+            and dh == 64)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     result = {k: errs["torch.bfloat16[2,2047,16,16,64]"][k] for k in keys}
     result_f32 = {k: errs["torch.float32[2,2047,16,16,64]"][k] for k in keys}
@@ -1545,6 +1529,44 @@ def check_attention_bwd(card: str, gen) -> dict:
     emit({"phase": "kernel", "name": "causal_attention_bwd", "by_case": errs, **result,
           "f32": result_f32, "card": card})
     return {"causal_attention_bwd": result, "causal_attention_bwd_f32": result_f32}
+
+
+def attention_bwd_case(b: int, s: int, h: int, hkv: int, dh: int, dtype, g, timed: bool,
+                       full: bool = False) -> dict:
+    """One case of :func:`check_attention_bwd` (its checks and, ``timed``,
+    :func:`time_attention_bwd`'s readings); inputs drawn from ``g``."""
+    import torch
+
+    from midi_model_tpu_torch.ops import attention as at
+
+    dev = torch.device("cuda")
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    name = f"{dtype}[{b},{s},{h},{hkv},{dh}]"
+    wide = torch.randn((b, s, h, 2 * dh), generator=g, device=dev).to(dtype)
+    q = wide[..., :dh]  # strided: no copy
+    k = torch.randn((b, s, hkv, dh), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, s, hkv, dh), generator=g, device=dev).to(dtype)
+    dout = torch.randn((b, s, h, dh), generator=g, device=dev).to(dtype)
+    out, lse = at._forward(q, k, v, with_lse=True)
+    lse_r = at._reference_with_lse(q, k, v, at.causal_bias(s, dev))[1]
+    grads = at.causal_attention_backward(q, k, v, out, dout, lse)
+    ref = at.causal_attention_backward_reference(q, k, v, out, dout, lse_r)
+    torch.cuda.synchronize()
+    case = {"lse": float((lse - lse_r).abs().max())}
+    require(torch.allclose(lse, lse_r, **LSE_TOL),
+            f"attention backward {name}: the forward's LSE differs by {case['lse']}")
+    del lse_r
+    for g_name, ours, want in zip(("dq", "dk", "dv"), grads, ref):
+        require(ours.shape == want.shape and bool(torch.isfinite(ours.float()).all()),
+                f"attention backward {name}: {g_name} shape or non-finite")
+        case[g_name] = float((ours.float() - want.float()).abs().max())
+        require(torch.allclose(ours.float(), want.float(), **tol),
+                f"attention backward {name}: {g_name} differs by {case[g_name]}")
+    if timed:
+        case.update(time_attention_bwd(q, k, v, out, dout, lse, full=full))
+    del wide, q, k, v, dout, out, lse, grads, ref
+    torch.cuda.empty_cache()
+    return case
 
 
 def time_attention_bwd(q, k, v, out, dout, lse, full: bool) -> dict:
@@ -3335,12 +3357,15 @@ TIE_GAPS = {"f32": ARTIFACT_TIE_GAP, "int8": 0.02, "bf16": 0.0625}
 # the tp batcher's requests: the first n of the queue).  The tp batcher's
 # time goes to its admissions (prefills whose all-reduces carry [G, S,
 # 1024] activations between processes): 19-22 s for 48 requests in runs AO
-# and AQ.  bf16 takes all 48, so 16 wait for a freed slot; f32 and int8
-# pools take 16, all admitted at once (the dp x tp run holds f32 slot reuse
-# under tp to one device's rows).
+# and AQ, 11-14 s for 16.  Each takes 16, all admitted at once (the dp x tp
+# run holds f32 slot reuse under tp to one device's rows).
 TP_RUNS = {"f32": ("float32", "f32", False, "prefill", 16),
            "f32_int8": ("float32", "int8", True, "chunk", 16),
-           "bf16": ("bfloat16", "bf16", False, "prefill", 48)}
+           "bf16": ("bfloat16", "bf16", False, "prefill", 16)}
+# the events ``generate_tp`` and its single-device reference decode after
+# the 256-event prompt, few, as the tp batchers' requests: phase 9's
+# training parts share the script's time
+TP_EVENTS = 32
 TP_DEEP_TOLS = {"f32": F32_TP_DEEP_TOL, "f32_int8": INT8_TP_DEEP_TOL,
                 "bf16": BF16_TP_DEEP_TOL}
 TP_CHUNK = 16  # the events of the decode chunk after the prefill
@@ -3468,35 +3493,210 @@ def mesh_local_kernels(card: str) -> dict:
     return out
 
 
-def timed_all_reduces(stats: list):
-    """A stand-in for ``torch.distributed.all_reduce`` that synchronizes the
-    card before and after the call and appends its seconds to ``stats``."""
+# ---- phase 9's training parts ---------------------------------------------
+#
+# tp=2 and dp=2 at tv2o-medium's full width and depth, f32 masters made on
+# the CPU from phase 6's step-0 seed (the same weights on every rank, in
+# the parent and in tools/train_mesh_cpu_reading_torch.py), step 0 on
+# TRAIN_MESH_ROWS x TRAIN_MESH_EVENTS events against one device; the tp=2
+# shard's attention shapes: the event net at 8 heads x 64, the token net at
+# 2 heads x 256.
+
+TRAIN_MESH_ROWS, TRAIN_MESH_EVENTS = 2, 512
+STEP0_SAMPLE = ("net.layers.0.self_attn.q_proj.weight", "net.layers.11.self_attn.k_proj.weight",
+                "net.layers.5.mlp.down_proj.weight", "net_token.layers.0.self_attn.v_proj.weight",
+                "net.embed_tokens.weight", "lm_head.weight")
+# Step 0 on the mesh against one device: the loss's relative difference and
+# the sampled gradients' largest difference relative to each leaf's largest
+# value.  Each bound is 1.6x a reading of two correct computations, rounded
+# up (PERF.md section 6, training on the mesh):
+# - the same comparison on the CPU (tools/train_mesh_cpu_reading_torch.py:
+#   tp=2 and dp=2 as gloo ranks on the CPU against one CPU process, the
+#   same weights and batch, on the card's machine; the larger of the two
+#   meshes' readings).  f32: loss 1.15e-7 (dp=2; one f32 step of a loss
+#   near 8.3; tp=2 0), so 1.6x is rounded up to two such steps; gradients
+#   1.008e-6.  bf16 compute: loss 2.79e-5, gradients 7.65e-3 (tp=2), of the
+#   order of phase 6's bf16 step-0 reading of the kernels against plain
+#   attention (6.2e-3).
+# - f32 gradients: the card's f32 rounding is larger than the CPU's (tp=2
+#   2.87e-6, dp=2 2.25e-6 in runs AU, AV: a bound of 1.6x the CPU's 1.008e-6
+#   failed), so, as TP_DEEP_TOLS, the yardstick is one device's step on the
+#   CPU against the same on the card (``f32_step0_cpu_vs_card``, printed by
+#   every run: 3.76e-6 in run AV).
+TRAIN_MESH_TOLS = {"float32": {"loss_rel": 2.3e-7, "grad_rel": 6.1e-6},
+                   "bfloat16": {"loss_rel": 4.5e-5, "grad_rel": 1.3e-2}}
+TRAIN_MESH_STEPS = 3  # on a fixed batch, bf16 compute: the loss falls
+
+
+def train_mesh_batches(batch_of):
+    """Step 0's global microbatch ``[ROWS, EVENTS, T]`` and the fixed batch
+    of the timed steps ``[2 microbatches, ROWS, EVENTS, T]``."""
+    step0 = batch_of(TRAIN_MESH_ROWS, TRAIN_MESH_EVENTS, 0)
+    fixed = batch_of(2 * TRAIN_MESH_ROWS, TRAIN_MESH_EVENTS, 1).reshape(
+        2, TRAIN_MESH_ROWS, TRAIN_MESH_EVENTS, -1)
+    return step0, fixed
+
+
+def train_mesh_params(device):
+    """tv2o-medium's f32 masters from phase 6's step-0 seed, made on the
+    CPU (the same numbers on every rank and machine), on ``device``."""
+    from midi_model_tpu_torch.models import MIDIModelConfig
+    from midi_model_tpu_torch.train import trainer as tr
+
+    config = MIDIModelConfig.from_name("tv2o-medium")
+    params = tr.init_params(config, seed=3, device="cpu")
+    return config, {n: p.to(device) for n, p in params.items()}
+
+
+def step0_sample(params, config, rows, dtype, mesh=None):
+    """One microbatch's loss and the gradients of ``STEP0_SAMPLE``, summed
+    over the data group and gathered over the model group as the step
+    does: (loss, {name: f32 CPU tensor})."""
+    from midi_model_tpu_torch.train import trainer as tr
+    from midi_model_tpu_torch.train.sharding import gather_params
+
+    p = {n: t.clone().requires_grad_(True) for n, t in params.items()}
+    loss, metrics = tr.loss_fn(p, config, rows, dtype, mesh=mesh)
+    loss.backward()
+    sample = {n: p[n].grad for n in STEP0_SAMPLE}
+    if mesh is not None:
+        tr.sum_over(sample, mesh.data_group)
+        sample = gather_params(sample, mesh)
+    return float(metrics["loss"].detach()), {n: g.float().cpu() for n, g in sample.items()}
+
+
+def step0_errors(mine, ref) -> dict:
+    """The loss's relative difference and each sampled gradient's largest
+    difference relative to the leaf's largest value."""
+    loss, grads = mine
+    loss_r, grads_r = ref
+    per_leaf = {n: float((grads[n] - grads_r[n]).abs().max() / grads_r[n].abs().max())
+                for n in grads_r}
+    return {"loss": loss, "loss_ref": loss_r, "loss_rel": abs(loss - loss_r) / abs(loss_r),
+            "grad_rel": max(per_leaf.values()), "grad_rel_by_leaf": per_leaf}
+
+
+@contextlib.contextmanager
+def timed_collectives(stats: dict):
+    """``torch.distributed.all_reduce`` and ``all_gather`` replaced by
+    stand-ins that synchronize the card before and after each call and
+    append its seconds to ``stats[name]``."""
     import torch
     import torch.distributed as dist
 
-    real = dist.all_reduce
+    real = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
 
-    def timed(*args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real(*args, **kwargs)
-        torch.cuda.synchronize()
-        stats.append(time.perf_counter() - t0)
-        return out
+    def wrap(name):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            stats.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return timed
 
-    return real, timed
+    for name in real:
+        setattr(dist, name, wrap(name))
+    try:
+        yield stats
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+def mesh_attention_train(card: str) -> None:
+    """The causal attention backward kernels at a tp=2 shard's training
+    shapes against their plain versions, at phase 2's bounds: the event net
+    [2, 2047, 8, 64] and the token net [4094, 8, 2, 256] (two heads: the
+    Dh-256 packed-row grids ran at four before), bf16 and f32, each timed
+    warm beside SDPA's backward with its bound (``attention_bwd_case``);
+    and the forward at the token net's shard shape, bf16 and f32, beside
+    SDPA (``attention_case``; the event net's is phase 9's [32, 1024, 8, 64])."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4323)
+    out = {}
+    for b, s, h, dh in ((2, 2047, 8, 64), (4094, 8, 2, 256)):
+        for dtype in (torch.bfloat16, torch.float32):
+            out[f"{dtype}[{b},{s},{h},{h},{dh}]"] = attention_bwd_case(b, s, h, h, dh, dtype,
+                                                                        gen, timed=True)
+    forward = {f"{dtype}[4094,8,2,2,256]": attention_case(4094, 8, 2, 2, 256, dtype, False,
+                                                          True, gen)
+               for dtype in (torch.bfloat16, torch.float32)}
+    emit({"phase": "mesh_attention_train", "backward": out, "forward": forward, "card": card})
+
+
+def mesh_train_part(mesh, batches, ref_path: str, what: str) -> dict:
+    """One rank's share of a tp=2 or dp=2 training run at tv2o-medium:
+    step 0 in f32 and bf16 on this data shard's rows (the first rank holds
+    it against one device's, ``ref_path``); then ``TRAIN_MESH_STEPS`` bf16
+    steps on the fixed batch, the first with every all-reduce and
+    all-gather timed, the others timed whole; peak memory; the launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from midi_model_tpu_torch.ops import _build
+    from midi_model_tpu_torch.train import trainer as tr
+    from midi_model_tpu_torch.train.sharding import shard_params
+
+    config, params = train_mesh_params(mesh.device)
+    local = shard_params(params, mesh)
+    del params
+    step0, fixed = batches
+    n = TRAIN_MESH_ROWS // mesh.dp
+    rows = slice(mesh.data_rank * n, (mesh.data_rank + 1) * n)
+    first = dist.get_rank() == 0
+    ref = torch.load(ref_path, weights_only=True) if first else None
+    out = {"step0": {}}
+    _build.LAUNCHES.clear()
+    for dtype in (torch.float32, torch.bfloat16):
+        mine = step0_sample(local, config, step0[rows], dtype, mesh)
+        if first:
+            out["step0"][str(dtype).split(".")[-1]] = step0_errors(mine, ref[str(dtype)])
+        del mine
+    torch.cuda.empty_cache()
+    optimizer = tr.make_optimizer(lr=3e-4, warmup_steps=0, total_steps=1000)
+    state = tr.init_train_state(local, optimizer)
+    del local
+    step = tr.make_train_step(config, optimizer, accum_steps=2, compute_dtype=torch.bfloat16,
+                              mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, stats = [], [], {}
+    for i in range(TRAIN_MESH_STEPS):
+        with timed_collectives(stats) if i == 0 else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, fixed[:, rows])
+            losses.append(float(metrics["loss"]))
+            times.append(time.perf_counter() - t0)
+    out.update({
+        "what": what, "losses": losses, "ms_per_step": float(np.mean(times[1:])) * 1e3,
+        "ms_per_step_runs": [t * 1e3 for t in times],
+        "collectives_per_step": {k: len(v) for k, v in stats.items()},
+        "collective_ms_per_step": {k: float(np.sum(v)) * 1e3 for k, v in stats.items()},
+        "collective_mean_ms": {k: float(np.mean(v)) * 1e3 for k, v in stats.items()},
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": dict(_build.LAUNCHES)})
+    if first:
+        emit({"phase": "mesh_rank_run", "run": f"train {what}", "ms_per_step": out["ms_per_step"],
+              "losses": losses})
+    del state, step
+    torch.cuda.empty_cache()
+    return out
 
 
 def mesh_tp_part(mesh, tp_queue) -> dict:
     """One rank's share of the tp=2 runs at tv2o-large's full width and
     depth (8 heads and an MLP of 2048 a rank), each of ``TP_RUNS``:
-    greedy ``generate_tp`` at bs=32, a 256-event prompt and 64 new events;
+    greedy ``generate_tp`` at bs=32, a 256-event prompt and ``TP_EVENTS`` new events;
     the hidden after the prefill and after a greedy ``TP_CHUNK``-event
     decode chunk, with every all-reduce of the chunk timed; and the greedy
     tp batcher over ``tp_queue`` (eos disabled)."""
     import numpy as np
     import torch
-    import torch.distributed as dist
 
     from midi_model_tpu_torch.models import MIDIModelConfig
     from midi_model_tpu_torch.models.midinet import init_model
@@ -3520,30 +3720,26 @@ def mesh_tp_part(mesh, tp_queue) -> dict:
             _build.LAUNCHES.clear()
             t0 = time.perf_counter()
             rows = generate_tp(local, config, mesh, prompt=prompt, batch_size=32,
-                               max_len=256 + 64, greedy=True, kv_int8=kv_int8)
+                               max_len=256 + TP_EVENTS, greedy=True, kv_int8=kv_int8)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             out["generate"][name] = {"rows": rows, "wall_s": wall,
                                      "launches": dict(_build.LAUNCHES)}
             if mesh.model_rank == 0:
                 emit({"phase": "mesh_rank_run", "run": f"generate_tp {name}", "wall_s": wall})
-            state = prefill_tp(local, config, prompt, 256 + 64, mesh, kv_int8=kv_int8)
+            state = prefill_tp(local, config, prompt, 256 + TP_EVENTS, mesh, kv_int8=kv_int8)
             run = out["generate"][name]
             run["hidden_prefill"] = state.hidden.float().cpu().numpy()
             # every all-reduce of the chunk timed alone
-            stats = []
-            real, timed = timed_all_reduces(stats)
-            dist.all_reduce = timed
-            try:
+            stats = {}
+            with timed_collectives(stats):
                 masks = mask_tensors(build_mask_table(tok), mesh.device)
                 state, chunk, n_done = decode_events_tp(local, config, state, masks, TP_CHUNK,
                                                         1.0, 0.98, 20, None, mesh, greedy=True)
-            finally:
-                dist.all_reduce = real
             run["hidden_chunk"] = state.hidden.float().cpu().numpy()
             run["chunk_rows"] = chunk.cpu().numpy()
-            run["all_reduce"] = {"per_event": len(stats) / n_done,
-                                 "mean_ms": float(np.mean(stats)) * 1e3,
+            run["all_reduce"] = {"per_event": len(stats["all_reduce"]) / n_done,
+                                 "mean_ms": float(np.mean(stats["all_reduce"])) * 1e3,
                                  "bytes": 32 * config.n_embd * local.dtype.itemsize,
                                  "dtype": dtype}
             del state
@@ -3596,10 +3792,11 @@ def mesh_dp_part(mesh, dp_queue) -> dict:
     return out
 
 
-def mesh_rank_pair(out_dir: str, card: str, tp_queue, dp_queue) -> None:
+def mesh_rank_pair(out_dir: str, card: str, tp_queue, dp_queue, train_batches) -> None:
     """Rank program of the two-rank runs (gloo, both on cuda:0): rank 0's
-    local kernel checks, the tp=2 part, then the dp=2 part; each rank
-    pickles its results to ``out_dir``."""
+    local kernel checks (serving's and the training backward's), the tp=2
+    part and the tp=2 training part, then the dp=2 part and the dp=2
+    training part; each rank pickles its results to ``out_dir``."""
     import torch
     import torch.distributed as dist
 
@@ -3608,18 +3805,30 @@ def mesh_rank_pair(out_dir: str, card: str, tp_queue, dp_queue) -> None:
     cuda_settings()
     rank = dist.get_rank()
     mesh = make_mesh(tp=2)
+    ref_path = str(Path(out_dir) / "train_ref.pt")
     res = {}
     seconds = {}
     t0 = time.perf_counter()
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - t0 - sum(seconds.values())
+
     if rank == 0:
         res["kernels"] = mesh_local_kernels(card)
+        mesh_attention_train(card)
     dist.barrier(group=mesh.host_group)
-    seconds["kernels"] = time.perf_counter() - t0
+    lap("kernels")
     res["tp"] = mesh_tp_part(mesh, tp_queue)
     torch.cuda.empty_cache()
-    seconds["tp"] = time.perf_counter() - t0 - seconds["kernels"]
-    res["dp"] = mesh_dp_part(make_mesh(dp=2), dp_queue)
-    seconds["dp"] = time.perf_counter() - t0 - seconds["kernels"] - seconds["tp"]
+    lap("tp")
+    res["train_tp"] = mesh_train_part(mesh, train_batches, ref_path, "tp=2")
+    lap("train_tp")
+    dp_mesh = make_mesh(dp=2)
+    res["dp"] = mesh_dp_part(dp_mesh, dp_queue)
+    torch.cuda.empty_cache()
+    lap("dp")
+    res["train_dp"] = mesh_train_part(dp_mesh, train_batches, ref_path, "dp=2")
+    lap("train_dp")
     if rank == 0:
         emit({"phase": "mesh_rank_parts", "seconds": seconds})
     (Path(out_dir) / f"pair{rank}.pkl").write_bytes(pickle.dumps(res))
@@ -3628,17 +3837,20 @@ def mesh_rank_pair(out_dir: str, card: str, tp_queue, dp_queue) -> None:
 DPTP_DIMS = dict(n_layer=4, n_head=16, n_embd=1024, n_inner=4096)  # tv2o-medium's width
 
 
-def mesh_rank_dptp(out_dir: str, queue) -> None:
-    """Rank program of the dp=2 x tp=2 batcher on four ranks (gloo, all on
-    cuda:0): tv2o-medium's width at 4 layers, f32, 8 slots (4 a data
-    shard), greedy."""
+def mesh_rank_dptp(out_dir: str, queue, cli_argv) -> None:
+    """Rank program of the four-rank runs (gloo, all on cuda:0): the dp=2 x
+    tp=2 batcher at tv2o-medium's width at 4 layers, f32, 8 slots (4 a data
+    shard), greedy; then the training CLI at ``--dp 2 --tp 2`` on the same
+    process group (``cli_argv``)."""
     import torch
     import torch.distributed as dist
 
     from midi_model_tpu_torch.models import MIDIModelConfig
     from midi_model_tpu_torch.models.midinet import init_model
+    from midi_model_tpu_torch.ops import _build
     from midi_model_tpu_torch.parallel import make_mesh
     from midi_model_tpu_torch.serve import ContinuousBatcher
+    from midi_model_tpu_torch.train import cli
 
     cuda_settings()
     mesh = make_mesh(dp=2, tp=2)
@@ -3647,6 +3859,15 @@ def mesh_rank_dptp(out_dir: str, queue) -> None:
     batcher = ContinuousBatcher(model, config, n_slots=8, max_seq=1024, chunk=16, seed=11,
                                 disable_eos=True, greedy=True, mesh=mesh)
     run = drive_queue(batcher, queue)
+    del batcher, model
+    torch.cuda.empty_cache()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    state = cli.main(cli_argv)
+    torch.cuda.synchronize()
+    run["cli"] = {"wall_s": time.perf_counter() - t0, "step": state.step,
+                  "launches": dict(_build.LAUNCHES),
+                  "local_lm_head": list(state.params["lm_head.weight"].shape)}
     (Path(out_dir) / f"dptp{dist.get_rank()}.pkl").write_bytes(pickle.dumps(run))
 
 
@@ -3690,6 +3911,107 @@ def mesh_rank_nccl(out_dir: str) -> None:
         (Path(out_dir) / "nccl0.pkl").write_bytes(pickle.dumps(res))
 
 
+def single_device_train(batches, ref_path: Path) -> dict:
+    """One device's share of the training parts: step 0 in f32 and bf16 on
+    the whole microbatch (saved to ``ref_path`` for the first rank), then
+    the timed bf16 steps on the fixed batch: losses, ms a step, peak
+    memory."""
+    import numpy as np
+    import torch
+
+    from midi_model_tpu_torch.train import trainer as tr
+
+    config, params = train_mesh_params("cuda")
+    step0, fixed = batches
+    ref = {str(dtype): step0_sample(params, config, step0, dtype)
+           for dtype in (torch.float32, torch.bfloat16)}
+    torch.save(ref, ref_path)
+    # the f32 yardstick: the same step on the CPU (the plain versions)
+    # against the card's
+    t0 = time.perf_counter()
+    cpu_config, cpu_params = train_mesh_params("cpu")
+    cpu_vs_card = step0_errors(step0_sample(cpu_params, cpu_config, step0, torch.float32),
+                               ref[str(torch.float32)])
+    cpu_vs_card["seconds"] = time.perf_counter() - t0
+    del cpu_params, ref
+    optimizer = tr.make_optimizer(lr=3e-4, warmup_steps=0, total_steps=1000)
+    state = tr.init_train_state(params, optimizer)
+    del params
+    step = tr.make_train_step(config, optimizer, accum_steps=2, compute_dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(TRAIN_MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, fixed)
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del state, step
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ms_per_step": float(np.mean(times[1:])) * 1e3,
+            "ms_per_step_runs": [t * 1e3 for t in times], "peak_memory_gb": peak,
+            "f32_step0_cpu_vs_card": cpu_vs_card}
+
+
+def mesh_cli_argv(work: Path, out: Path) -> list:
+    """The mesh CLI run's arguments (the mesh flags added by the caller):
+    tv2o-medium on phase 6's corpus, bf16 compute, bs 2 x acc 2 x 512
+    events, 3 steps and one validation (its checkpoint and export) at the
+    last; no loader processes (the ranks are daemons) and no example
+    pieces."""
+    return ["--data", str(work / "corpus"), "--config", "tv2o-medium", "--data-val-split", "2",
+            "--max-len", "512", "--batch-size-train", "2", "--acc-grad", "2",
+            "--batch-size-val", "1", "--max-step", "3", "--val-step", "3", "--warmup-step", "2",
+            "--workers-train", "0", "--gen-example-interval", "0", "--out-dir", str(out)]
+
+
+def check_mesh_cli(card: str, runs, cli_argv, out: Path) -> None:
+    """The ``--dp 2 --tp 2`` CLI run: every rank took 3 steps on its shard
+    (half the vocab's head), the checkpoint and the export hold the
+    single-device layout, and ``--resume`` on one device takes the 4th
+    step from that checkpoint."""
+    import numpy as np
+    import torch
+
+    from midi_model_tpu_torch.interop import load_state_dict
+    from midi_model_tpu_torch.models import MIDIModelConfig
+    from midi_model_tpu_torch.models.midinet import MIDINet
+    from midi_model_tpu_torch.train import cli
+
+    config = MIDIModelConfig.from_name("tv2o-medium")
+    layout = {n: tuple(p.shape) for n, p in MIDINet(config, device="meta").named_parameters()}
+    vocab = config.tokenizer.vocab_size
+    require(all(r["cli"]["step"] == 3 and r["cli"]["local_lm_head"] == [vocab // 2, 1024]
+                for r in runs), f"mesh CLI: {[r['cli'] for r in runs]}")
+    ckpt = out / "checkpoints"
+    saved = torch.load(ckpt / "step_3.pt", map_location="cpu", weights_only=True)
+    require(all({n: tuple(t.shape) for n, t in saved[k].items()} == layout
+                for k in ("params", "mu", "nu")) and saved["opt_count"] == 3,
+            "mesh CLI: the checkpoint is not in the single-device layout")
+    exported = load_state_dict(str(ckpt / "model.safetensors"))
+    require(all(np.array_equal(exported[n], p.numpy()) for n, p in saved["params"].items()),
+            "mesh CLI: the export differs from the checkpoint")
+    logged = [json.loads(line) for line in (out / "logs" / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train/loss"] for r in logged if "train/loss" in r]
+    val = [r["val/loss"] for r in logged if "val/loss" in r]
+    require(len(losses) == 3 and all(np.isfinite(losses + val)) and len(val) == 1,
+            f"mesh CLI: logged {logged}")
+    del saved, exported
+    t0 = time.perf_counter()
+    resumed = cli.main(cli_argv + ["--resume", "1", "--max-step", "4", "--val-step", "0"])
+    resume_s = time.perf_counter() - t0
+    require(resumed.step == 4 and resumed.opt_state.count == 4
+            and tuple(resumed.params["lm_head.weight"].shape) == layout["lm_head.weight"],
+            f"mesh CLI: --resume on one device reached step {resumed.step}")
+    emit({"phase": "mesh_train_cli", "dp": 2, "tp": 2, "ranks_on_one_card": 4,
+          "train_losses": losses, "val_loss": val[0], "wall_s": runs[0]["cli"]["wall_s"],
+          "launches_rank0": runs[0]["cli"]["launches"], "resume_one_device_s": resume_s,
+          "card": card})
+    del resumed
+    torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def group_of_one():
     """A gloo process group of this process alone.  Given to one device's
@@ -3706,7 +4028,7 @@ def group_of_one():
 
 
 def timed_generate(model, config, prompt, **kw):
-    """Single-device ``generate`` on the split path at bs=32, 64 events
+    """Single-device ``generate`` on the split path at bs=32, ``TP_EVENTS`` events
     after ``prompt``: its rows and wall seconds."""
     import torch
 
@@ -3714,7 +4036,7 @@ def timed_generate(model, config, prompt, **kw):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rows = generate(model, config, prompt=prompt, batch_size=32, max_len=256 + 64,
+    rows = generate(model, config, prompt=prompt, batch_size=32, max_len=256 + TP_EVENTS,
                     fused=False, **kw)
     torch.cuda.synchronize()
     return rows, time.perf_counter() - t0
@@ -3729,7 +4051,7 @@ def single_device_hidden(model, config, prompt, kv_int8: bool, at: str,
     from midi_model_tpu_torch.sampling import (build_mask_table, decode_events,
                                                mask_tensors, prefill)
 
-    state = prefill(model, config, prompt, 256 + 64, kv_int8=kv_int8)
+    state = prefill(model, config, prompt, 256 + TP_EVENTS, kv_int8=kv_int8)
     if at == "prefill":
         return {"hidden_prefill": state.hidden.float().cpu().numpy()}
     masks = mask_tensors(build_mask_table(config.tokenizer), state.hidden.device)
@@ -3785,7 +4107,7 @@ def phase_mesh(card: str) -> dict:
        (``mesh_tp_part``) against one device on the split path with the tp
        run's token path (``group_of_one``), greedy, on f32 weights with f32
        and with int8 pools and on bf16 weights: ``generate_tp`` against
-       ``generate`` and the tp batcher (48 requests; 16 on f32 weights)
+       ``generate`` and the tp batcher (16 requests)
        against the single-device batcher, the rows that differ counted and
        each parting
        at a near-tie (``TIE_GAPS``); the hidden after 24 layers on rows 0-1
@@ -3795,10 +4117,16 @@ def phase_mesh(card: str) -> dict:
        their mean ms.  Then dp=2 at tv2o-medium (``mesh_dp_part``):
        ``generate_dp`` shard i equal to single-device ``generate`` on its
        rows with ``shard_seed(3, i)``, the dp batcher's records equal to the
-       single-device batcher's;
+       single-device batcher's.  Training on the same ranks: rank 0's
+       attention kernels at the tp shard's training shapes
+       (``mesh_attention_train``);
+       the tp=2 and dp=2 training parts (``mesh_train_part``) against one
+       device's (``single_device_train``, run here first);
     2. four gloo ranks: the greedy dp=2 x tp=2 batcher at tv2o-medium's
        width and 4 layers, every rank admitting, records equal to the
-       single-device batcher's but for near-ties;
+       single-device batcher's but for near-ties; then the training CLI at
+       ``--dp 2 --tp 2`` and ``--resume`` on one device
+       (``check_mesh_cli``);
     3. NCCL: on one card one rank, ``make_mesh()``, an NCCL all-reduce,
        ``generate_tp`` at tp=1 equal to ``generate``; on a machine with
        several cards two ranks on two cards, tp=2, greedy rows equal to
@@ -3827,11 +4155,17 @@ def phase_mesh(card: str) -> dict:
     tp_queue = request_queue(tok, np.random.default_rng(90), 48, (16, 513), (16, 33))
     dp_queue = request_queue(tok, np.random.default_rng(91), 48, (16, 513), (32, 129))
     dptp_queue = request_queue(tok, np.random.default_rng(92), 12, (16, 129), (16, 49))
+    # the training parts: one device's step 0 (the reference the first rank
+    # reads) and its timed steps on the same batches
+    _, work, batch_of = training_corpus()
+    train_batches = train_mesh_batches(batch_of)
+    single = single_device_train(train_batches, out_dir / "train_ref.pt")
+    emit({"phase": "mesh_train_single_device", **single, "card": card})
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    spawn(mesh_rank_pair, 2, (str(out_dir), card, tp_queue, dp_queue), timeout_s=480,
-          **MESH_LIMITS)
+    spawn(mesh_rank_pair, 2, (str(out_dir), card, tp_queue, dp_queue, train_batches),
+          timeout_s=720, **MESH_LIMITS)
     pair_s = time.perf_counter() - t0
     emit({"phase": "mesh_pair_processes", "seconds": pair_s})
     pair = [pickle.loads((out_dir / f"pair{r}.pkl").read_bytes()) for r in range(2)]
@@ -3866,8 +4200,8 @@ def phase_mesh(card: str) -> dict:
             require(rows.shape == ref.shape, f"generate_tp {name}: {rows.shape} vs {ref.shape}")
             check_rows(rows[:, 256:], build_mask_table(tok), tok, f"generate_tp {name}")
             differ = [i for i in range(32) if (rows[i] != ref[i]).any()]
-            entry = {"rows_differing": len(differ), "events_per_s": 32 * 64 / run["wall_s"],
-                     "single_device_events_per_s": 32 * 64 / ref_s,
+            entry = {"rows_differing": len(differ), "events_per_s": 32 * TP_EVENTS / run["wall_s"],
+                     "single_device_events_per_s": 32 * TP_EVENTS / ref_s,
                      "launches_rank0": run["launches"],
                      "launches_rank1": pair[1]["tp"]["generate"][name]["launches"],
                      "tie_gaps": [first_tie_gap(model, prompt[i], ref[i, 256:], rows[i, 256:])
@@ -3947,9 +4281,45 @@ def phase_mesh(card: str) -> dict:
     del model
     torch.cuda.empty_cache()
 
-    # 2. dp=2 x tp=2 on four ranks
+    # 1d. the tp=2 and dp=2 training parts
+    step0_misses = []
+    for part in ("train_tp", "train_dp"):
+        runs = [p[part] for p in pair]
+        run = runs[0]
+        count(run)
+        emit({"phase": "mesh_train", "run": run["what"], "config": "tv2o-medium",
+              "ranks_on_one_card": 2, "step0": run["step0"], "bounds": TRAIN_MESH_TOLS,
+              "losses": run["losses"], "ms_per_step": run["ms_per_step"],
+              "ms_per_step_runs": run["ms_per_step_runs"],
+              "single_device_ms_per_step": single["ms_per_step"],
+              "collectives_per_step": run["collectives_per_step"],
+              "collective_ms_per_step": run["collective_ms_per_step"],
+              "collective_mean_ms": run["collective_mean_ms"],
+              "peak_memory_gb_by_rank": [r["peak_memory_gb"] for r in runs],
+              "launches_rank0": run["launches"], "card": card})
+        require(runs[0]["losses"] == runs[1]["losses"],
+                f"{part}: the ranks' losses differ: {[r['losses'] for r in runs]}")
+        require(all(np.isfinite(run["losses"])) and run["losses"][-1] < run["losses"][0],
+                f"{part}: the loss did not fall: {run['losses']}")
+        # a backward a layer a microbatch: step 0 in two dtypes, then the
+        # steps' two microbatches each
+        want = (medium.net.num_layers + medium.net_token.num_layers) * 2 * (1 + TRAIN_MESH_STEPS)
+        require(run["launches"].get("causal_attention_bwd", 0) == want
+                and run["launches"].get("causal_attention", 0) == want,
+                f"{part}: launches {run['launches']} (expected {want} of each)")
+        # held to the bounds once every path has run: a miss still fails the
+        # phase, after its readings
+        for dtype, errs in run["step0"].items():
+            tol = TRAIN_MESH_TOLS[dtype]
+            if errs["loss_rel"] > tol["loss_rel"] or errs["grad_rel"] > tol["grad_rel"]:
+                step0_misses.append(f"{part} step 0 {dtype}: {errs}, bounds {tol}")
+
+    # 2. dp=2 x tp=2 on four ranks: the batcher, then the training CLI
+    cli_out = work / "mesh_run"
+    cli_argv = mesh_cli_argv(work, cli_out)
     t0 = time.perf_counter()
-    spawn(mesh_rank_dptp, 4, (str(out_dir), dptp_queue), timeout_s=240, **MESH_LIMITS)
+    spawn(mesh_rank_dptp, 4, (str(out_dir), dptp_queue, cli_argv + ["--dp", "2", "--tp", "2"]),
+          timeout_s=480, **MESH_LIMITS)
     dptp_s = time.perf_counter() - t0
     runs = [pickle.loads((out_dir / f"dptp{r}.pkl").read_bytes()) for r in range(4)]
     require(all(pickle.dumps(r["records"]) == pickle.dumps(runs[0]["records"]) for r in runs),
@@ -3975,6 +4345,9 @@ def phase_mesh(card: str) -> dict:
             f"dp x tp: a rank admitted nothing: {[r['launches'] for r in runs]}")
     del model
     torch.cuda.empty_cache()
+    check_mesh_cli(card, runs, cli_argv, cli_out)
+    count(runs[0]["cli"])
+    shutil.rmtree(work, ignore_errors=True)
 
     # 3. NCCL: one rank on one card; one rank a card, tp over two, where
     # the machine has several
@@ -4003,6 +4376,7 @@ def phase_mesh(card: str) -> dict:
     shutil.rmtree(out_dir, ignore_errors=True)
     emit({"phase": "mesh", "seconds": time.perf_counter() - t_phase, "launches": launches,
           "card": card})
+    require(not step0_misses, "; ".join(step0_misses))
     return launches
 
 
@@ -4062,9 +4436,9 @@ def main(argv=()) -> int:
                         "serving app batched and aligned, the demo) on random bf16 weights, "
                         "and stop (no result line)")
     parser.add_argument("--mesh", action="store_true",
-                        help="build, run phase 9 (the mesh paths: tp=2, dp=2 and dp x tp as "
-                        "processes on the card over gloo, one NCCL rank), and stop (no "
-                        "result line)")
+                        help="build, run phase 9 (the mesh paths, serving and training: tp=2, "
+                        "dp=2 and dp x tp as processes on the card over gloo, the training "
+                        "CLI at --dp 2 --tp 2, one NCCL rank), and stop (no result line)")
     args = parser.parse_args(list(argv))
     if not (ROOT / "midi_model_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: the midi_model_tpu_torch package is not beside this script",

@@ -24,11 +24,16 @@ Three ways through the stack:
   the fresh token's own attention term merged in f32.
 
 Each takes an optional ``tp_group``: the stack is then one model shard of a
-Megatron split (``sampling.sharded.tp_shard_params``) — q/k/v, gate and up
-hold this shard's heads and MLP slice, o_proj and down its rows — and
+Megatron split (``sampling.sharded.tp_shard_params`` for serving,
+``train.sharding.shard_params`` for training) — q/k/v, gate and up hold
+this shard's heads and MLP slice, o_proj and down its rows — and
 :meth:`LlamaLayer.finish` sums the two row-parallel products over the group
-(``parallel.all_reduce_sum``) before each residual add.  Without one, the
-code and its results are those of one device.
+(``parallel.reduce_from_model``) before each residual add.  Under autograd
+the normed inputs of the column-parallel products go through
+``parallel.copy_to_model``, whose backward sums their gradient over the
+group; under ``no_grad`` both are what serving runs (the identity, and
+``parallel.all_reduce_sum`` in place).  Without one, the code and its
+results are those of one device.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from torch import nn
 
 from ..ops import paged_allheads as pa
 from ..ops.attention import attention_reference, causal_attention
-from ..parallel.mesh import all_reduce_sum
+from ..parallel.collectives import copy_to_model, reduce_from_model
 from .config import TransformerConfig
 
 
@@ -140,11 +145,11 @@ class LlamaLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(
             cfg.hidden_size, cfg.rms_norm_eps, dtype, device)
 
-    def qkv(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    def qkv(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, tp_group=None):
         """x [B, S, D] -> roped q [B,S,H,Dh], k [B,S,Hkv,Dh], v [B,S,Hkv,Dh]."""
         b, s, _ = x.shape
         cfg = self.cfg
-        hc = self.input_layernorm(x)
+        hc = copy_to_model(self.input_layernorm(x), tp_group)
         q = self.self_attn.q_proj(hc).view(b, s, cfg.num_heads, cfg.head_dim)
         k = self.self_attn.k_proj(hc).view(b, s, cfg.kv_heads, cfg.head_dim)
         v = self.self_attn.v_proj(hc).view(b, s, cfg.kv_heads, cfg.head_dim)
@@ -154,14 +159,15 @@ class LlamaLayer(nn.Module):
         """Residual o-projection then the residual MLP; attn [..., H*Dh].
         Under ``tp_group`` each row-parallel product is summed over the
         model shards before its residual add."""
-        x = x + all_reduce_sum(self.self_attn.o_proj(attn), tp_group)
-        return x + all_reduce_sum(self.mlp(self.post_attention_layernorm(x)), tp_group)
+        x = x + reduce_from_model(self.self_attn.o_proj(attn), tp_group)
+        h = copy_to_model(self.post_attention_layernorm(x), tp_group)
+        return x + reduce_from_model(self.mlp(h), tp_group)
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                 tp_group=None) -> torch.Tensor:
         """The cacheless layer: causal self-attention over x [B, S, D]."""
         b, s, _ = x.shape
-        q, k, v = self.qkv(x, cos, sin)
+        q, k, v = self.qkv(x, cos, sin, tp_group)
         return self.finish(x, causal_attention(q, k, v).reshape(b, s, -1), tp_group)
 
 
@@ -204,17 +210,20 @@ def _saving(saved):
 
 
 def _recomputed(layer: LlamaLayer, x: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor, policy: str) -> torch.Tensor:
+                sin: torch.Tensor, policy: str, tp_group=None) -> torch.Tensor:
     """``layer(x)`` under ``torch.utils.checkpoint``, recomputed in the
     backward but for what ``policy`` (a key of :data:`REMAT_SAVES`) saves.
     The layer's weights go in as inputs and the recompute binds them again:
     under ``torch.func.functional_call`` (the trainer's cast weights) they
-    are not the module's own once the call has returned."""
+    are not the module's own once the call has returned.  Under
+    ``tp_group`` the recompute replays the layer's all-reduces: every model
+    shard recomputes the same layers in the same order, so they pair up."""
     names, weights = zip(*layer.named_parameters())
     saved = REMAT_SAVES[policy]
 
     def run(x, *weights):
-        return torch.func.functional_call(layer, dict(zip(names, weights)), (x, cos, sin))
+        return torch.func.functional_call(layer, dict(zip(names, weights)), (x, cos, sin),
+                                          {"tp_group": tp_group})
 
     context = (functools.partial(_saving, saved) if saved
                else torch.utils.checkpoint.noop_context_fn)
@@ -270,12 +279,10 @@ class LlamaStack(nn.Module):
         ``torch.utils.checkpoint`` and is recomputed in the backward, but
         for what the policy saves (:func:`remat_policy`: True or "full" the
         JAX package's ``remat=True``, "dots" / "dots_all" its selective
-        policies; not with a ``tp_group``)."""
+        policies; with a ``tp_group`` too)."""
         b, s, _ = emb.shape
         cfg = self.cfg
         policy = remat_policy(remat)
-        if policy and tp_group is not None:
-            raise ValueError("remat with a tp group is not ported")
         start = 0 if cache is None else cache.index
         positions = start + torch.arange(s, device=emb.device)
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
@@ -290,10 +297,10 @@ class LlamaStack(nn.Module):
         x = emb
         for li, layer in enumerate(self.layers):
             if cache is None:
-                x = (_recomputed(layer, x, cos, sin, policy) if policy
+                x = (_recomputed(layer, x, cos, sin, policy, tp_group) if policy
                      else layer(x, cos, sin, tp_group))
             else:
-                q, k, v = layer.qkv(x, cos, sin)
+                q, k, v = layer.qkv(x, cos, sin, tp_group)
                 ks.append(cache.k[li].index_copy(1, positions, k))
                 vs.append(cache.v[li].index_copy(1, positions, v))
                 attn = attention_reference(q, ks[-1], vs[-1], bias)

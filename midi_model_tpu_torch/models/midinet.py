@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from ..parallel.collectives import copy_to_model, gather_vocab
 from .config import MIDIModelConfig
 from .llama import DenseCache, LlamaStack, resolve_device
 
@@ -62,28 +63,35 @@ class MIDINet(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[DenseCache]]:
         """Event net: ``x [B, L, T]`` -> (hidden ``[B, L, D]``, cache).
         ``tp_group``: the event net is one model shard of a Megatron split
-        (``LlamaStack``); the token net and the head are replicated."""
+        (``LlamaStack``); its embeddings are replicated."""
         return self.net(self.embed_events(x), cache, remat=remat, tp_group=tp_group)
 
     def forward_token(self, hidden_state: Optional[torch.Tensor],
                       x: Optional[torch.Tensor],
-                      cache: Optional[DenseCache] = None, remat: Union[bool, str] = False
-                      ) -> Tuple[torch.Tensor, Optional[DenseCache]]:
+                      cache: Optional[DenseCache] = None, remat: Union[bool, str] = False,
+                      tp_group=None) -> Tuple[torch.Tensor, Optional[DenseCache]]:
         """Token net + lm_head.  hidden_state [B, D] (sequence position 0) or
         None when continuing from a cache; x [B, T] token ids or None.
-        Returns (logits [B, S, V] f32, cache)."""
+        Returns (logits [B, S, V] f32, cache).  ``tp_group``: the token net
+        and the head are model shards too (training's split,
+        ``train.sharding``): the head holds this shard's slice of the vocab
+        and :meth:`logits` gathers the slices."""
         parts = []
         if hidden_state is not None:
             parts.append(hidden_state[:, None, :].to(self.dtype))
         if x is not None:
             parts.append(self.net_token.embed_tokens(x.long()).to(self.dtype))
         seq = torch.cat(parts, dim=1)
-        h, cache = self.net_token(seq, cache, remat=remat)
-        return self.logits(h), cache
+        h, cache = self.net_token(seq, cache, remat=remat, tp_group=tp_group)
+        return self.logits(h, tp_group), cache
 
-    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """The shared head in f32 (the JAX package's ``lm_head``)."""
-        return self.lm_head(hidden).float()
+    def logits(self, hidden: torch.Tensor, tp_group=None) -> torch.Tensor:
+        """The shared head in f32 (the JAX package's ``lm_head``).  Under
+        ``tp_group`` the head is this shard's rows of the vocab: its f32
+        logits are gathered along the vocab (the JAX split's "loss gathers
+        logits"), and the replicated hidden's gradient summed over the
+        group."""
+        return gather_vocab(self.lm_head(copy_to_model(hidden, tp_group)).float(), tp_group)
 
     def train_logits(self, batch: torch.Tensor) -> "TrainOutput":
         """The training forward (``midinet.train_logits``): ``batch [B, L,

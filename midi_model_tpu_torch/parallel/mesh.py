@@ -11,19 +11,29 @@ same host program over the same requests (SPMD).
   Megatron all-reduces: two per event-net layer, in the activation's dtype
   (:func:`all_reduce_sum`).
 - The **data** group (the ranks of one model shard) carries nothing in the
-  decode loop: each data shard decodes its own rows or slots alone.
+  decode loop: each data shard decodes its own rows or slots alone.  In
+  training it sums the gradients once a step and the loss's pad counts
+  once a microbatch (``train.trainer``).
 - The **host** group, gloo over the mesh's ranks, carries host objects:
   the rows each data shard decoded (:func:`gather_shards`).
 
 Between GPUs the default group is NCCL; on the CPU, and for several ranks
 on one GPU (NCCL refuses two ranks on one device), it is gloo, which
 all-reduces CUDA tensors through the host.  :func:`spawn` starts the ranks
-of one host as processes.
+of one host as processes.  The autograd forms of the model group's
+collectives are in ``parallel.collectives``.
+
+Training feeds each data shard its own slice of the corpus
+(:func:`data_shard`).  The JAX package's ``host_local_batch_to_global``
+has no counterpart: there is no global array to assemble, each rank's
+batch is its data shard's rows.
 """
 
 from __future__ import annotations
 
 import datetime
+import os
+import signal
 import socket
 import traceback
 from dataclasses import dataclass
@@ -134,6 +144,17 @@ def process_shard(seq: Sequence) -> list:
     return list(seq)[rank::world]
 
 
+def data_shard(seq: Sequence, mesh: Optional[Mesh]) -> list:
+    """This rank's data shard of a list, ``seq[data_rank::dp]``: the model
+    shards of one data shard get the same items (the whole list without a
+    mesh).  Training shards its file list so; :func:`process_shard`, by
+    global rank, would feed the model shards of one data shard different
+    rows."""
+    if mesh is None:
+        return list(seq)
+    return list(seq)[mesh.data_rank::mesh.dp]
+
+
 def _free_port() -> int:
     """A TCP port on the loopback interface that is free now."""
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
@@ -157,28 +178,45 @@ def _rank_main(fn, rank: int, world: int, init_method: str, backend: str,
 
 
 def spawn(fn: Callable, world: int, args: tuple = (), *, backend: str = "gloo",
-          timeout_s: float = 600.0, init_timeout_s: float = 120.0) -> None:
+          timeout_s: Optional[float] = 600.0, init_timeout_s: float = 120.0,
+          daemon: bool = True, forward_signals: bool = False) -> None:
     """Run ``fn(*args)`` in ``world`` spawned processes, ranks of one
     process group (``backend``, over a free loopback port; its collectives
     time out after ``init_timeout_s``), and wait at most ``timeout_s`` for
-    them all.  ``fn`` must be importable by name.  Raises if a rank fails
-    or is still running at the limit (every rank is then killed)."""
+    them all (None: no limit but the collectives').  ``fn`` must be
+    importable by name.  Raises if a rank fails or is still running at the
+    limit (every rank is then killed).  ``daemon=False`` lets a rank start
+    processes of its own (a data loader's workers); ``forward_signals``
+    hands SIGTERM and SIGINT to the ranks while they run, and waits for
+    them, instead of stopping this process."""
     ctx = torch.multiprocessing.get_context("spawn")
     init_method = f"tcp://127.0.0.1:{_free_port()}"
-    procs = [ctx.Process(target=_rank_main, daemon=True,
+    procs = [ctx.Process(target=_rank_main, daemon=daemon,
                          args=(fn, rank, world, init_method, backend, init_timeout_s, args))
              for rank in range(world)]
     for p in procs:
         p.start()
-    deadline = datetime.datetime.now() + datetime.timedelta(seconds=timeout_s)
+    previous = {}
+    if forward_signals:
+        def forward(signum, frame):
+            for p in procs:
+                if p.is_alive():
+                    os.kill(p.pid, signum)
+
+        previous = {sig: signal.signal(sig, forward) for sig in (signal.SIGTERM, signal.SIGINT)}
+    deadline = (None if timeout_s is None
+                else datetime.datetime.now() + datetime.timedelta(seconds=timeout_s))
     try:
         for p in procs:
-            p.join(max(0.0, (deadline - datetime.datetime.now()).total_seconds()))
+            p.join(None if deadline is None
+                   else max(0.0, (deadline - datetime.datetime.now()).total_seconds()))
             if p.exitcode not in (0, None):
                 break  # a failed rank leaves the others waiting on it
         hung = [r for r, p in enumerate(procs) if p.exitcode is None]
         failed = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode not in (0, None)}
     finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
         for p in procs:
             if p.is_alive():
                 p.kill()

@@ -36,7 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..models.config import MIDIModelConfig
+from ..models.config import MIDIModelConfig, TransformerConfig
 from ..models.midinet import MIDINet
 from ..parallel.mesh import Mesh, gather_shards
 from .generate import (GenState, Masks, decode_events, generate, mask_tensors,
@@ -145,20 +145,24 @@ def generate_dp(model: MIDINet, config: MIDIModelConfig, mesh: Mesh,
 
 # ---- the model axis -------------------------------------------------------
 
-def tp_local_config(config: MIDIModelConfig, tp: int) -> MIDIModelConfig:
-    """The per-shard view of the event net: heads, kv heads and the MLP
-    width divided by ``tp``, the head dim pinned (the hidden width and the
-    token net stay global)."""
-    net = config.net
+def tp_local_net(net: TransformerConfig, tp: int, what: str = "net") -> TransformerConfig:
+    """One model shard's view of a stack: heads, kv heads and the MLP width
+    divided by ``tp``, the head dim pinned (the hidden width stays global).
+    Raises where ``tp`` does not divide them (``what`` names the stack)."""
     if net.num_heads % tp or net.kv_heads % tp or net.intermediate_size % tp:
-        raise ValueError(f"tp={tp} must divide heads ({net.num_heads}), "
+        raise ValueError(f"tp={tp} must divide the {what} heads ({net.num_heads}), "
                          f"kv heads ({net.kv_heads}) and intermediate "
                          f"({net.intermediate_size})")
-    local = dataclasses.replace(net, num_heads=net.num_heads // tp,
-                                num_kv_heads=net.kv_heads // tp,
-                                intermediate_size=net.intermediate_size // tp,
-                                head_dim_override=net.head_dim)
-    return dataclasses.replace(config, net=local)
+    return dataclasses.replace(net, num_heads=net.num_heads // tp,
+                               num_kv_heads=net.kv_heads // tp,
+                               intermediate_size=net.intermediate_size // tp,
+                               head_dim_override=net.head_dim)
+
+
+def tp_local_config(config: MIDIModelConfig, tp: int) -> MIDIModelConfig:
+    """The per-shard view of the event net (:func:`tp_local_net`); the token
+    net stays global."""
+    return dataclasses.replace(config, net=tp_local_net(config.net, tp))
 
 
 @torch.no_grad()

@@ -8,6 +8,13 @@ and the best one by validation loss (``scores.json``), and deletes the
 rest.  ``config.json`` sits beside them.  The export goes through the port's
 own safetensors writer (``interop.safetensors_io``), as does the peft-layout
 adapter export of a LoRA run.
+
+On a mesh (``mesh=``) every rank joins each save and export: the model
+shards' blocks are gathered into the single-device layout
+(``train.sharding.gather_params``), and the mesh's first rank alone writes
+(the JAX package: "all processes join" the save, process 0 exports).  A
+checkpoint is therefore the same file on any mesh shape and on one device,
+and ``restore`` re-shards it for the mesh it runs on.
 """
 
 from __future__ import annotations
@@ -19,20 +26,37 @@ from typing import Optional
 
 import torch
 
+import torch.distributed as dist
+
 from ..interop.safetensors_io import save_file
 from ..models.config import MIDIModelConfig
+from ..parallel.mesh import Mesh
+from .sharding import gather_params, shard_params
 from .trainer import AdamState, TrainState
 
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, config: MIDIModelConfig):
+    def __init__(self, directory: str, config: MIDIModelConfig, mesh: Optional[Mesh] = None):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
         self.config = config
-        config.save_pretrained(self.directory)
+        self.mesh = mesh
+        if self.writes:
+            os.makedirs(self.directory, exist_ok=True)
+            config.save_pretrained(self.directory)
+        self._barrier()
         self._scores_path = os.path.join(self.directory, "scores.json")
+
+    @property
+    def writes(self) -> bool:
+        """Whether this rank writes: the mesh's first rank, or the one
+        device."""
+        return self.mesh is None or (self.mesh.data_rank == 0 and self.mesh.model_rank == 0)
+
+    def _barrier(self) -> None:
+        if self.mesh is not None and self.mesh.host_group is not None:
+            dist.barrier(group=self.mesh.host_group)
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{step}.pt")
@@ -52,12 +76,20 @@ class CheckpointManager:
             return json.load(f)
 
     def save(self, step: int, state: TrainState, metrics: Optional[dict] = None):
-        """Write the state at ``step`` (atomically), record ``metrics``, and
-        keep only the last save and the best by ``metrics["loss"]``."""
+        """Write the state at ``step`` (atomically) in the single-device
+        layout, record ``metrics``, and keep only the last save and the best
+        by ``metrics["loss"]``.  On a mesh every rank calls it."""
         blob = {"step": state.step,
-                "params": {n: p.detach() for n, p in state.params.items()},
+                "params": {n: p.detach() for n, p in
+                           gather_params(state.params, self.mesh).items()},
                 "opt_count": state.opt_state.count,
-                "mu": state.opt_state.mu, "nu": state.opt_state.nu}
+                "mu": gather_params(state.opt_state.mu, self.mesh),
+                "nu": gather_params(state.opt_state.nu, self.mesh)}
+        if self.writes:
+            self._write(step, blob, metrics)
+        self._barrier()
+
+    def _write(self, step: int, blob: dict, metrics: Optional[dict]) -> None:
         tmp = self._path(step) + ".tmp"
         torch.save(blob, tmp)
         os.replace(tmp, self._path(step))
@@ -88,12 +120,20 @@ class CheckpointManager:
 
     def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:
         """The saved state at ``step`` (default: the latest) on the devices and
-        dtypes of ``state``'s tensors."""
+        dtypes of ``state``'s tensors, split for this manager's mesh (the
+        weights and the moments alike)."""
         blob = self._load(step)
 
         def like(saved: dict, template: dict) -> dict:
-            return {n: saved[n].to(device=t.device, dtype=t.dtype).requires_grad_(t.requires_grad)
-                    for n, t in template.items()}
+            saved = shard_params(saved, self.mesh)
+            out = {}
+            for n, t in template.items():
+                if saved[n].shape != t.shape:
+                    raise ValueError(f"checkpoint {n}: {tuple(saved[n].shape)} on this "
+                                     f"shard, the state holds {tuple(t.shape)}")
+                out[n] = saved[n].to(device=t.device, dtype=t.dtype).requires_grad_(
+                    t.requires_grad)
+            return out
 
         opt = state.opt_state
         return TrainState(step=int(blob["step"]), params=like(blob["params"], state.params),
@@ -102,9 +142,13 @@ class CheckpointManager:
 
     def export_safetensors(self, params: dict, path: Optional[str] = None) -> str:
         """Write the weights as a reference-layout f32 ``model.safetensors``
-        (the port's parameter names are the reference's keys)."""
+        (the port's parameter names are the reference's keys); on a mesh,
+        gathered (every rank calls it) and written by the first rank."""
         path = path or os.path.join(self.directory, "model.safetensors")
-        save_file({n: p.detach().float().cpu() for n, p in params.items()}, path)
+        params = gather_params(params, self.mesh)
+        if self.writes:
+            save_file({n: p.detach().float().cpu() for n, p in params.items()}, path)
+        self._barrier()
         return path
 
     def export_peft_adapter(self, lora: dict, rank: int = 64, alpha: float = 128.0,
@@ -116,6 +160,9 @@ class CheckpointManager:
         from ..models.lora import _PEFT_NAMES, lora_to_peft_state_dict
 
         directory = directory or os.path.join(self.directory, "adapter")
+        if not self.writes:  # the adapters are replicated: the first rank writes
+            self._barrier()
+            return directory
         os.makedirs(directory, exist_ok=True)
         save_file(lora_to_peft_state_dict(lora),
                   os.path.join(directory, "adapter_model.safetensors"))
@@ -132,4 +179,5 @@ class CheckpointManager:
         }
         with open(os.path.join(directory, "adapter_config.json"), "w") as f:
             json.dump(adapter_config, f, indent=2)
+        self._barrier()
         return directory

@@ -1,8 +1,7 @@
-"""The training step on one device.
+"""The training step, on one device or over a ``(data, model)`` mesh.
 
-Counterpart of ``midi_model_tpu/train/trainer.py`` (its single-device
-steps, full and LoRA; the data/tensor-parallel variants wait for the
-multi-device port):
+Counterpart of ``midi_model_tpu/train/trainer.py`` (its steps, full and
+LoRA, with and without a mesh):
 
 - AdamW (β 0.9/0.99, eps 1e-8 outside the square root) with no weight
   decay on the JAX layout's 1-D leaves (the final norms), a linear
@@ -23,6 +22,20 @@ The event net's causal attention trains through ``ops.attention``'s
 autograd function: the CUDA forward and backward kernels on the card, their
 plain versions on the CPU.  The step updates the master weights and the
 moments IN PLACE (the JAX step donates its state).
+
+On a mesh (``parallel.make_mesh``; one process a rank, each holding its
+shard of the state, ``train.sharding``) the step is the JAX sharded step's:
+
+- each data shard takes its rows of every microbatch; the loss is the
+  global masked mean, so each microbatch's pad count is summed over the
+  data group before the backward and the local nll sum divided by it;
+- the model shards split both nets and the vocab (Megatron, with the
+  autograd collectives of ``parallel.collectives``);
+- after the accumulation the gradients are summed over the data group,
+  flat in f32 buckets (:data:`BUCKET_ELEMENTS`); a LoRA step also sums its
+  adapters' partial gradients over the model group;
+- clipping takes the global norm: a split leaf's squares summed over the
+  model group, a replicated leaf's counted once.
 """
 
 from __future__ import annotations
@@ -31,14 +44,21 @@ from typing import Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 from torch import nn
 
 from ..models.config import MIDIModelConfig
 from ..models.midinet import MIDINet, init_model
+from ..parallel.mesh import Mesh
 from .sched import linear_warmup_decay
+from .sharding import apply_lora_sharded, lora_modules_split, split_axis, train_local_config
 
 Params = Dict[str, torch.Tensor]
+
+# the data group's gradient sum goes in f32 buckets of at most this many
+# elements (256 MB)
+BUCKET_ELEMENTS = 1 << 26
 
 
 class AdamState(NamedTuple):
@@ -82,10 +102,14 @@ class Optimizer:
                          {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()})
 
     @torch.no_grad()
-    def update(self, grads: Params, state: AdamState, params: Params):
-        """(updates, new state) for ``grads``; the moments update in place."""
+    def update(self, grads: Params, state: AdamState, params: Params,
+               g_norm: Optional[torch.Tensor] = None):
+        """(updates, new state) for ``grads``; the moments update in place.
+        ``g_norm``: the global gradient norm where ``grads`` are a shard's
+        (:func:`global_norm`); by default theirs."""
         b1, b2 = self.b1, self.b2
-        g_norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads.values()))
+        if g_norm is None:
+            g_norm = global_norm(grads)
         clip = g_norm < self.grad_clip
         count = state.count + 1
         bc1 = 1.0 - np.float32(b1) ** np.float32(count)
@@ -102,6 +126,44 @@ class Optimizer:
                 u = u + self.weight_decay * params[name]
             updates[name] = u * -lr
         return updates, AdamState(count, state.mu, state.nu)
+
+
+def global_norm(grads: Params, mesh: Optional[Mesh] = None, split=()) -> torch.Tensor:
+    """The gradients' global L2 norm.  On a mesh, ``split`` names the leaves
+    each model shard holds a block of: their squares are summed over the
+    model group; every other leaf is whole on each shard and counts once."""
+    def squares(names):
+        return sum((torch.sum(grads[n].float() * grads[n].float()) for n in names),
+                   torch.zeros((), device=next(iter(grads.values())).device))
+
+    total = squares([n for n in grads if n not in split])
+    parts = [n for n in grads if n in split]
+    if parts:
+        mine = squares(parts)
+        if mesh is not None and mesh.tp > 1:
+            dist.all_reduce(mine, op=dist.ReduceOp.SUM, group=mesh.model_group)
+        total = total + mine
+    return torch.sqrt(total)
+
+
+def sum_over(grads: Params, group, bucket: int = BUCKET_ELEMENTS) -> None:
+    """Sum ``grads`` (f32) over ``group`` in place: flat buckets of at most
+    ``bucket`` elements, one all-reduce each."""
+    if group is None or dist.get_world_size(group) == 1:
+        return
+    names = list(grads)
+    while names:
+        take, size = [], 0
+        while names and (not take or size + grads[names[0]].numel() <= bucket):
+            take.append(names.pop(0))
+            size += grads[take[-1]].numel()
+        flat = torch.cat([grads[n].reshape(-1) for n in take])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        at = 0
+        for n in take:
+            g = grads[n]
+            g.copy_(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
 
 
 def make_optimizer(lr: float = 1e-4, weight_decay: float = 0.01,
@@ -136,7 +198,8 @@ def compute_params(params: Params, compute_dtype) -> Params:
 
 def loss_fn(params: Params, config: MIDIModelConfig, batch: torch.Tensor,
             compute_dtype=torch.bfloat16, sample_positions: Optional[torch.Tensor] = None,
-            remat: Union[bool, str] = False, token_chunk: Optional[int] = None):
+            remat: Union[bool, str] = False, token_chunk: Optional[int] = None,
+            mesh: Optional[Mesh] = None):
     """Next-event token cross-entropy (mean over non-pad targets) and masked
     accuracy of ``batch [B, L, T]`` (the device of ``params``).
 
@@ -144,18 +207,28 @@ def loss_fn(params: Params, config: MIDIModelConfig, batch: torch.Tensor,
     positions; ``token_chunk`` runs the token net and the CE over chunks of
     event positions under ``torch.utils.checkpoint``, so the [N, 8, vocab]
     logits never exist whole (the backward recomputes each chunk).
+
+    ``mesh``: ``params`` are this rank's shards (``train.sharding``) and
+    ``batch`` its data shard's rows of the global batch; ``config`` is the
+    global config.  The loss is the global masked mean: the nll sum, hits
+    and pad count are summed over the data group (one all-reduce, outside
+    the graph), and the returned loss is the local nll sum over the global
+    count, whose gradients summed over the data group are the global
+    loss's.  The metrics are the global ones.
     Returns (loss, {"loss", "acc"})."""
     pad_id = config.tokenizer.pad_id
     device = next(iter(params.values())).device
     batch = torch.as_tensor(batch, device=device).long()
-    method = _Method(_structure(config))
+    tp_group = mesh.model_group if mesh is not None and mesh.tp > 1 else None
+    local = train_local_config(config, mesh.tp if tp_group is not None else 1)
+    method = _Method(_structure(local))
     weights = {f"model.{n}": t for n, t in compute_params(params, compute_dtype).items()}
 
     def call(name, *args, **kwargs):
         return torch.func.functional_call(method, weights, (name, *args), kwargs)
 
     x, y = batch[:, :-1], batch[:, 1:]
-    hidden, _ = call("forward", x, remat=remat)
+    hidden, _ = call("forward", x, remat=remat, tp_group=tp_group)
     if sample_positions is not None:
         positions = torch.as_tensor(sample_positions, device=device).long()
         hidden, y = hidden[:, positions], y[:, positions]
@@ -165,7 +238,8 @@ def loss_fn(params: Params, config: MIDIModelConfig, batch: torch.Tensor,
     y = y.reshape(b * l, t)
 
     def chunk_stats(h_chunk, y_chunk):
-        logits, _ = call("forward_token", h_chunk, y_chunk[:, :-1], remat=remat)
+        logits, _ = call("forward_token", h_chunk, y_chunk[:, :-1], remat=remat,
+                         tp_group=tp_group)
         mask = (y_chunk != pad_id).float()
         logprobs = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logprobs, -1, y_chunk[..., None])[..., 0]
@@ -186,6 +260,11 @@ def loss_fn(params: Params, config: MIDIModelConfig, batch: torch.Tensor,
         if main < n:
             totals = [a + p for a, p in zip(totals, chunk_stats(hidden[main:], y[main:]))]
         nll_sum, hit_sum, count = totals
+    if mesh is not None and mesh.dp > 1:
+        sums = torch.stack([nll_sum.detach(), hit_sum.detach(), count.detach()])
+        dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=mesh.data_group)
+        denom = torch.clamp(sums[2], min=1.0)
+        return nll_sum / denom, {"loss": sums[0] / denom, "acc": sums[1] / denom}
     denom = torch.clamp(count, min=1.0)
     loss = nll_sum / denom
     acc = hit_sum / denom
@@ -193,11 +272,16 @@ def loss_fn(params: Params, config: MIDIModelConfig, batch: torch.Tensor,
 
 
 def _accumulated_step(state: TrainState, batch, accum_steps: int, optimizer: Optimizer,
-                      loss_of) -> tuple:
+                      loss_of, mesh: Optional[Mesh] = None, split=(),
+                      model_summed=()) -> tuple:
     """One optimizer update of ``state.params`` from the microbatches of
     ``batch [accum_steps, B, L, T]``: ``loss_of(params, mb)`` -> (loss,
     metrics) differentiated per microbatch, the gradients summed, times
-    ``1 / accum_steps``; the weights and moments update in place."""
+    ``1 / accum_steps``; the weights and moments update in place.  On a
+    ``mesh``: the gradients summed over the data group, those of
+    ``model_summed`` then over the model group, and the clipping norm taken
+    over the mesh, ``split`` naming the leaves split over the model group
+    (:func:`global_norm`)."""
     device = next(iter(state.params.values())).device
     batch = torch.as_tensor(batch, device=device)
     if batch.shape[0] != accum_steps:
@@ -216,7 +300,13 @@ def _accumulated_step(state: TrainState, batch, accum_steps: int, optimizer: Opt
     grads = {n: p.grad * scale for n, p in params.items()}
     for p in params.values():
         p.grad = None
-    updates, opt_state = optimizer.update(grads, state.opt_state, params)
+    g_norm = None
+    if mesh is not None:
+        sum_over(grads, mesh.data_group)
+        if model_summed and mesh.tp > 1:
+            sum_over({n: grads[n] for n in model_summed}, mesh.model_group)
+        g_norm = global_norm(grads, mesh, split)
+    updates, opt_state = optimizer.update(grads, state.opt_state, params, g_norm)
     with torch.no_grad():
         for n, p in params.items():
             p.add_(updates[n])
@@ -226,18 +316,23 @@ def _accumulated_step(state: TrainState, batch, accum_steps: int, optimizer: Opt
 
 def make_train_step(config: MIDIModelConfig, optimizer: Optimizer, accum_steps: int = 1,
                     compute_dtype=torch.bfloat16, remat: Union[bool, str] = False,
-                    token_chunk: Optional[int] = None):
+                    token_chunk: Optional[int] = None, mesh: Optional[Mesh] = None):
     """``step(state, batch [accum_steps, B, L, T]) -> (state, metrics)``:
     the gradients of the microbatches summed, times ``1 / accum_steps``,
     then one optimizer update; metrics are the microbatches' means.
     ``remat``: False, True / "full", "dots" or "dots_all"
-    (``models.llama.remat_policy``)."""
+    (``models.llama.remat_policy``).  ``mesh``: ``state`` holds this rank's
+    shards (``train.sharding.shard_params``, the moments alike) and
+    ``batch`` its data shard's rows (``B`` = the global batch / dp)."""
+    train_local_config(config, 1 if mesh is None else mesh.tp)  # raises early
 
     def loss_of(params, mb):
-        return loss_fn(params, config, mb, compute_dtype, remat=remat, token_chunk=token_chunk)
+        return loss_fn(params, config, mb, compute_dtype, remat=remat, token_chunk=token_chunk,
+                       mesh=mesh)
 
     def train_step(state: TrainState, batch):
-        return _accumulated_step(state, batch, accum_steps, optimizer, loss_of)
+        split = [n for n in state.params if split_axis(n) is not None]
+        return _accumulated_step(state, batch, accum_steps, optimizer, loss_of, mesh, split)
 
     return train_step
 
@@ -245,7 +340,7 @@ def make_train_step(config: MIDIModelConfig, optimizer: Optimizer, accum_steps: 
 def make_lora_train_step(config: MIDIModelConfig, optimizer: Optimizer,
                          lora_alpha: float = 128.0, accum_steps: int = 1,
                          compute_dtype=torch.bfloat16, remat: Union[bool, str] = False,
-                         token_chunk: Optional[int] = None):
+                         token_chunk: Optional[int] = None, mesh: Optional[Mesh] = None):
     """The LoRA fine-tune step, ``step(state, base_params, batch) -> (state,
     metrics)`` (the JAX trainer's ``make_lora_train_step``).  The adapters
     (``models.lora``) are the only leaves of ``state.params``, so the only
@@ -253,18 +348,27 @@ def make_lora_train_step(config: MIDIModelConfig, optimizer: Optimizer,
     argument that requires no gradient and is never written.  Each
     microbatch differentiates ``loss_fn`` through ``apply_lora`` (W +
     (α/r)·B@A), so gradients reach only the (A, B) factors — through the
-    attention kernels' autograd function on the card."""
-    from ..models.lora import apply_lora
+    attention kernels' autograd function on the card.
+
+    ``mesh``: ``base_params`` are this rank's shards, the adapters are
+    replicated (as the JAX sharded step replicates them), and each shard
+    forms its block of the effective weights
+    (``train.sharding.apply_lora_sharded``).  The adapters of split weights
+    get partial gradients, summed over the model group after the data
+    group's sum; then every adapter gradient is whole on every rank."""
+    train_local_config(config, 1 if mesh is None else mesh.tp)
 
     def train_step(state: TrainState, base_params: Params, batch):
         if any(p.requires_grad for p in base_params.values()):
             raise ValueError("the base weights of a LoRA step must not require grad")
 
         def loss_of(lora, mb):
-            return loss_fn(apply_lora(base_params, lora, alpha=lora_alpha), config, mb,
-                           compute_dtype, remat=remat, token_chunk=token_chunk)
+            return loss_fn(apply_lora_sharded(base_params, lora, lora_alpha, mesh), config, mb,
+                           compute_dtype, remat=remat, token_chunk=token_chunk, mesh=mesh)
 
-        return _accumulated_step(state, batch, accum_steps, optimizer, loss_of)
+        partial = [k for k, axis in lora_modules_split(state.params).items() if axis is not None]
+        return _accumulated_step(state, batch, accum_steps, optimizer, loss_of, mesh,
+                                 model_summed=partial)
 
     return train_step
 
@@ -284,8 +388,11 @@ def init_train_state(params: Params, optimizer: Optimizer) -> TrainState:
 
 
 @torch.no_grad()
-def eval_step(params: Params, config: MIDIModelConfig, batch, token_chunk: int = 256) -> dict:
+def eval_step(params: Params, config: MIDIModelConfig, batch, token_chunk: int = 256,
+              mesh: Optional[Mesh] = None) -> dict:
     """Validation loss and masked accuracy (bf16 compute, as the JAX
-    package's ``eval_step``), the token net in chunks of ``token_chunk``."""
-    _, metrics = loss_fn(params, config, batch, token_chunk=token_chunk)
+    package's ``eval_step``), the token net in chunks of ``token_chunk``.
+    ``mesh``: as ``loss_fn``'s, the metrics the global masked means over the
+    data shards' rows."""
+    _, metrics = loss_fn(params, config, batch, token_chunk=token_chunk, mesh=mesh)
     return metrics

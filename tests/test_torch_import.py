@@ -71,17 +71,24 @@ def test_import_whole_port_without_jax():
                     "interop.publish", "interop.export", "serve.artifact_runner",
                     "native", "native.build", "train.preprocess", "utils",
                     "utils.profiling", "utils.build", "serve.app", "serve.synth",
-                    "parallel", "parallel.mesh", "sampling.sharded"):
+                    "parallel", "parallel.mesh", "sampling.sharded",
+                    "parallel.collectives", "train.sharding"):
             assert "midi_model_tpu_torch." + new in names, new
         # the multi-process tests' rank programs load no jax either
         sys.path.insert(0, "tests")
         import _torch_mesh_worker  # noqa: F401
+        import _torch_train_mesh_worker  # noqa: F401
+        import _torch_multihost_worker  # noqa: F401
+        loaded = sorted(m for m in sys.modules if m.startswith("midi_model_tpu.")
+                        or (m == "midi_model_tpu" and sys.modules[m] is not None))
+        assert not loaded and "jax" not in [m for m in sys.modules
+                                            if sys.modules[m] is not None], loaded
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 39
+    assert int(out.stdout.strip()) >= 41
 
 
 def test_chip_smoke_imports_nothing_of_jax():

@@ -2,13 +2,17 @@
 mirroring ``tests/test_cli.py`` and the data tests of ``tests/test_train.py``:
 a smoke run with validation, checkpoint and export; a resume; SIGTERM
 checkpoint-and-exit; ``--task lora`` and ``--remat dots`` / ``dots_all``;
-the flags that wait for other ports; the port's ``midi`` copy and
-``MidiDataset`` held equal to the JAX package's."""
+``--dp``, ``--tp`` and ``--multihost`` on two ranks with a resume on one
+device and on another mesh shape; the port's ``midi`` copy and ``MidiDataset`` held equal to the JAX
+package's."""
 
 import json
 import os
 import pickle
 import signal
+import socket
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -24,6 +28,7 @@ from midi_model_tpu.train.data import MidiDataset as JaxDataset
 from midi_model_tpu_torch import midi
 from midi_model_tpu_torch.interop import load_state_dict
 from midi_model_tpu_torch.models import MIDIModelConfig
+from midi_model_tpu_torch.models.midinet import MIDINet
 from midi_model_tpu_torch.tokenizer import MIDITokenizer
 from midi_model_tpu_torch.train import DataLoader, MidiDataset, find_midi_files
 from midi_model_tpu_torch.train import cli
@@ -32,6 +37,7 @@ from midi_model_tpu_torch.train import trainer
 from _torch_helpers import TINY, one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = Path(__file__).parent / "golden" / "codec.pkl"
+REPO = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(scope="module")
@@ -127,11 +133,91 @@ def test_sigterm_checkpoints_and_exits(corpus, tmp_path, monkeypatch):
     assert signal.getsignal(signal.SIGTERM) is before
 
 
-@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"], ["--multihost"]],
+# an event net of 8 heads and a token net of 2: tp=2 divides both
+MESH_DIMS = dict(n_layer=4, n_head=8, n_embd=64, n_inner=128)
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _multihost(argv, world: int = 2):
+    """``argv`` under ``--multihost`` in ``world`` processes of one env://
+    group, as ``torchrun`` would start them."""
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(world), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-m", "midi_model_tpu_torch.train.cli"] + argv,
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=str(REPO),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}:\n{out[-3000:]}"
+    return outs
+
+
+@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"], ["--multihost", "--dp", "2"]],
                          ids=["dp", "tp", "multihost"])
-def test_unported_flags_name_their_roadmap_item(flags):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        cli.main(["--device", "cpu"] + flags)
+def test_mesh_flags_train(corpus, tmp_path, flags):
+    """``--dp 2`` and ``--tp 2`` spawn two gloo ranks, ``--multihost`` joins
+    a two-process env:// group: 2 steps on the CPU with a validation, whose
+    checkpoint and export are in the single-device layout; then
+    ``--resume`` on one device continues from that checkpoint."""
+    cfg = MIDIModelConfig.get_config("v2", True, **MESH_DIMS)
+    config = tmp_path / "mesh_config.json"
+    config.write_text(json.dumps(cfg.to_dict()))
+    out_dir = tmp_path / "mesh_run"
+    args = _args(corpus, tmp_path, out_dir, **{"--config": str(config),
+                                               "--batch-size-train": "2", "--acc-grad": "2"})
+    if "--multihost" in flags:
+        outs = _multihost(args + flags + ["--fp32"])
+        assert all("process" in out for out in outs)
+    else:
+        run = cli.main(args + flags + ["--fp32"])
+        assert isinstance(run, cli.RunSummary) and run.step == 2
+        assert np.isfinite(run.metrics["train/loss"]) and np.isfinite(run.metrics["val/loss"])
+    ckpt = out_dir / "checkpoints"
+    assert cli_steps(out_dir) == [2]
+    saved = torch.load(ckpt / "step_2.pt", weights_only=True)
+    layout = dict(MIDINet(cfg, device="meta").named_parameters())
+    for tree in (saved["params"], saved["mu"], saved["nu"]):
+        assert {n: tuple(t.shape) for n, t in tree.items()} == \
+            {n: tuple(t.shape) for n, t in layout.items()}
+    assert saved["opt_count"] == 2
+    exported = load_state_dict(str(ckpt / "model.safetensors"))
+    for n, p in saved["params"].items():
+        np.testing.assert_array_equal(exported[n], p.numpy())
+    scores = json.loads((ckpt / "scores.json").read_text())
+    assert np.isfinite(scores["2"]["loss"])
+    args[args.index("--max-step") + 1] = "3"
+    resumed = cli.main(args + ["--fp32", "--resume", "1", "--val-step", "0"])
+    assert resumed.step == 3 and resumed.opt_state.count == 3
+    assert all(resumed.params[n].shape == p.shape for n, p in saved["params"].items())
+
+
+def test_resume_on_another_mesh_shape(corpus, tmp_path):
+    """A checkpoint written at ``--dp 2`` resumes at ``--tp 2``: it holds
+    the single-device layout, which each run splits for its own mesh."""
+    cfg = MIDIModelConfig.get_config("v2", True, **MESH_DIMS)
+    config = tmp_path / "mesh_config.json"
+    config.write_text(json.dumps(cfg.to_dict()))
+    out_dir = tmp_path / "reshaped"
+    args = _args(corpus, tmp_path, out_dir, **{"--config": str(config),
+                                               "--batch-size-train": "2"})
+    assert cli.main(args + ["--dp", "2", "--fp32"]).step == 2
+    args[args.index("--max-step") + 1] = "3"
+    args[args.index("--val-step") + 1] = "3"
+    run = cli.main(args + ["--tp", "2", "--fp32", "--resume", "1"])
+    assert run.step == 3 and np.isfinite(run.metrics["val/loss"])
+    saved = torch.load(out_dir / "checkpoints" / "step_3.pt", weights_only=True)
+    assert saved["opt_count"] == 3
+    assert tuple(saved["params"]["lm_head.weight"].shape) == (cfg.tokenizer.vocab_size, 64)
 
 
 def test_lora_needs_ckpt():
