@@ -44,6 +44,13 @@ scan, whose ``decode_paged`` all-reduces over the model group twice a
 layer.  After each chunk the rows of every slot are gathered over the host
 group, so ``step`` and ``run_all`` return the same records on every rank.
 Noise is per request, so a request's rows do not depend on the mesh.
+
+Recorder spans and counters (``utils.profiling``, recorded only while it
+is on): ``batcher.queued`` (one per request, from its enqueue to the start
+of its group's prefill), ``batcher.admit`` (one prefill forward, with the
+``batcher.prefill_*`` counters), ``batcher.step``, ``batcher.dispatch``
+(one chunk enqueued, with ``batcher.slot_steps``) and ``batcher.wait_rows``
+(the host waiting for a chunk's rows, with ``batcher.rows_delivered``).
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ from ..sampling.generate import mask_tensors
 from ..sampling.masks import build_allow_vector, build_mask_table
 from ..sampling.sharded import tp_local_config, tp_shard_params
 from ..sampling.topk_topp import slot_gumbel
+from ..utils import profiling
 
 PREFILL_BUCKETS = (16, 64, 256, 1024, 4096)
 
@@ -185,6 +193,8 @@ class ContinuousBatcher:
                          else bool(pipeline))
         # pipelined mode: the chunk dispatched by the previous step(), unread
         self._inflight = None
+        # request id -> its ``batcher.queued`` span, while the recorder is on
+        self._queued: Dict[int, profiling.Span] = {}
 
     # ---- submission ------------------------------------------------------
 
@@ -220,6 +230,10 @@ class ContinuousBatcher:
                 disable_control_change=disable_control_change,
                 disable_channels=disable_channels)
         self.queue.append((rid, prompt, max_events, knobs, allow, seed & 0xFFFFFFFF))
+        queued = profiling.span("batcher.queued")
+        if queued:
+            queued.attrs.update(rid=rid, prompt_rows=prompt.shape[0])
+            self._queued[rid] = queued
         self._admit()
         return rid
 
@@ -251,28 +265,41 @@ class ContinuousBatcher:
         rows; their K/V go to their slots' pages and each slot's hidden and
         index are set.  Pad rows after a prompt are never attended by it.
         Under a mesh only this rank's slots of the group."""
+        if self._queued:
+            for _slot, item in part:
+                self._queued.pop(item[0], profiling.NULL).finish()
         lo, hi = self._mine.start, self._mine.stop
         part = [(slot - lo, item) for slot, item in part if lo <= slot < hi]
         if not part:
             return
-        t_max = self.tokenizer.max_token_seq
-        g = len(part)
-        padded = np.full((g, bucket, t_max), self.tokenizer.pad_id, np.int64)
-        p_lens = np.zeros((g,), np.int64)
-        slots = np.zeros((g,), np.int64)
-        for j, (slot, (_rid, prompt, *_rest)) in enumerate(part):
-            padded[j, : prompt.shape[0]] = prompt[:, :t_max]
-            p_lens[j] = prompt.shape[0]
-            slots[j] = slot
-        slots_t = self._to_device(slots)
-        p_lens_t = self._to_device(p_lens)
-        hidden, self._pools = self.model.net.prefill_paged(
-            self.model.embed_events(self._to_device(padded)), self._pools,
-            page_size=self.page_size, pages_per_slot=self.pages_per_slot,
-            slots=slots_t, n_slots=self._index.shape[0], tp_group=self._tp_group)
-        rows = torch.arange(g, device=self.device)
-        self._hidden[slots_t] = hidden[rows, p_lens_t - 1]
-        self._index[slots_t] = p_lens_t.to(torch.int32)
+        with profiling.span("batcher.admit") as sp:
+            t_max = self.tokenizer.max_token_seq
+            g = len(part)
+            padded = np.full((g, bucket, t_max), self.tokenizer.pad_id, np.int64)
+            p_lens = np.zeros((g,), np.int64)
+            slots = np.zeros((g,), np.int64)
+            for j, (slot, (_rid, prompt, *_rest)) in enumerate(part):
+                padded[j, : prompt.shape[0]] = prompt[:, :t_max]
+                p_lens[j] = prompt.shape[0]
+                slots[j] = slot
+            if sp:
+                prompt_rows = int(p_lens.sum())
+                sp.attrs.update(bucket=bucket, group=g, prompt_rows=prompt_rows,
+                                pad_rows=g * bucket - prompt_rows,
+                                rids=[item[0] for _slot, item in part])
+                profiling.count("batcher.prefill_forwards")
+                profiling.count("batcher.prefill_prompts", g)
+                profiling.count("batcher.prefill_prompt_rows", prompt_rows)
+                profiling.count("batcher.prefill_bucket_rows", g * bucket)
+            slots_t = self._to_device(slots)
+            p_lens_t = self._to_device(p_lens)
+            hidden, self._pools = self.model.net.prefill_paged(
+                self.model.embed_events(self._to_device(padded)), self._pools,
+                page_size=self.page_size, pages_per_slot=self.pages_per_slot,
+                slots=slots_t, n_slots=self._index.shape[0], tp_group=self._tp_group)
+            rows = torch.arange(g, device=self.device)
+            self._hidden[slots_t] = hidden[rows, p_lens_t - 1]
+            self._index[slots_t] = p_lens_t.to(torch.int32)
 
     def _install_host(self, slot: int, item):
         rid, prompt, budget, knobs, allow, seed = item
@@ -332,19 +359,20 @@ class ContinuousBatcher:
         discarded (the device's eos and capacity retirement is unaffected),
         and each call returns the previous chunk's results.  Per-request
         rows are the same: the noise is keyed by position."""
-        if self._inflight is None and not self._active.any():
-            self._admit()
-            if not self._active.any():
-                return []
-        if not self.pipeline:
-            finished = self._process(*self._dispatch(), on_rows)
+        with profiling.span("batcher.step"):
+            if self._inflight is None and not self._active.any():
+                self._admit()
+                if not self._active.any():
+                    return []
+            if not self.pipeline:
+                finished = self._process(*self._dispatch(), on_rows)
+                self._admit()
+                return finished
+            prev = self._inflight
+            self._inflight = self._dispatch() if self._active.any() else None
+            finished = self._process(*prev, on_rows) if prev is not None else []
             self._admit()
             return finished
-        prev = self._inflight
-        self._inflight = self._dispatch() if self._active.any() else None
-        finished = self._process(*prev, on_rows) if prev is not None else []
-        self._admit()
-        return finished
 
     @torch.no_grad()
     def _dispatch(self):
@@ -353,33 +381,37 @@ class ContinuousBatcher:
         event, has passed; None on the CPU) and the dispatch-time (active,
         request id) of every slot — rows of a slot reused since are
         discarded."""
-        snap = (self._active.copy(), np.asarray([s.request_id for s in self.slots]))
-        kn = self._device_knobs()
-        t_max = self.tokenizer.max_token_seq
-        positions = (self._index[None, :]
-                     + torch.arange(self.chunk, dtype=torch.int32, device=self.device)[:, None])
-        gumbel = None if self.greedy else slot_gumbel(kn["seed"], positions, t_max)
-        knobs = (kn["temp"], kn["top_p"], kn["top_k"])
-        if self.path == "event_loop":
-            rows, self._hidden, self._pools = event_loop.decode_event_block_ragged(
-                self.model, self.config, self._weights, self._hidden, self._pools,
-                self._index, kn["active"], self.masks, *knobs, gumbel, kn["allow"],
-                n_events=self.chunk, greedy=self.greedy, page_size=self.page_size,
-                pages_per_slot=self.pages_per_slot)
-            # one step per non-pad row: the eos row advances, rows after
-            # retirement (pad) do not — the split scan's index exactly
-            self._index = self._index + (rows[:, :, 0] != self.tokenizer.pad_id).sum(
-                0, dtype=torch.int32)
-        else:
-            rows = self._per_event_chunk(kn, knobs, gumbel)
-        rows = rows.transpose(0, 1)
-        if self.device.type != "cuda":
-            return rows.numpy(), None, snap
-        host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-        host.copy_(rows, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record()
-        return host, ready, snap
+        with profiling.span("batcher.dispatch") as sp:
+            if sp:
+                sp.attrs["live_slots"] = int(self._active.sum())
+                profiling.count("batcher.slot_steps", self.n_slots * self.chunk)
+            snap = (self._active.copy(), np.asarray([s.request_id for s in self.slots]))
+            kn = self._device_knobs()
+            t_max = self.tokenizer.max_token_seq
+            positions = (self._index[None, :]
+                         + torch.arange(self.chunk, dtype=torch.int32, device=self.device)[:, None])
+            gumbel = None if self.greedy else slot_gumbel(kn["seed"], positions, t_max)
+            knobs = (kn["temp"], kn["top_p"], kn["top_k"])
+            if self.path == "event_loop":
+                rows, self._hidden, self._pools = event_loop.decode_event_block_ragged(
+                    self.model, self.config, self._weights, self._hidden, self._pools,
+                    self._index, kn["active"], self.masks, *knobs, gumbel, kn["allow"],
+                    n_events=self.chunk, greedy=self.greedy, page_size=self.page_size,
+                    pages_per_slot=self.pages_per_slot)
+                # one step per non-pad row: the eos row advances, rows after
+                # retirement (pad) do not — the split scan's index exactly
+                self._index = self._index + (rows[:, :, 0] != self.tokenizer.pad_id).sum(
+                    0, dtype=torch.int32)
+            else:
+                rows = self._per_event_chunk(kn, knobs, gumbel)
+            rows = rows.transpose(0, 1)
+            if self.device.type != "cuda":
+                return rows.numpy(), None, snap
+            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+            host.copy_(rows, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            return host, ready, snap
 
     def _per_event_chunk(self, kn: dict, knobs: tuple, gumbel):
         """The chunk one event at a time: the token row (kernel or plain,
@@ -425,9 +457,10 @@ class ContinuousBatcher:
         A slot whose occupant changed since the dispatch (pipelined mode)
         has its rows discarded: they are the previous occupant's overshoot.
         Under a mesh every slot's rows are gathered first."""
-        if ready is not None:
-            ready.synchronize()
-            rows = rows.numpy()
+        with profiling.span("batcher.wait_rows"):
+            if ready is not None:
+                ready.synchronize()
+                rows = rows.numpy()
         if self.mesh is not None:
             rows = gather_shards(self.mesh, rows)
         snap_active, snap_rid = snap
@@ -443,6 +476,7 @@ class ContinuousBatcher:
         finished: List[Finished] = []
         eos_id = self.tokenizer.eos_id
         pad_id = self.tokenizer.pad_id
+        delivered = 0
         for b, slot in enumerate(self.slots):
             if not own[b]:
                 continue
@@ -458,6 +492,7 @@ class ContinuousBatcher:
                 else:
                     slot.rows.append(row)
                     slot.produced += 1
+                    delivered += 1
                     if slot.produced >= slot.budget:
                         done_reason = "budget"
                 # at capacity the device stops the slot: retire it at chunk
@@ -481,6 +516,7 @@ class ContinuousBatcher:
             if on_rows is not None and slot.streamed < len(slot.rows):
                 on_rows(slot.request_id, np.stack(slot.rows[slot.streamed:]))
                 slot.streamed = len(slot.rows)
+        profiling.count("batcher.rows_delivered", delivered)
         return finished
 
     def run_all(self, max_steps: int = 10_000) -> Dict[int, Finished]:

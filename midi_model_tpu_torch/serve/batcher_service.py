@@ -13,6 +13,11 @@ sliders / instrument bans share one device batch.
 Thread discipline: ONE lock guards the batcher (submission mutates device
 state via prefill + splice; step advances it).  ``submit*`` and the step
 thread both take it, so a registration is never racing a delivery.
+
+Recorder spans (``utils.profiling``): ``service.lock_wait`` (a submission
+waiting for the lock), ``service.submit`` (the lock held for its
+``batcher.submit`` calls) and ``service.idle`` (the step thread asleep
+with nothing active, until its next wake).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..utils import profiling
 from .batcher import ContinuousBatcher, Finished
 
 
@@ -51,9 +57,15 @@ class BatcherService:
         ``disable_*`` grammar constraints).
         """
         q: queue.Queue = queue.Queue()
-        with self._lock:
-            rid = self.batcher.submit(prompt_rows, max_events, **submit_kw)
-            self._streams[rid] = q
+        self._acquire(1)
+        try:
+            with profiling.span("service.submit") as sp:
+                rid = self.batcher.submit(prompt_rows, max_events, **submit_kw)
+                self._streams[rid] = q
+                if sp:
+                    sp.attrs["rids"] = [rid]
+        finally:
+            self._lock.release()
         self._wake.set()
 
         def drain():
@@ -87,17 +99,31 @@ class BatcherService:
         group_seed = submit_kw.pop("seed", None)
         gq: queue.Queue = queue.Queue()
         idx_of: Dict[int, int] = {}
-        with self._lock:
-            for i, p in enumerate(prompts):
-                kw = submit_kw
-                if group_seed is not None:
-                    kw = dict(submit_kw, seed=int(np.random.SeedSequence(
-                        [int(group_seed), i]).generate_state(1)[0]))
-                rid = self.batcher.submit(p, max_events, **kw)
-                idx_of[rid] = i
-                self._streams[rid] = gq
+        self._acquire(len(prompts))
+        try:
+            with profiling.span("service.submit") as sp:
+                for i, p in enumerate(prompts):
+                    kw = submit_kw
+                    if group_seed is not None:
+                        kw = dict(submit_kw, seed=int(np.random.SeedSequence(
+                            [int(group_seed), i]).generate_state(1)[0]))
+                    rid = self.batcher.submit(p, max_events, **kw)
+                    idx_of[rid] = i
+                    self._streams[rid] = gq
+                if sp:
+                    sp.attrs["rids"] = list(idx_of)
+        finally:
+            self._lock.release()
         self._wake.set()
         return self._drain_group(gq, idx_of, max_events)
+
+    def _acquire(self, group: int):
+        """Take the lock, recorded as ``service.lock_wait`` for a
+        submission of ``group`` requests."""
+        with profiling.span("service.lock_wait") as sp:
+            if sp:
+                sp.attrs["group"] = group
+            self._lock.acquire()
 
     def _drain_group(self, gq, idx_of, max_events: int):
         n = len(idx_of)
@@ -154,13 +180,19 @@ class BatcherService:
             q.put((rid, "rows", rows))
 
     def _loop(self):
+        idle = profiling.NULL
         while True:
-            self._wake.wait(timeout=0.2)
+            woken = self._wake.wait(timeout=0.2)
             if self._stop:
                 return
+            if woken:
+                idle.finish()
+                idle = profiling.NULL
             with self._lock:
                 if not self.batcher.any_active:
                     self._wake.clear()
+                    if not idle:
+                        idle = profiling.span("service.idle")
                     continue
                 finished = self.batcher.step(on_rows=self._on_rows)
                 for fin in finished:

@@ -36,6 +36,10 @@ shard of the state, ``train.sharding``) the step is the JAX sharded step's:
   adapters' partial gradients over the model group;
 - clipping takes the global norm: a split leaf's squares summed over the
   model group, a replicated leaf's counted once.
+
+Recorder spans (``utils.profiling``): ``train.step`` (one optimizer step),
+``train.microbatch`` (one forward and backward, attribute ``index``) and
+``train.optimizer`` (the global norm, the update and its application).
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from torch import nn
 from ..models.config import MIDIModelConfig
 from ..models.midinet import MIDINet, init_model
 from ..parallel.mesh import Mesh
+from ..utils import profiling
 from .sched import linear_warmup_decay
 from .sharding import apply_lora_sharded, lora_modules_split, split_axis, train_local_config
 
@@ -282,36 +287,40 @@ def _accumulated_step(state: TrainState, batch, accum_steps: int, optimizer: Opt
     ``model_summed`` then over the model group, and the clipping norm taken
     over the mesh, ``split`` naming the leaves split over the model group
     (:func:`global_norm`)."""
-    device = next(iter(state.params.values())).device
-    batch = torch.as_tensor(batch, device=device)
-    if batch.shape[0] != accum_steps:
-        raise ValueError(f"batch of {batch.shape[0]} microbatches, "
-                         f"accum_steps={accum_steps}")
-    params = state.params
-    for p in params.values():
-        p.requires_grad_(True)
-        p.grad = None
-    sums = {"loss": torch.zeros((), device=device), "acc": torch.zeros((), device=device)}
-    for mb in batch:
-        loss, metrics = loss_of(params, mb)
-        loss.backward()
-        sums = {k: v + metrics[k].detach() for k, v in sums.items()}
-    scale = 1.0 / accum_steps
-    grads = {n: p.grad * scale for n, p in params.items()}
-    for p in params.values():
-        p.grad = None
-    g_norm = None
-    if mesh is not None:
-        sum_over(grads, mesh.data_group)
-        if model_summed and mesh.tp > 1:
-            sum_over({n: grads[n] for n in model_summed}, mesh.model_group)
-        g_norm = global_norm(grads, mesh, split)
-    updates, opt_state = optimizer.update(grads, state.opt_state, params, g_norm)
-    with torch.no_grad():
-        for n, p in params.items():
-            p.add_(updates[n])
-    return (TrainState(state.step + 1, params, opt_state),
-            {k: v * scale for k, v in sums.items()})
+    with profiling.span("train.step"):
+        device = next(iter(state.params.values())).device
+        batch = torch.as_tensor(batch, device=device)
+        if batch.shape[0] != accum_steps:
+            raise ValueError(f"batch of {batch.shape[0]} microbatches, "
+                             f"accum_steps={accum_steps}")
+        params = state.params
+        for p in params.values():
+            p.requires_grad_(True)
+            p.grad = None
+        sums = {"loss": torch.zeros((), device=device), "acc": torch.zeros((), device=device)}
+        for i, mb in enumerate(batch):
+            with profiling.span("train.microbatch") as sp:
+                if sp:
+                    sp.attrs["index"] = i
+                loss, metrics = loss_of(params, mb)
+                loss.backward()
+                sums = {k: v + metrics[k].detach() for k, v in sums.items()}
+        scale = 1.0 / accum_steps
+        grads = {n: p.grad * scale for n, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        if mesh is not None:
+            sum_over(grads, mesh.data_group)
+            if model_summed and mesh.tp > 1:
+                sum_over({n: grads[n] for n in model_summed}, mesh.model_group)
+        with profiling.span("train.optimizer"):
+            g_norm = None if mesh is None else global_norm(grads, mesh, split)
+            updates, opt_state = optimizer.update(grads, state.opt_state, params, g_norm)
+            with torch.no_grad():
+                for n, p in params.items():
+                    p.add_(updates[n])
+        return (TrainState(state.step + 1, params, opt_state),
+                {k: v * scale for k, v in sums.items()})
 
 
 def make_train_step(config: MIDIModelConfig, optimizer: Optimizer, accum_steps: int = 1,

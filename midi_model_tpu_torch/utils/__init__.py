@@ -1,5 +1,5 @@
-"""Shared utilities: profiling, timing."""
+"""Shared utilities: the span-and-counter recorder, device traces."""
 
-from .profiling import StageTimer, trace
+from .profiling import recording, snapshot, span, trace
 
-__all__ = ["StageTimer", "trace"]
+__all__ = ["recording", "snapshot", "span", "trace"]

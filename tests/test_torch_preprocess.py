@@ -1,4 +1,4 @@
-"""The port's profiling helpers and corpus preprocessing against the JAX
+"""The port's trace exporter and corpus preprocessing against the JAX
 package's, mirroring the profiling and preprocessing cases of
 ``tests/test_utils_misc.py``: ``process_file`` gives the JAX verdict on
 every golden blob and on the size and parse rejects, and ``main`` writes
@@ -11,7 +11,7 @@ import pytest
 
 from midi_model_tpu.train import preprocess as jax_preprocess
 from midi_model_tpu_torch.train import preprocess
-from midi_model_tpu_torch.utils import StageTimer, trace
+from midi_model_tpu_torch.utils import trace
 
 GOLDEN = Path(__file__).parent / "golden" / "codec.pkl"
 
@@ -32,21 +32,6 @@ def corpus(tmp_path_factory):
 def tree(root: Path) -> dict:
     return {str(p.relative_to(root)): p.read_bytes()
             for p in sorted(root.rglob("*")) if p.is_file()}
-
-
-def test_stage_timer():
-    t = StageTimer()
-    with t.stage("a"):
-        pass
-    with t.stage("a"):
-        pass
-    with t.stage("b"):
-        pass
-    assert t.counts["a"] == 2 and t.counts["b"] == 1
-    rep = t.report()
-    assert "a:" in rep and "ms each" in rep
-    t.reset()
-    assert not t.totals
 
 
 def test_trace_noop():
