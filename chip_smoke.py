@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``midi_model_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--attention | --paged | --sampler | --api | --app | --mesh]
+    python3 chip_smoke.py [--attention | --paged | --sampler | --step | --api | --app | --mesh]
 
 With ``--attention``: phase 1 with ptxas' register and spill report, the
 causal attention checks of phase 2, phase 6's step-0 checks and its timed
@@ -10,7 +10,10 @@ training loops (bf16 and f32 compute), and no result line.  With
 (the cell and the streaming kernel) and their cold-cache timings, and no
 result line.  ``--sampler``: phase 1 with the same report, phase 2's sampler
 checks and timings and its token row check (the sample phase's µs at top_k
-20 and 128), and no result line.  ``--api``: phase 1, one step of phase 6's
+20 and 128), and no result line.  ``--step``: phase 1 with the same report,
+phase 2's whole-step and event-loop checks (the whole step's phase clock
+and its two timed cases, its int8 form, the aligned and ragged loops), and
+no result line.  ``--api``: phase 1, one step of phase 6's
 CLI to write a run directory, phase 7 on it, and no result line.  ``--app``:
 phase 1, phase 8 on random bf16 weights, and no result line.  ``--mesh``:
 phase 1, phase 9, and no result line.  Otherwise all phases, each printing
@@ -1078,7 +1081,9 @@ def check_fused_step(card: str, gen) -> dict:
     inactive slot.  Rows outside the append stay bit-identical.  f32: hidden
     and appended rows within 1e-4.  bf16: within 3e-2 after one layer and
     BF16_DEEP_TOL after all 12; the plain version on the CPU against the
-    plain version on the card is printed beside it."""
+    plain version on the card is printed beside it.  Then two bf16 launches
+    of all 12 layers are timed with the phase clock (``timed_step_case``).
+    """
     import torch
 
     from midi_model_tpu_torch.models import MIDIModelConfig
@@ -1182,6 +1187,13 @@ def check_fused_step(card: str, gen) -> dict:
                 clock = tl.phase_clock(len(kinds) - 1, dev)
                 fs.fused_decode_step(fused, net, x, kern, index, active, **kw, clock=clock)
                 clocked = phase_clock_summary(clock, kinds)
+                clocked["attention_floor_us"] = attention_floor_us(
+                    index.clamp(max=cap)[active], w)
+                del kern, plain
+                result["timed_cases"] = {
+                    "app_steady_like": timed_step_case(fused, net, "steady", card),
+                    "app_prompt_like": timed_step_case(fused, net, "prompt", card)}
+                continue
             del kern, plain
         errs[str(dtype)] = case
         del full, k0, v0
@@ -1190,6 +1202,69 @@ def check_fused_step(card: str, gen) -> dict:
     emit({"phase": "kernel", "name": "fused_step", "batch": b, "index": index.tolist(),
           "max_abs_err_by_dtype": errs, **result, "bf16_phase_clock": clocked, "card": card})
     return result
+
+
+def attention_floor_us(lengths, w: int) -> float:
+    """The whole step's attention phase's byte floor a layer, in µs: the
+    live slots' cached k and v rows read once, bf16, at the HBM rate."""
+    return float(lengths.sum()) * 2 * w * 2 / HBM_BYTES_PER_S * 1e6
+
+
+def timed_step_case(fused, net, kind: str, card: str) -> dict:
+    """One bf16 whole step of all layers timed, with its phase clock, on
+    random pools (pages of 64) from a generator of its own: "steady", 32
+    slots of log-uniform 16-1,536 rows (capacity 2,048), as app_steady's
+    sessions; "prompt", 8 live slots of 1,024-3,968 rows and 24 inactive
+    (capacity 4,096), as app_prompt's."""
+    import numpy as np
+    import torch
+
+    from midi_model_tpu_torch.ops import fused_step as fs
+    from midi_model_tpu_torch.ops import paged_allheads as pa
+    from midi_model_tpu_torch.ops import token_loop as tl
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17 if kind == "steady" else 18)
+    b, ps = 32, 64
+    if kind == "steady":
+        pps = 32
+        lengths = np.exp(rng.uniform(np.log(16), np.log(1536), b)).astype(np.int64)
+        live = np.ones(b, bool)
+    else:
+        pps = 64
+        lengths = np.zeros(b, np.int64)
+        live = np.zeros(b, bool)
+        slots = rng.choice(b, 8, replace=False)
+        lengths[slots] = rng.integers(1024, 3969, 8)
+        live[slots] = True
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    w = net.num_heads * net.head_dim
+    n_pages = net.num_layers * b * pps
+    pools = pa.PagedPools(
+        *(torch.randn((n_pages, ps, w), generator=gen, device=dev).to(torch.bfloat16)
+          for _ in range(2)))
+    x = torch.randn((b, net.hidden_size), generator=gen, device=dev).to(torch.bfloat16) * 0.1
+    index = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    active = torch.as_tensor(live, device=dev)
+    kw = dict(page_size=ps, pages_per_slot=pps)
+    ms = time_ms(lambda: fs.fused_decode_step(fused, net, x, pools, index, active, **kw), 20)
+    kinds = fs.phase_kinds(net.num_layers)
+    clock = tl.phase_clock(len(kinds) - 1, dev)
+    h, _ = fs.fused_decode_step(fused, net, x, pools, index, active, **kw, clock=clock)
+    require(bool(torch.isfinite(h.float()).all()), f"timed step {kind}: non-finite")
+    chunk, items = fs.attention_plan(lengths, live)
+    weights = sum(t.numel() for t in fused[:5])
+    cached = int(lengths[live].sum()) * net.num_layers
+    out = {"lengths": lengths.tolist(), "live": int(live.sum()), "chunk": chunk,
+           "items": int(items.sum()), "split_slots": int((items > 1).sum()), "ms": ms,
+           **bound(2 * (weights + cached * 2 * w + net.num_layers * b * 2 * w),
+                   2 * b * weights + 4 * cached * w, "bf16"),
+           "phase_clock": phase_clock_summary(clock, kinds),
+           "attention_floor_us": attention_floor_us(lengths[live], w), "card": card}
+    del pools
+    torch.cuda.empty_cache()
+    return out
 
 
 def int8_kernel_qkv(fused, net, x, pools, index, active, *, page_size: int,
@@ -4427,6 +4502,11 @@ def main(argv=()) -> int:
                         help="build with ptxas' register and spill report, run the paged "
                         "decode checks of phase 2 and their cold-cache timings, and stop "
                         "(no result line)")
+    parser.add_argument("--step", action="store_true",
+                        help="build with ptxas' register and spill report, run the whole-step "
+                        "and event-loop checks of phase 2 (the whole step with its phase "
+                        "clock and timed cases, its int8 form, the aligned and ragged "
+                        "loops), and stop (no result line)")
     parser.add_argument("--api", action="store_true",
                         help="build, write a run directory with one step of phase 6's CLI, "
                         "run phase 7 (the MIDIModel facade, LoRA, remat policies, publish, "
@@ -4457,7 +4537,7 @@ def main(argv=()) -> int:
     card = card_line()
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
-    phase_build(card, verbose=args.attention or args.paged or args.sampler)
+    phase_build(card, verbose=args.attention or args.paged or args.sampler or args.step)
     if args.app:
         phase_app(card)
         return 0
@@ -4478,6 +4558,14 @@ def main(argv=()) -> int:
         gen.manual_seed(1234)
         check_sampler(card, gen)
         check_token_row(card, gen)
+        return 0
+    if args.step:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1234)
+        check_fused_step(card, gen)
+        check_fused_step_int8(card, gen)
+        check_event_loop(card, gen)
+        check_event_loop_ragged(card, gen)
         return 0
     if args.paged:
         gen = torch.Generator(device="cuda")

@@ -71,10 +71,11 @@ __device__ __forceinline__ void grid_barrier(unsigned int* bar,
 // Launch `kernel` cooperatively with as many blocks of `threads` as fit on
 // the card at once (at most `max_blocks`), after raising its dynamic shared
 // memory limit to `smem`.  A cooperative launch fails rather than run a
-// grid whose blocks are not all resident, so grid_barrier cannot deadlock.
+// grid whose blocks are not all resident, so grid_barrier cannot deadlock;
+// a card that holds fewer than `min_blocks` at once is refused.
 template <typename Kernel>
 int launch_cooperative(Kernel kernel, int threads, size_t smem, int max_blocks, void** args,
-                       void* stream) {
+                       void* stream, int min_blocks = 1) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -87,6 +88,7 @@ int launch_cooperative(Kernel kernel, int threads, size_t smem, int max_blocks, 
     return static_cast<int>(e);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int blocks = std::min(sms * per_sm, max_blocks);
+  if (blocks < min_blocks) return static_cast<int>(cudaErrorInvalidConfiguration);
   e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(blocks),
                                   dim3(threads), args, smem,
                                   static_cast<cudaStream_t>(stream));

@@ -250,32 +250,6 @@ __device__ __forceinline__ void norm8(const T* x, const T* w, const float* rs, i
   for (int i = 0; i < 8; ++i) out[i] = round_to<T>(wv[i] * round_to<T>(xv[i] * rs[b]));
 }
 
-// Rotate-half RoPE of one head held by a warp: lane owns dims lane + 32c,
-// c < C; the partner of chunk c is c +- C/2.  f32 math without contraction,
-// rounded to T (the plain version's (x*cos + rot(x)*sin).to(dtype)).
-template <typename T, int MAXC>
-__device__ __forceinline__ void rope_head(const T* __restrict__ src, const float* __restrict__ cs,
-                                          const float* __restrict__ sn, int C, float* out) {
-  const int lane = threadIdx.x & 31;
-  float x[MAXC];
-#pragma unroll
-  for (int c = 0; c < MAXC; ++c) x[c] = c < C ? to_f32(src[lane + 32 * c]) : 0.f;
-  const int half = C / 2;
-#pragma unroll
-  for (int c = 0; c < MAXC; ++c) {
-    if (c < C) {
-      const int d = lane + 32 * c;
-      float rot = 0.f;
-#pragma unroll
-      for (int o = 0; o < MAXC; ++o) {  // static partner index keeps x in registers
-        if (c < half && o == c + half) rot = -x[o];
-        if (c >= half && o == c - half) rot = x[o];
-      }
-      out[c] = round_to<T>(__fadd_rn(__fmul_rn(x[c], cs[d]), __fmul_rn(rot, sn[d])));
-    }
-  }
-}
-
 __device__ __forceinline__ float silu_f32(float g) { return g / (1.f + expf(-g)); }
 
 // ---- the phase clock ----------------------------------------------------------
@@ -438,7 +412,7 @@ struct Tc {
     }
   }
 
-  // the scratch of the phases that are not products (attention scores,
+  // the scratch of the phases that are not products (the attention rows,
   // the sampler's work[V]): the staged segment's space
   __device__ float* scratch() const { return reinterpret_cast<float*>(act); }
 

@@ -67,7 +67,7 @@ __global__ void __launch_bounds__(mm::kDecThreads, 1)
   __shared__ float rs[mm::kMaxBatch];
   __shared__ float red[mm::kDecWarps];
   __shared__ mm::ArgmaxScratch<mm::kDecThreads> am;
-  mm::Tc<T> tc;  // the weight ring and staged activations; work[V], attention scores
+  mm::Tc<T> tc;  // the weight ring and staged activations; work[V], the attention rows
   tc.init(reinterpret_cast<uint8_t*>(smem4));
   mm::PhaseSync sync{p.step.bar, p.step.clock, 0};
   sync.start();
@@ -130,8 +130,9 @@ int launch(const void* const* ptrs, const int* ints, const float* floats, void* 
       p.n_events < 1 || (ragged && !p.alive))
     return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&p};
+  // no slot has more attention items than blocks (fused_step.cuh)
   return mm::launch_cooperative(event_loop_kernel<T>, mm::kDecThreads, mm::decode_smem<T>(),
-                                1 << 20, args, stream);
+                                1 << 20, args, stream, mm::kAttnItems);
 }
 
 }  // namespace

@@ -35,7 +35,7 @@ __global__ void __launch_bounds__(mm::kDecThreads, 1)
     fused_step_kernel(const __grid_constant__ mm::StepParams<T, KV> p) {
   extern __shared__ float4 smem4[];
   __shared__ float rs[mm::kMaxBatch];
-  mm::Tc<T> tc;  // the weight ring and staged activations; attention scores
+  mm::Tc<T> tc;  // the weight ring and staged activations; the attention rows
   tc.init(reinterpret_cast<uint8_t*>(smem4));
   mm::PhaseSync sync{p.bar, p.clock, 0};
   sync.start();
@@ -50,8 +50,9 @@ int launch(const void* const* ptrs, const int* ints, const float* floats, void* 
   if (!mm::fill_step_params(p, ptrs, ints, floats))
     return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&p};
+  // no slot has more attention items than blocks (fused_step.cuh)
   return mm::launch_cooperative(fused_step_kernel<T, KV>, mm::kDecThreads,
-                                mm::decode_smem<T>(), 1 << 20, args, stream);
+                                mm::decode_smem<T>(), 1 << 20, args, stream, mm::kAttnItems);
 }
 
 }  // namespace

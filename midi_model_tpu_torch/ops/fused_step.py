@@ -28,12 +28,17 @@ returns each layer's fresh rows ``[L, B, W]``; :func:`_append_int8` then
 quantizes them per token and head (``quantize_packed``) and scatters them
 with their scale rows, as the JAX wrapper does outside its kernel.  The
 self term uses the unquantized fresh row in f32, as on bf16 pools.
+
+The kernel's attention phase splits each slot's rows into work items over
+the whole grid; :func:`attention_plan` is its item rule, which the serving
+batcher's counters and the CPU tests of the phase share.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -74,6 +79,51 @@ def prepare_fused(stack: LlamaStack) -> FusedWeights:
         final_norm=stack.norm.weight)
 
 
+# The attention phase's item plan (``csrc/fused_step.cuh`` ``attention_plan``)
+ATTN_ITEMS = 128  # work items a layer, at most: no more than the smallest grid
+ATTN_QUANTUM = 8  # a chunk is a multiple of this many rows
+ATTN_CHUNK_MAX = 256  # rows of a chunk, at most
+
+
+def attention_plan(lengths, alive=None):
+    """The whole-step kernel's attention work items for one event, from the
+    slots' cached lengths int [B] and the alive mask bool [B] (None: every
+    slot lives); leading axes are events.  Returns (chunk, items [B]): a live
+    slot of n rows has max(1, ceil(n / chunk)) items of at most ``chunk``
+    rows, a retired slot none; ``chunk`` is the smallest multiple of
+    ``ATTN_QUANTUM`` rows, at most ``ATTN_CHUNK_MAX``, that cuts the live
+    rows into at most ``ATTN_ITEMS`` items (slots of no rows do not count)."""
+    lengths = np.asarray(lengths, np.int64)
+    live = np.ones(lengths.shape, bool) if alive is None else np.asarray(alive, bool)
+    rows = np.where(live, lengths, 0)
+    chunks = np.arange(ATTN_QUANTUM, ATTN_CHUNK_MAX + 1, ATTN_QUANTUM)
+    fits = (-(-rows[..., None, :] // chunks[:, None])).sum(-1) <= ATTN_ITEMS
+    chunk = np.where(fits.any(-1), chunks[fits.argmax(-1)], ATTN_CHUNK_MAX)
+    items = np.where(live, np.maximum(1, -(-rows // chunk[..., None])), 0)
+    return (int(chunk) if chunk.ndim == 0 else chunk), items
+
+
+def chunk_attention_counts(index, active, n_events: int, capacity: int):
+    """(work items, slots of more than one item) of the attention phase
+    per layer, summed over a ragged event-loop launch of ``n_events``
+    events from each slot's length ``index`` and ``active`` (host arrays),
+    as if no slot drew eos: event e's lengths are ``index + e``, and a slot
+    retires once ``index + e`` reaches the capacity."""
+    index = np.asarray(index, np.int64)[None, :]
+    e = np.arange(n_events)[:, None]
+    alive = np.asarray(active, bool)[None, :] & ((e == 0) | (index + e < capacity))
+    _, items = attention_plan(np.minimum(index + e, capacity), alive)
+    return int(items.sum()), int((items > 1).sum())
+
+
+def attention_work_floats(batch: int, heads: int, head_dim: int, capacity: int) -> int:
+    """Floats of the attention phase's global scratch: an arrival counter a
+    slot, then a record an item of 64-bit words (its heads' maxima and
+    exp-sums, and its P.V sums)."""
+    items = max(ATTN_ITEMS + batch, batch * -(-capacity // ATTN_CHUNK_MAX))
+    return -(-batch // 32) * 32 + items * 2 * (heads * head_dim + 2 * heads)
+
+
 def _packed_mha(cfg) -> bool:
     return (cfg.kv_heads == cfg.num_heads
             and head_stride(cfg.head_dim, cfg.num_heads) == cfg.head_dim)
@@ -85,10 +135,12 @@ def kernel_limits(cfg, batch: int, capacity: int) -> Optional[str]:
     if not _packed_mha(cfg):
         return "fused step: MHA event net with head_stride == head_dim required"
     dh, d, f = cfg.head_dim, cfg.hidden_size, cfg.intermediate_size
-    if dh % 64 or dh > 128 or batch > 256 or d % 8 or f % 8 or capacity > 16384:
-        return (f"fused step kernel: head_dim 64 or 128, at most 256 slots of "
-                f"at most 16384 rows, widths multiples of 8 (got {dh}, {batch}, "
-                f"{capacity}, D={d}, F={f})")
+    w = cfg.num_heads * dh
+    if (dh % 64 or dh > 128 or w not in (512, 1024, 2048) or batch > 256 or d % 8
+            or f % 8 or capacity > 16384):
+        return (f"fused step kernel: head_dim 64 or 128, heads x head_dim 512, 1024 "
+                f"or 2048, at most 256 slots of at most 16384 rows, widths multiples of "
+                f"8 (got {dh}, W={w}, {batch}, {capacity}, D={d}, F={f})")
     return None
 
 
@@ -285,11 +337,12 @@ def kernel_args(fused: FusedWeights, cfg, x: torch.Tensor, pools: PagedPools,
     host arrays (``csrc/fused_step.cuh`` ``fill_step_params``).  The
     geometry has one row per event: lengths / wpos int32 [E, B], cos / sin
     f32 [E, B, dh]; bar: a zeroed int32 pair; clock: the phase clock or
-    None.  Returns (ptrs, ints, floats,
-    xs, fresh, keep): xs [B, D] is the residual stream the kernel updates in
-    place (starting from x); fresh is None, or for int8 pools the kernel's
-    fresh-row outputs (k, v) [L, B, W]; the tensors in ``keep`` must outlive
-    the launch."""
+    None.  The attention phase's scratch (:func:`attention_work_floats`)
+    is allocated here; the kernel clears what it reads before writing it.
+    Returns (ptrs, ints, floats, xs, fresh, keep): xs [B, D] is the residual
+    stream the kernel updates in place (starting from x); fresh is None, or
+    for int8 pools the kernel's fresh-row outputs (k, v) [L, B, W]; the
+    tensors in ``keep`` must outlive the launch."""
     b, d = x.shape
     _check_shapes(fused, cfg, pools, b, page_size, pages_per_slot)
     dtype = fused.wqkv.dtype
@@ -329,9 +382,11 @@ def kernel_args(fused: FusedWeights, cfg, x: torch.Tensor, pools: PagedPools,
     fresh = (empty(n_layers, b, w), empty(n_layers, b, w)) if pools.quantized else None
     # scratch: qkv, attention output, (the fresh k rows,) gated MLP input
     scratch = [empty(b, 3 * w), empty(b, w), fresh[0] if fresh else None, empty(b, f)]
+    work = torch.empty(attention_work_floats(b, h, dh, pages_per_slot * page_size),
+                       dtype=torch.float32, device=device)
     tensors = [fused.wqkv, fused.wo, fused.wgu, fused.wd, fused.ln, cos, sin,
                lengths, wpos, pools.k, pools.v, xs, *scratch, bar,
-               pools.scales, fresh[1] if fresh else None, clock]
+               pools.scales, fresh[1] if fresh else None, clock, work]
     ints = [b, d, h, dh, f, n_layers, page_size, pages_per_slot]
     return ([None if t is None else t.data_ptr() for t in tensors], ints,
             [cfg.rms_norm_eps, dh ** -0.5], xs, fresh, tensors)

@@ -49,7 +49,11 @@ Recorder spans and counters (``utils.profiling``, recorded only while it
 is on): ``batcher.queued`` (one per request, from its enqueue to the start
 of its group's prefill), ``batcher.admit`` (one prefill forward, with the
 ``batcher.prefill_*`` counters), ``batcher.step``, ``batcher.dispatch``
-(one chunk enqueued, with ``batcher.slot_steps``) and ``batcher.wait_rows``
+(one chunk enqueued, with ``batcher.slot_steps``; on the ragged event loop
+also ``batcher.attention_items`` and ``batcher.attention_split_slots``, the
+whole step's attention work items a layer and the slots split over more
+than one, summed over the chunk's events by ``ops.fused_step``'s item rule
+from the host's index mirror) and ``batcher.wait_rows``
 (the host waiting for a chunk's rows, with ``batcher.rows_delivered``).
 """
 
@@ -65,7 +69,7 @@ from ..models.config import MIDIModelConfig
 from ..models.midinet import MIDINet
 from ..ops import event_loop
 from ..ops import token_loop
-from ..ops.fused_step import fused_decode_step, prepare_fused
+from ..ops.fused_step import chunk_attention_counts, fused_decode_step, prepare_fused
 from ..ops.paged_allheads import alloc_pools
 from ..ops.sampler import sample_top_p_k
 from ..parallel.mesh import Mesh, gather_shards
@@ -385,6 +389,11 @@ class ContinuousBatcher:
             if sp:
                 sp.attrs["live_slots"] = int(self._active.sum())
                 profiling.count("batcher.slot_steps", self.n_slots * self.chunk)
+                if self.path == "event_loop":
+                    items, split = chunk_attention_counts(
+                        self._host_index(), self._active[self._mine], self.chunk, self.max_seq)
+                    profiling.count("batcher.attention_items", items)
+                    profiling.count("batcher.attention_split_slots", split)
             snap = (self._active.copy(), np.asarray([s.request_id for s in self.slots]))
             kn = self._device_knobs()
             t_max = self.tokenizer.max_token_seq
@@ -412,6 +421,18 @@ class ContinuousBatcher:
             ready = torch.cuda.Event()
             ready.record()
             return host, ready, snap
+
+    def _host_index(self) -> np.ndarray:
+        """This rank's slots' lengths as the host knows them at a dispatch:
+        the mirror, plus the chunk in flight (pipelined mode) for the slots
+        it decodes for their current request, as if none drew eos."""
+        index = self._index_host.copy()
+        if self._inflight is not None:
+            snap_active, snap_rid = self._inflight[2]
+            own = (snap_active & self._active
+                   & (snap_rid == np.asarray([s.request_id for s in self.slots])))
+            index[own] += self.chunk
+        return np.minimum(index, self.max_seq)[self._mine]
 
     def _per_event_chunk(self, kn: dict, knobs: tuple, gumbel):
         """The chunk one event at a time: the token row (kernel or plain,

@@ -12,6 +12,9 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from midi_model_tpu_torch.models import MIDIModelConfig
+from midi_model_tpu_torch.models.midinet import init_model
+from midi_model_tpu_torch.ops import fused_step as fs
 from midi_model_tpu_torch.serve import BatcherService, ContinuousBatcher
 from midi_model_tpu_torch.serve.batcher import PREFILL_BUCKETS
 from midi_model_tpu_torch.train import init_train_state, make_optimizer, make_train_step
@@ -219,6 +222,53 @@ def test_batcher_spans_and_counters(tiny, pipeline):
     assert set(counters) == {"batcher.prefill_forwards", "batcher.prefill_prompts",
                              "batcher.prefill_prompt_rows", "batcher.prefill_bucket_rows",
                              "batcher.slot_steps", "batcher.rows_delivered"}
+
+
+@pytest.fixture(scope="module")
+def packed():
+    """A one-layer event net of 8 heads x 64 (packed pages): the ragged event
+    loop's path (its plain version on the CPU)."""
+    cfg = MIDIModelConfig.get_config("v2", True, n_layer=1, n_head=8, n_embd=512, n_inner=64)
+    return cfg, init_model(cfg, seed=0, device="cpu")
+
+
+@pytest.mark.parametrize("pipeline", [False, True], ids=["plain", "pipelined"])
+def test_event_loop_attention_counters(packed, pipeline, monkeypatch):
+    """On the ragged event loop's path the batcher counts the whole step's
+    attention work items a layer and the slots split over several, summed
+    over each chunk's events by ``fs.chunk_attention_counts``: equal to the
+    rule over the device's index and the active slots at each dispatch
+    (exact on the CPU; eos disabled, so no slot retires mid-chunk); rows
+    bit-identical with the recorder on."""
+    cfg, model = packed
+    seen = []
+    dispatch = ContinuousBatcher._dispatch
+
+    def watched(self):
+        seen.append((self._index.numpy().copy(), self._active[self._mine].copy()))
+        return dispatch(self)
+
+    def run():
+        b = ContinuousBatcher(model, cfg, n_slots=2, max_seq=64, chunk=3, greedy=True,
+                              disable_eos=True, pipeline=pipeline, fused=True)
+        assert b.path == "event_loop"
+        rids = [b.submit(bos_prompt(cfg.tokenizer, n - 1), max_events=budget)
+                for n, budget in PLAN]
+        results = b.run_all()
+        return [results[r].rows for r in rids], b
+
+    off, _ = run()
+    monkeypatch.setattr(ContinuousBatcher, "_dispatch", watched)
+    with profiling.recording():
+        on, b = run()
+    _, counters = profiling.snapshot()
+    for x, y in zip(off, on):
+        np.testing.assert_array_equal(x, y)
+    want = [fs.chunk_attention_counts(index, active, b.chunk, b.max_seq)
+            for index, active in seen]
+    assert counters["batcher.attention_items"] == sum(w[0] for w in want) > 0
+    assert counters["batcher.attention_split_slots"] == sum(w[1] for w in want) > 0
+    assert counters["batcher.slot_steps"] == 2 * 3 * len(seen)
 
 
 def test_submit_group_spans(tiny):
