@@ -40,15 +40,16 @@ def decode_flops(run) -> float:
 def decode_bound_s(run) -> float:
     """A floor on the device time of the window's decoding: the weights read
     once per event step dispatched (chunks x chunk length), every delivered
-    row's cached and appended K/V, against the delivered rows' operations.
-    Overshoot rows that the host discards are left out."""
+    row's cache read and appended on the run's pools (``run.pool``,
+    bfloat16 where the run names none), against the delivered rows'
+    operations.  Overshoot rows that the host discards are left out."""
     contexts = decoded_contexts(run)
     if not contexts:
         return 0.0
-    ev, _ = work.dims(run.config)
+    pool = getattr(run, "pool", "bfloat16")
     steps = sum(1 for t in run.dispatches if run.in_window(t)) * run.chunk
-    n_bytes = steps * work.weight_bytes(run.config) + 2 * ev.kv_row_elems * (
-        sum(contexts) + 2 * len(contexts))
+    n_bytes = steps * work.weight_bytes(run.config) + sum(
+        work.cache_bytes(run.config, c, pool) for c in contexts)
     flops = sum(work.event_step_flops(run.config, c) for c in contexts)
     return max(n_bytes / work.HBM_BYTES_PER_S, flops / PEAK)
 

@@ -13,6 +13,9 @@ Training: the reference follows the program's first three steps on the
 same weights and batches; the readings are each step's loss, each leaf's
 norm of the first gradient as the optimizer gets it, and each leaf's norm
 of the parameters' change after the three steps.
+
+The reference is the ``MidiModel`` of the configuration's architecture
+module (``spec.architecture``).
 """
 
 from __future__ import annotations
@@ -22,9 +25,10 @@ from typing import Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from .. import spec
 from .grammar import Grammar
-from .model import MidiModel, full_f32
 from .optim import AdamW
+from .precision import full_f32
 
 
 class ServedRequest:
@@ -38,7 +42,7 @@ class ServedRequest:
 
 
 @torch.no_grad()
-def served_logits(model: MidiModel, req: ServedRequest, device) -> torch.Tensor:
+def served_logits(model, req: ServedRequest, device) -> torch.Tensor:
     """The model's logits [n, T, V] at every served token of ``req``."""
     n = len(req.served)
     seq = np.concatenate([req.prompt, req.served[:-1]])
@@ -67,9 +71,10 @@ def serve_readings(config: dict, state: Dict[str, torch.Tensor], requests: Itera
     reading), or with ``control`` the widest gap of the token that the fp8
     reference puts first at each of the same positions."""
     grammar = Grammar(config["tokenizer"])
+    model = spec.architecture(config).MidiModel
     with full_f32():
-        ref = MidiModel(config, state, "f32")
-        low = MidiModel(config, state, "fp8") if control else None
+        ref = model(config, state, "f32")
+        low = model(config, state, "fp8") if control else None
         widest, tokens, violations = 0.0, 0, 0
         for req in requests:
             if len(req.served) == 0:
@@ -122,7 +127,7 @@ def train_reference(config: dict, state: Dict[str, torch.Tensor], batches: List[
     with full_f32():
         params = {n: t.detach().float().clone() for n, t in state.items()}
         start = {n: t.clone() for n, t in params.items()}
-        model = MidiModel(config, params, precision)
+        model = spec.architecture(config).MidiModel(config, params, precision)
         w = model.parameters()
         adam = AdamW(opt, w)
         losses, grad_norms = [], None

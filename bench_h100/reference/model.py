@@ -1,4 +1,6 @@
-"""SkyTNT's hierarchical MIDI event transformer in plain float32 PyTorch.
+"""The Llama family's architecture module: SkyTNT's hierarchical MIDI event
+transformer in plain float32 PyTorch, its state-dict layout and the counts
+of its work (what ``bench_h100/README.md`` asks of an architecture module).
 
 Upstream (``midi_model.py``): an event is a row of ``T`` token ids whose
 embedding is the sum of the row's token embeddings through the event net's
@@ -10,47 +12,27 @@ projects the token net's states to the vocabulary.  HF Llama: RMSNorm
 layout with ``inv_freq = theta ** (-2i / d)``, causal softmax attention
 scaled by ``d ** -0.5``, SwiGLU ``down(silu(gate(x)) * up(x))``, no biases.
 
-``precision="fp8"`` is the control: every linear layer's weight (per
-output row) and input (per row) rounded to float8 e4m3 with a scale, the
-step below the bfloat16 that the configurations state.  Under autograd the
-rounding passes the gradient straight through.
+``precision="fp8"`` is the control (:mod:`.precision`).  The judge runs
+the model under ``precision.full_f32``: float32 products with TF32 off.
 
-Matrix products run in float32 with TF32 off (:func:`full_f32`).
+Counts: operations count a multiply-add as 2.  A layer's products are its
+seven projections; causal attention over ``c`` keys costs ``4 * heads *
+head_dim * c`` per query (QK^T and PV).  Embedding gathers and norms are
+not counted: the counts are a floor on the work, so a share never
+overstates.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-PRECISIONS = ("f32", "fp8")
+from .precision import PRECISIONS, fp8_round
+
 QUERY_BLOCK = 1024  # rows of queries per attention block (bounds the score tile)
-
-
-@contextlib.contextmanager
-def full_f32():
-    """float32 products with TF32 off, restored afterwards."""
-    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
-
-
-def fp8_round(x: torch.Tensor) -> torch.Tensor:
-    """``x`` rounded to float8 e4m3 with one scale per row of its last axis
-    (the row's largest magnitude maps to 448), back in float32; the
-    gradient passes straight through."""
-    amax = x.detach().abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
-    scale = amax / 448.0
-    q = (x.detach() / scale).to(torch.float8_e4m3fn).float() * scale
-    return x + (q - x).detach() if x.requires_grad else q
 
 
 class Net:
@@ -173,3 +155,130 @@ class MidiModel:
         logits = self.token_logits(hidden, y[:, :-1])
         return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), y.reshape(-1),
                                ignore_index=self.pad_id)
+
+
+# The state-dict layout: every tensor here takes ``weights.make``'s default
+# rule (a matrix from the one N(0, init_std) draw, a vector 1).
+
+def layout(config: dict) -> List[Tuple[str, tuple]]:
+    """(name, shape) of every tensor of the upstream state dict (``net.*``,
+    ``net_token.*``, ``lm_head.weight``), in the order they are drawn."""
+    out = []
+    vocab = config["tokenizer"]["vocab_size"]
+    for prefix, key in (("net", "net_config"), ("net_token", "net_token_config")):
+        c = config[key]
+        d, h = c["hidden_size"], c["num_attention_heads"]
+        hkv = c.get("num_key_value_heads") or h
+        dh = c.get("head_dim") or d // h
+        f = c["intermediate_size"]
+        out.append((f"{prefix}.embed_tokens.weight", (vocab, d)))
+        for i in range(c["num_hidden_layers"]):
+            pre = f"{prefix}.layers.{i}."
+            out += [(pre + "self_attn.q_proj.weight", (h * dh, d)),
+                    (pre + "self_attn.k_proj.weight", (hkv * dh, d)),
+                    (pre + "self_attn.v_proj.weight", (hkv * dh, d)),
+                    (pre + "self_attn.o_proj.weight", (d, h * dh)),
+                    (pre + "mlp.gate_proj.weight", (f, d)),
+                    (pre + "mlp.up_proj.weight", (f, d)),
+                    (pre + "mlp.down_proj.weight", (d, f)),
+                    (pre + "input_layernorm.weight", (d,)),
+                    (pre + "post_attention_layernorm.weight", (d,))]
+        out.append((f"{prefix}.norm.weight", (d,)))
+    out.append(("lm_head.weight", (vocab, config["net_config"]["hidden_size"])))
+    return out
+
+
+# The work counts, from shapes alone.
+
+class Dims:
+    def __init__(self, c: dict, vocab: int):
+        self.layers = c["num_hidden_layers"]
+        self.hidden = c["hidden_size"]
+        self.heads = c["num_attention_heads"]
+        self.kv_heads = c.get("num_key_value_heads") or self.heads
+        self.head_dim = c.get("head_dim") or self.hidden // self.heads
+        self.inter = c["intermediate_size"]
+        self.vocab = vocab
+
+    @property
+    def layer_params(self) -> int:
+        d, hd, kvd = self.hidden, self.heads * self.head_dim, self.kv_heads * self.head_dim
+        return 2 * d * hd + 2 * d * kvd + 3 * d * self.inter
+
+    @property
+    def kv_row_elems(self) -> int:
+        """K and V elements of one cached row over all layers."""
+        return 2 * self.layers * self.kv_heads * self.head_dim
+
+    def attn_flops(self, queries: float, keys: float) -> float:
+        return 4.0 * self.heads * self.head_dim * queries * keys * self.layers
+
+
+def dims(config: dict):
+    """(event net, token net) :class:`Dims`: the shapes the attention
+    readers bound."""
+    v = config["tokenizer"]["vocab_size"]
+    return Dims(config["net_config"], v), Dims(config["net_token_config"], v)
+
+
+def token_row_flops(config: dict) -> float:
+    """One event's token row: the token net over T positions (causal
+    attention within the row) and the head at each position."""
+    _, tok = dims(config)
+    t = config["tokenizer"]["row"]
+    return (2.0 * tok.layer_params * tok.layers * t + tok.attn_flops(1, t * (t + 1) / 2)
+            + 2.0 * tok.hidden * tok.vocab * t)
+
+
+def event_step_flops(config: dict, context: int) -> float:
+    """One slot's event step: its token row, then the event net's step for
+    the new row over ``context`` cached rows and itself."""
+    ev, _ = dims(config)
+    return (token_row_flops(config) + 2.0 * ev.layer_params * ev.layers
+            + ev.attn_flops(1, context + 1))
+
+
+def prefill_flops(config: dict, rows: int) -> float:
+    """The event net over a prompt of ``rows`` events (causal)."""
+    ev, _ = dims(config)
+    return 2.0 * ev.layer_params * ev.layers * rows + ev.attn_flops(1, rows * (rows + 1) / 2)
+
+
+def weight_bytes(config: dict, elem: int = 2) -> float:
+    """The weights an event step reads once: both nets' layers, the head."""
+    ev, tok = dims(config)
+    return elem * (ev.layer_params * ev.layers + tok.layer_params * tok.layers
+                   + tok.hidden * tok.vocab)
+
+
+POOL_ELEM_BYTES = {"bfloat16": 2, "float16": 2, "float32": 4, "int8": 1}
+SCALE_BYTES = 2  # an int8 pool's scale per (row, head) for k and for v: bf16
+
+
+def cache_bytes(config: dict, context: int, pool: str) -> int:
+    """The bytes of one slot's cache that one event step reads and appends:
+    the K/V of its ``context`` cached rows read, the new row's written and
+    read back (two rows more), over the event net's layers, at the pool's
+    element width; int8 pools add the scale lanes a row's heads use (a k
+    and a v scale a head, bf16).  The architecture keeps no other state."""
+    ev, _ = dims(config)
+    per_row = POOL_ELEM_BYTES[pool] * ev.kv_row_elems
+    if pool == "int8":
+        per_row += SCALE_BYTES * 2 * ev.layers * ev.kv_heads
+    return per_row * (context + 2)
+
+
+def train_forward_flops(config: dict, batch) -> float:
+    """The forward's model operations for a training batch ``[..., L, T]``
+    (numpy), counting only non-pad work: the event net over each row's
+    non-pad input events, the token row for each non-pad target event."""
+    import numpy as np
+
+    pad = config["tokenizer"]["pad_id"]
+    rows = np.asarray(batch).reshape(-1, *np.asarray(batch).shape[-2:])
+    total = 0.0
+    for r in rows:
+        n_in = int((r[:-1, 0] != pad).sum())
+        n_out = int((r[1:, 0] != pad).sum())
+        total += prefill_flops(config, n_in) + n_out * token_row_flops(config)
+    return total

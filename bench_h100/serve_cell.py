@@ -1,7 +1,8 @@
 """Serving cells: the app's deployment on the card, driven through
 ``BatcherService.submit_group`` as the app's generate button drives it.
 
-Set-up builds the deployment (``ContinuousBatcher`` on bf16 pools behind a
+Set-up builds the deployment (``ContinuousBatcher`` on the pools the mix's
+deployment names, bf16 or int8 with bf16 scales, behind a
 ``BatcherService``, eos disabled so each request runs to its budget) on
 weights made from the seed, warms each prefill bucket the mix can reach
 with one session, then offers the mix's lead-in traffic to reach steady
@@ -14,8 +15,10 @@ occupancy.  The window is ``--seconds`` long:
   last one's streams end.
 
 After the window no new session starts; the sessions due in it are awaited
-(at most ``DRAIN_S`` past the close).  Then the peak memory is read, the
-program freed, and the sampled greedy requests held to the reference.
+(at most ``DRAIN_S`` past the close, counted from the end of a traced
+window's capture: stopping it holds the program's threads).  Then the peak
+memory is read, the program freed, and the sampled greedy requests held to
+the reference.
 """
 
 from __future__ import annotations
@@ -65,6 +68,7 @@ class ServeRun:
     dispatches: list = field(default_factory=list)  # t of each chunk dispatched
     queued: list = field(default_factory=list)  # (t, requests waiting for a slot) at each dispatch
     chunk: int = 0
+    pool: str = "bfloat16"  # the K/V pools' element: the config's dtype, or int8
     trace: object = None
     stuck: bool = False  # a session still open at the deadline
 
@@ -164,8 +168,10 @@ def run(cell, seed: int, seconds: float, tracing: bool, device, started: float,
     config, mix = cell.config, cell.traffic
     dep, tok = mix["deployment"], config["tokenizer"]
     variations = dep["variations"]
-    srun = ServeRun(cell=cell, config=config, seconds=seconds, chunk=dep["chunk"])
+    srun = ServeRun(cell=cell, config=config, seconds=seconds, chunk=dep["chunk"],
+                    pool="int8" if dep.get("kv_int8", False) else config["dtype"])
     model, batcher = build(config, seed, dep, device)
+    print(f"decode path: {batcher.path} on {srun.pool} pools", file=sys.stderr)
     if fault is not None:
         fault(batcher)
     tracer = Tracer(tracing, all_threads=True)
@@ -234,7 +240,7 @@ def drive_open(svc, pool, plan, srun, tracer, variations, pad_id, start):
         tracer_cm.__enter__()
     wait_until(srun.t1)
     tracer_cm.__exit__(None, None, None)
-    srun.stuck = not finish(futures, srun.t1 + DRAIN_S)
+    srun.stuck = not finish(futures, time.perf_counter() + DRAIN_S)
 
 
 def drive_closed(svc, pool, plan, srun, tracer, variations, pad_id, clients):
@@ -254,7 +260,7 @@ def drive_closed(svc, pool, plan, srun, tracer, variations, pad_id, clients):
     with tracer.window():
         wait_until(srun.t1)
     stop.set()
-    srun.stuck = not finish(futures, srun.t1 + DRAIN_S)
+    srun.stuck = not finish(futures, time.perf_counter() + DRAIN_S)
 
 
 def wait_until(t: float):

@@ -4,10 +4,13 @@ metric's reader."""
 import json
 import shutil
 
+import pytest
+
 from bench_h100 import spec
 
 
-def test_cell_added_from_files(tmp_path):
+@pytest.mark.parametrize("base", ["app_steady", "app_steady_int8"])
+def test_cell_added_from_files(tmp_path, base):
     here = tmp_path / "bench_h100"
     shutil.copytree(spec.HERE / "configs", here / "configs")
     shutil.copytree(spec.HERE / "traffic", here / "traffic")
@@ -15,7 +18,7 @@ def test_cell_added_from_files(tmp_path):
     shutil.copytree(spec.HERE / "metrics", here / "metrics")
     bench = spec.load_json(spec.ROOT / "BENCHMARK.json")
     # the new files: a traffic mix, its cell's limits, a metric reader
-    m = spec.load_json(here / "traffic" / "app_steady.json")
+    m = spec.load_json(here / "traffic" / f"{base}.json")
     m["generate"] = {"dist": "uniform", "min": 2048, "max": 3072}
     (here / "traffic" / "app_long.json").write_text(json.dumps(m))
     (here / "limits" / "tv2o-large.app_long.json").write_text(
@@ -35,6 +38,8 @@ def test_cell_added_from_files(tmp_path):
     cell = spec.find_cell("tv2o-large.app_long", tmp_path, here=here)
     assert cell.config["net_config"]["num_hidden_layers"] == 24
     assert cell.traffic["generate"]["min"] == 2048
+    assert cell.traffic["deployment"]["kv_int8"] == (base == "app_steady_int8")
+    assert cell.arch is spec.architecture(cell.config)
     assert [m["name"] for m in cell.end_to_end] == ["setup_s", "chunk_gap_mean_ms"]
     assert [m["name"] for m in cell.per_layer] == ["sessions.count"]
 

@@ -56,14 +56,19 @@ def half_batch(step):
     return half
 
 
-def test_sound_serving_run_is_correct():
-    result, check = tiny.run("tv2o-medium.app_steady")
+SERVING = ["tv2o-medium.app_steady", "tv2o-medium.app_steady_int8"]
+
+
+@pytest.mark.parametrize("workload", SERVING)
+def test_sound_serving_run_is_correct(workload):
+    result, check = tiny.run(workload)
     assert result["correct"], check
 
 
+@pytest.mark.parametrize("workload", SERVING)
 @pytest.mark.parametrize("fault", [alter_a_token, state_unchanged], ids=lambda f: f.__name__)
-def test_serving_fault_is_caught(fault):
-    result, check = tiny.run("tv2o-medium.app_steady", fault=fault)
+def test_serving_fault_is_caught(fault, workload):
+    result, check = tiny.run(workload, fault=fault)
     assert not result["correct"], check
 
 
@@ -99,7 +104,8 @@ def test_control_reads_wider_than_the_program():
 
 @pytest.mark.chip
 @pytest.mark.parametrize("workload", ["tv2o-medium.app_steady", "tv2o-large.app_saturated",
-                                      "tv2o-medium.app_prompt", "tv2o-medium.train"])
+                                      "tv2o-medium.app_prompt", "tv2o-medium.train",
+                                      "tv2o-medium.app_steady_int8"])
 def test_control_fails_the_cell_on_the_card(cuda_device, workload):
     """The control at the cell's own size on three seeds: it fails one of
     the cell's numbers where the program passes them."""

@@ -45,6 +45,7 @@ def test_the_reference_loads_nothing_of_the_program():
     out = run_py("""
         import bench_h100.reference.model, bench_h100.reference.judge
         import bench_h100.reference.grammar, bench_h100.reference.optim
+        import bench_h100.reference.precision
         names = sorted(m for m in sys.modules if m.split(".")[0] == "midi_model_tpu_torch")
         print("PROGRAM", names)
     """)

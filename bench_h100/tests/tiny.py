@@ -33,7 +33,7 @@ def tiny_cell(name: str) -> spec.Cell:
     t = cell.traffic
     if t["kind"] == "serve":
         t["deployment"] = {"slots": 4, "max_seq": 256, "chunk": 4, "variations": 2,
-                           "kv_int8": False}
+                           "kv_int8": t["deployment"].get("kv_int8", False)}
         t["prompt"] = {"dist": "log_uniform", "min": 4, "max": 40}
         t["generate"] = {"dist": "uniform", "min": 8, "max": 16}
         t["lead_in_s"] = 0.5

@@ -171,6 +171,8 @@ class Tracer:
             t1 = time.time_ns()
             self.prof.__exit__(None, None, None)
             self._window = (t0, t1)
+            print(f"trace: the capture stopped in {(time.time_ns() - t1) / 1e9:.3f} s",
+                  file=sys.stderr)
 
     def summary(self) -> Optional[TraceSummary]:
         if self.prof is None:

@@ -1,55 +1,63 @@
-"""Random weights in the upstream state-dict layout (``net.*``,
-``net_token.*``, ``lm_head.weight``), made on the device from the seed: one
-normal draw for every matrix and embedding at once (std ``init_std``), norm
-scales 1.  The same seed gives the same weights, so the reference can make
-them again after the program's state is freed."""
+"""Random weights in the layout of the configuration's architecture module
+(``layout(config)``), made on the device from the seed in a few large
+calls.  The same seed gives the same weights, so the reference can make
+them again after the program's state is freed.
+
+Each tensor has an init rule: ``("normal", std)``, ``("uniform", lo, hi)``
+or ``("const", value)``.  A layout entry ``(name, shape)`` takes the
+default rule: a matrix ``("normal", init_std)``, a vector ``("const",
+1.0)`` (a norm scale); an entry ``(name, shape, rule)`` gives its own, as a
+3-D tensor or a vector that is not a norm scale must.  The tensors of one
+rule come from one draw in layout order, the rules in the order they first
+appear: for the Llama family one N(0, init_std) draw for every matrix and
+embedding, then the norm scales.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict
 
 import torch
 
+from . import spec
 
-def layout(config: dict) -> List[Tuple[str, tuple]]:
-    out = []
-    vocab = config["tokenizer"]["vocab_size"]
-    for prefix, key in (("net", "net_config"), ("net_token", "net_token_config")):
-        c = config[key]
-        d, h = c["hidden_size"], c["num_attention_heads"]
-        hkv = c.get("num_key_value_heads") or h
-        dh = c.get("head_dim") or d // h
-        f = c["intermediate_size"]
-        out.append((f"{prefix}.embed_tokens.weight", (vocab, d)))
-        for i in range(c["num_hidden_layers"]):
-            pre = f"{prefix}.layers.{i}."
-            out += [(pre + "self_attn.q_proj.weight", (h * dh, d)),
-                    (pre + "self_attn.k_proj.weight", (hkv * dh, d)),
-                    (pre + "self_attn.v_proj.weight", (hkv * dh, d)),
-                    (pre + "self_attn.o_proj.weight", (d, h * dh)),
-                    (pre + "mlp.gate_proj.weight", (f, d)),
-                    (pre + "mlp.up_proj.weight", (f, d)),
-                    (pre + "mlp.down_proj.weight", (d, f)),
-                    (pre + "input_layernorm.weight", (d,)),
-                    (pre + "post_attention_layernorm.weight", (d,))]
-        out.append((f"{prefix}.norm.weight", (d,)))
-    out.append(("lm_head.weight", (vocab, config["net_config"]["hidden_size"])))
-    return out
+RULES = ("normal", "uniform", "const")
+
+
+def rule(config: dict, entry: tuple) -> tuple:
+    if len(entry) > 2:
+        r = tuple(entry[2])
+    elif len(entry[1]) == 2:
+        r = ("normal", config["init_std"])
+    elif len(entry[1]) == 1:
+        r = ("const", 1.0)
+    else:
+        raise ValueError(f"{entry[0]}: a tensor of {len(entry[1])} dimensions needs its rule")
+    if r[0] not in RULES:
+        raise ValueError(f"{entry[0]}: init rule {r!r}: one of {RULES}")
+    return r
 
 
 def make(config: dict, seed: int, dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
-    shapes = layout(config)
-    mats = [(n, s) for n, s in shapes if len(s) == 2]
-    total = sum(s[0] * s[1] for _, s in mats)
+    groups: Dict[tuple, list] = {}
+    for entry in spec.architecture(config).layout(config):
+        groups.setdefault(rule(config, entry), []).append((entry[0], tuple(entry[1])))
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) & 0xFFFF_FFFF_FFFF_FFFF)
-    flat = torch.empty(total, dtype=dtype, device=device)
-    flat.normal_(0.0, config["init_std"], generator=gen)
-    out, at = {}, 0
-    for n, s in mats:
-        out[n] = flat[at:at + s[0] * s[1]].view(s)
-        at += s[0] * s[1]
-    for n, s in shapes:
-        if len(s) == 1:
-            out[n] = torch.ones(s, dtype=dtype, device=device)
+    out = {}
+    for r, members in groups.items():
+        if r[0] == "const":
+            for n, s in members:
+                out[n] = torch.full(s, float(r[1]), dtype=dtype, device=device)
+            continue
+        sizes = [torch.Size(s).numel() for _, s in members]
+        flat = torch.empty(sum(sizes), dtype=dtype, device=device)
+        if r[0] == "normal":
+            flat.normal_(0.0, r[1], generator=gen)
+        else:
+            flat.uniform_(r[1], r[2], generator=gen)
+        at = 0
+        for (n, s), k in zip(members, sizes):
+            out[n] = flat[at:at + k].view(s)
+            at += k
     return out

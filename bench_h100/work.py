@@ -1,79 +1,58 @@
-"""The yardstick's arithmetic: published peaks of one H100 and the
-operations and bytes of the model's work, from shapes alone.
+"""The yardstick's arithmetic: published peaks of one H100, the bound of a
+piece of work, the causal attention kernels' operations and bytes, and the
+model's work counts, which each configuration's architecture module gives
+(``spec.architecture``) and the functions below hand on.
 
 Peaks: NVIDIA's H100 SXM data sheet, dense: 989 TFLOP/s bf16, 67 TFLOP/s
 f32 outside the tensor cores, 3.35 TB/s of HBM.  A share is stated against
 them with the card's power limit beside it.
-
-Operations count a multiply-add as 2.  A layer's products are its seven
-projections; causal attention over ``c`` keys costs ``4 * heads * head_dim
-* c`` per query (QK^T and PV).  Embedding gathers and norms are not
-counted: the counts are a floor on the work, so a share never overstates.
 """
 
 from __future__ import annotations
+
+from . import spec
 
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
-class Dims:
-    def __init__(self, c: dict, vocab: int):
-        self.layers = c["num_hidden_layers"]
-        self.hidden = c["hidden_size"]
-        self.heads = c["num_attention_heads"]
-        self.kv_heads = c.get("num_key_value_heads") or self.heads
-        self.head_dim = c.get("head_dim") or self.hidden // self.heads
-        self.inter = c["intermediate_size"]
-        self.vocab = vocab
-
-    @property
-    def layer_params(self) -> int:
-        d, hd, kvd = self.hidden, self.heads * self.head_dim, self.kv_heads * self.head_dim
-        return 2 * d * hd + 2 * d * kvd + 3 * d * self.inter
-
-    @property
-    def kv_row_elems(self) -> int:
-        """K and V elements of one cached row over all layers."""
-        return 2 * self.layers * self.kv_heads * self.head_dim
-
-    def attn_flops(self, queries: float, keys: float) -> float:
-        return 4.0 * self.heads * self.head_dim * queries * keys * self.layers
-
-
 def dims(config: dict):
-    v = config["tokenizer"]["vocab_size"]
-    return Dims(config["net_config"], v), Dims(config["net_token_config"], v)
+    """(event net, token net) shapes: ``layers``, ``heads``, ``kv_heads``,
+    ``head_dim`` and more (the Llama family's ``Dims``)."""
+    return spec.architecture(config).dims(config)
 
 
 def token_row_flops(config: dict) -> float:
-    """One event's token row: the token net over T positions (causal
-    attention within the row) and the head at each position."""
-    _, tok = dims(config)
-    t = config["tokenizer"]["row"]
-    return (2.0 * tok.layer_params * tok.layers * t + tok.attn_flops(1, t * (t + 1) / 2)
-            + 2.0 * tok.hidden * tok.vocab * t)
+    """One event's token row."""
+    return spec.architecture(config).token_row_flops(config)
 
 
 def event_step_flops(config: dict, context: int) -> float:
-    """One slot's event step: its token row, then the event net's step for
-    the new row over ``context`` cached rows and itself."""
-    ev, _ = dims(config)
-    return (token_row_flops(config) + 2.0 * ev.layer_params * ev.layers
-            + ev.attn_flops(1, context + 1))
+    """One slot's event step over ``context`` cached rows, its token row
+    included."""
+    return spec.architecture(config).event_step_flops(config, context)
 
 
 def prefill_flops(config: dict, rows: int) -> float:
-    """The event net over a prompt of ``rows`` events (causal)."""
-    ev, _ = dims(config)
-    return 2.0 * ev.layer_params * ev.layers * rows + ev.attn_flops(1, rows * (rows + 1) / 2)
+    """The event net over a prompt of ``rows`` events."""
+    return spec.architecture(config).prefill_flops(config, rows)
 
 
 def weight_bytes(config: dict, elem: int = 2) -> float:
-    """The weights an event step reads once: both nets' layers, the head."""
-    ev, tok = dims(config)
-    return elem * (ev.layer_params * ev.layers + tok.layer_params * tok.layers
-                   + tok.hidden * tok.vocab)
+    """The weights an event step reads once."""
+    return spec.architecture(config).weight_bytes(config, elem)
+
+
+def cache_bytes(config: dict, context: int, pool: str) -> int:
+    """The bytes of one slot's cache that one event step reads and appends,
+    on pools of element ``pool`` (``bfloat16``, ``int8``, ...)."""
+    return spec.architecture(config).cache_bytes(config, context, pool)
+
+
+def train_forward_flops(config: dict, batch) -> float:
+    """The forward's model operations for a training batch ``[..., L, T]``
+    (numpy), non-pad work only."""
+    return spec.architecture(config).train_forward_flops(config, batch)
 
 
 def attention_fwd(batch: int, seq: int, heads: int, kv_heads: int, head_dim: int,
@@ -98,20 +77,3 @@ def attention_bwd(batch: int, seq: int, heads: int, kv_heads: int, head_dim: int
 
 def bound_s(flops: float, n_bytes: float, dtype: str = "bfloat16") -> float:
     return max(n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype])
-
-
-def train_forward_flops(config: dict, batch) -> float:
-    """The forward's model operations for a training batch ``[..., L, T]``
-    (numpy), counting only non-pad work: the event net over each row's
-    non-pad input events, the token row for each non-pad target event."""
-    import numpy as np
-
-    pad = config["tokenizer"]["pad_id"]
-    rows = np.asarray(batch).reshape(-1, *np.asarray(batch).shape[-2:])
-    ev, _ = dims(config)
-    total = 0.0
-    for r in rows:
-        n_in = int((r[:-1, 0] != pad).sum())
-        n_out = int((r[1:, 0] != pad).sum())
-        total += prefill_flops(config, n_in) + n_out * token_row_flops(config)
-    return total
