@@ -16,7 +16,11 @@ and its two timed cases, its int8 form, the aligned and ragged loops), and
 no result line.  ``--api``: phase 1, one step of phase 6's
 CLI to write a run directory, phase 7 on it, and no result line.  ``--app``:
 phase 1, phase 8 on random bf16 weights, and no result line.  ``--mesh``:
-phase 1, phase 9, and no result line.  Otherwise all phases, each printing
+phase 1, phase 9, and no result line.  ``--ssm``: phase 1, the Mamba-2
+kernels of a hybrid event net (``check_ssm``: ``ssm_scan`` and ``ssm_step``
+against their plain versions at granite-4.0-h-micro's widths, 32 slots,
+prompts of 1, 3, 255, 256, 257 and 512 rows, with times), and no result
+line.  Otherwise all phases, each printing
 one JSON line; any failed check raises, so the script exits non-zero:
 
 1. build   — compile the port's CUDA kernels from ``midi_model_tpu_torch/csrc``
@@ -166,6 +170,7 @@ device, or without the package beside it, the script fails before any result.
 from __future__ import annotations
 
 import contextlib
+import math
 import json
 import pickle
 import shutil
@@ -3447,6 +3452,151 @@ TP_CHUNK = 16  # the events of the decode chunk after the prefill
 MESH_LIMITS = dict(init_timeout_s=300.0)  # a collective that waits longer fails
 
 
+# The Mamba-2 kernels against their plain versions (ops/ssm.py), bf16 inputs
+# on the card, relative to the largest magnitude of the plain version's
+# output: where the f32 sums of the two differ in their last bits, a value
+# the plain version rounds to bf16 before a product (the weighted scores,
+# the weighted x, the state the rows read) can round the other way, a
+# relative 2^-8 (3.9e-3) on that term; errors of whole sums are far smaller
+SSM_SCAN_TOL = 4e-3
+# the step: the same bf16 roundings (x, B, C after the convolution) and the
+# gated output's bf16 rounding (half an ulp: 2^-9 of a value)
+SSM_STEP_TOL = 4e-3
+
+
+def check_ssm(card: str, gen) -> dict:
+    """``ops.ssm.ssm_scan`` and ``ssm_step`` against their plain versions at
+    granite-4.0-h-micro's widths (64 heads x 64, state 128, one group,
+    convolution 4, chunk 256): the scan on one bucket of 1,024 rows holding
+    prompts of 1, 3, 255, 256, 257 and 512 rows (shorter than the
+    convolution, a chunk's edges, two chunks), each prompt's y and final
+    state; the step on 32 slots from those states, eight rows in turn,
+    outputs and both states.  Inputs as a model makes them: the
+    convolution of N(0, 1) rows (weights uniform +-0.5) and SiLU, dt from
+    mamba_ssm's dt_bias range, A = -exp(U(0, ln 16)).  Times each wrapper
+    call (``time_ms``) beside its bytes' floor, and finds HMMA in the
+    scan's SASS.  Also the decode step's elementwise kernels
+    (``ops.hybrid_norm``) against their plain versions at 32 rows of 2,048:
+    the residual add to the bit, the norm and SwiGLU to two bf16 roundings
+    (their f32 sums and exponentials differ in the last bits)."""
+    import re
+
+    import torch
+    import torch.nn.functional as F
+
+    from midi_model_tpu_torch.ops import _build, hybrid_norm, ssm
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    h, p, n, k, chunk, slots, bucket = 64, 64, 128, 4, 256, 32, 1024
+    inner = h * p
+    conv = inner + 2 * n
+    lengths = [1, 3, 255, 256, 257, 512]
+    g_n = len(lengths)
+
+    def uniform(shape, lo, hi):
+        return torch.empty(shape, device=dev).uniform_(lo, hi, generator=gen)
+
+    conv_w = uniform((conv, 1, k), -0.5, 0.5).to(bf)
+    conv_b = uniform((conv,), -0.5, 0.5).to(bf)
+    dt_bias = uniform((h,), -6.91, -2.25).to(bf)
+    a_log = uniform((h,), 0.0, math.log(16.0)).to(bf)
+    d = torch.ones(h, device=dev, dtype=bf)
+    norm_w = torch.ones(inner, device=dev, dtype=bf)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    xbc = torch.randn((g_n, bucket, conv), device=dev, generator=gen).to(bf)
+    xbc, _ = ssm.causal_conv(xbc, conv_w, conv_b, lens)
+    x = xbc[..., :inner].view(g_n, bucket, h, p)
+    b = xbc[..., inner:inner + n].view(g_n, bucket, 1, n)
+    c = xbc[..., inner + n:].view(g_n, bucket, 1, n)
+    dt = F.softplus(torch.randn((g_n, bucket, h), device=dev, generator=gen)
+                    + dt_bias.float()).contiguous()
+    a = -torch.exp(a_log.float())
+    args = (x, b, c, dt, a, d.float(), lens)
+    y, state = ssm.ssm_scan(*args, chunk=chunk)
+    y_ref, state_ref = ssm.ssm_scan_reference(*args, chunk=chunk)
+    scan_err = {"y": float((y - y_ref).abs().max() / y_ref.abs().max()),
+                "state": float((state - state_ref).abs().max() / state_ref.abs().max())}
+    for length, yr, sr, yk, sk in zip(lengths, y_ref, state_ref, y, state):
+        require(bool((yk[length:] == 0).all()), f"ssm_scan: rows past {length} not zero")
+        require(float((yk - yr).abs().max()) <= SSM_SCAN_TOL * float(yr.abs().max()),
+                f"ssm_scan y, prompt of {length}: {scan_err}")
+        require(float((sk - sr).abs().max()) <= SSM_SCAN_TOL * float(sr.abs().max()),
+                f"ssm_scan state, prompt of {length}: {scan_err}")
+
+    # the step: 32 slots from the scan's states (repeated), eight rows in turn
+    ssm_k = state.repeat(-(-slots // g_n), 1, 1, 1)[:slots].contiguous()
+    conv_k = torch.randn((slots, k - 1, conv), device=dev, generator=gen).to(bf)
+    ssm_r, conv_r = ssm_k.clone(), conv_k.clone()
+    step_err = 0.0
+    for _ in range(8):
+        row = torch.randn((slots, inner + conv + h), device=dev, generator=gen).to(bf)
+        params = (conv_w, conv_b, dt_bias, a_log, d, norm_w, 1e-5)
+        out = ssm.ssm_step(row, conv_k, ssm_k, *params, groups=1)
+        ref = ssm.ssm_step_reference(row, conv_r, ssm_r, *params, groups=1)
+        require(torch.equal(conv_k, conv_r), "ssm_step: the conv state differs")
+        step_err = max(step_err, float((out.float() - ref.float()).abs().max()
+                                       / ref.float().abs().max()),
+                       float((ssm_k - ssm_r).abs().max() / ssm_r.abs().max()))
+    require(step_err <= SSM_STEP_TOL, f"ssm_step: relative error {step_err}")
+
+    row = torch.randn((slots, inner + conv + h), device=dev, generator=gen).to(bf)
+    step_ms = time_ms(lambda: ssm.ssm_step(row, conv_k, ssm_k, conv_w, conv_b, dt_bias, a_log,
+                                           d, norm_w, 1e-5, groups=1), 50)
+    plain_step_ms = time_ms(lambda: ssm.ssm_step_reference(
+        row, conv_r, ssm_r, conv_w, conv_b, dt_bias, a_log, d, norm_w, 1e-5, groups=1), 10)
+    scan_ms = time_ms(lambda: ssm.ssm_scan(*args, chunk=chunk), 10)
+    plain_scan_ms = time_ms(lambda: ssm.ssm_scan_reference(*args, chunk=chunk), 3)
+    step_bytes = slots * (2 * 4 * h * p * n + 2 * 2 * (k - 1) * conv
+                          + 2 * (inner + conv + h) + 2 * inner)
+    scan_bytes = sum(length * (2 * (inner + 2 * n) + 4 * h + 4 * inner) + 4 * h * p * n
+                     for length in lengths)
+    scan_flops = 0.0
+    for length in lengths:
+        for i, q in enumerate(min(chunk, length - at) for at in range(0, length, chunk)):
+            pairs = q * (q + 1) / 2
+            scan_flops += 2 * pairs * n + h * (2 * pairs * p + 2 * q * n * p * (2 if i else 1))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    hmma, current = 0, False
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            current = "ssm_scan_kernel" in head.group(1)
+        elif current and re.search(r"\bHMMA\b", line):
+            hmma += 1
+    require(hmma > 0, "ssm_scan_kernel holds no HMMA")
+
+    # a value the two sides round to bf16 apart by one step (2^-7 of it at
+    # most) is multiplied and rounded again: two steps at most
+    ulp = 2.0 ** -6
+    xs = torch.randn((slots, 2048), device=dev, generator=gen).to(bf)
+    ys = torch.randn((slots, 2048), device=dev, generator=gen).to(bf)
+    ws = (torch.rand(2048, device=dev, generator=gen) + 0.5).to(bf)
+    x_k, h_k = hybrid_norm.add_rms_norm(xs, ys, ws, 1e-5, 0.22)
+    x_r, h_r = hybrid_norm.add_rms_norm_reference(xs, ys, ws, 1e-5, 0.22)
+    require(torch.equal(x_k, x_r), "add_rms_norm: the residual add differs")
+    norm_err = float(((h_k.float() - h_r.float()).abs() / h_r.float().abs().clamp_min(1e-3)).max())
+    require(norm_err <= ulp, f"add_rms_norm: {norm_err} of a value")
+    gu = torch.randn((slots, 16384), device=dev, generator=gen).to(bf)
+    sw_k = hybrid_norm.swiglu(gu).float()
+    gate, up = gu.chunk(2, dim=-1)
+    sw_r = (F.silu(gate) * up).float()
+    swiglu_err = float(((sw_k - sw_r).abs() / sw_r.abs().clamp_min(1e-3)).max())
+    require(swiglu_err <= ulp, f"swiglu: {swiglu_err} of a value")
+    result = {"phase": "kernel", "name": "ssm", "prompts": lengths, "bucket": bucket,
+              "slots": slots, "scan_rel_err": scan_err, "step_rel_err": step_err,
+              "step_ms": step_ms, "step_plain_ms": plain_step_ms,
+              "step_bound_ms": step_bytes / 3.35e9, "scan_ms": scan_ms,
+              "scan_plain_ms": plain_scan_ms,
+              "scan_bound_ms": max(scan_bytes / 3.35e9, scan_flops / 989e9),
+              "scan_hmma": hmma, "add_rms_norm_rel_err": norm_err,
+              "swiglu_rel_err": swiglu_err, "card": card}
+    emit(result)
+    return result
+
+
 def cuda_settings() -> None:
     """Full-fp32 matmuls (no TF32) and f32 reductions in bf16 products, in
     every process that checks the kernels."""
@@ -4515,6 +4665,10 @@ def main(argv=()) -> int:
                         help="build, run phase 8 (the native extensions, preprocessing, the "
                         "serving app batched and aligned, the demo) on random bf16 weights, "
                         "and stop (no result line)")
+    parser.add_argument("--ssm", action="store_true",
+                        help="build, hold the Mamba-2 kernels (ssm_scan, ssm_step) to their "
+                        "plain versions at granite-4.0-h-micro's widths with times, and stop "
+                        "(no result line)")
     parser.add_argument("--mesh", action="store_true",
                         help="build, run phase 9 (the mesh paths, serving and training: tp=2, "
                         "dp=2 and dp x tp as processes on the card over gloo, the training "
@@ -4543,6 +4697,11 @@ def main(argv=()) -> int:
         return 0
     if args.mesh:
         phase_mesh(card)
+        return 0
+    if args.ssm:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1234)
+        check_ssm(card, gen)
         return 0
     if args.api:
         from midi_model_tpu_torch.train import cli

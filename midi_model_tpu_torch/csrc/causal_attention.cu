@@ -249,7 +249,7 @@ int make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int B, int 
 }
 
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
-           int H, int Hkv, const long long* st, cudaStream_t stream) {
+           int H, int Hkv, const long long* st, float scale, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap tq, tk, tv;
@@ -265,7 +265,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
   if (e != cudaSuccess) return static_cast<int>(e);
   fwd_wgmma_kernel<<<static_cast<unsigned int>(blocks), kThreads, kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, S, H, H / Hkv, n_qt,
-      0.125f * mm::sm90::kLog2e);  // Dh**-0.5 * log2(e)
+      scale * mm::sm90::kLog2e);
   return mm::last_error();
 }
 
@@ -408,7 +408,7 @@ fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
-           int H, int Hkv, const long long* st, cudaStream_t stream) {
+           int H, int Hkv, const long long* st, float scale, cudaStream_t stream) {
   const int n_qt = (S + kR - 1) / kR;
   const long long blocks = static_cast<long long>(B) * H * n_qt;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -418,7 +418,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
   fwd_tf32_kernel<<<static_cast<unsigned int>(blocks), kThreads, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), lse, S, H, H / Hkv, n_qt, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], 0.125f * mm::sm90::kLog2e);  // Dh**-0.5 * log2(e)
+      st[5], st[6], st[7], st[8], scale * mm::sm90::kLog2e);
   return mm::last_error();
 }
 
@@ -520,7 +520,7 @@ fwd_rows256_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 
 template <typename T, int R>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
-           int H, int Hkv, const long long* st, cudaStream_t stream) {
+           int H, int Hkv, const long long* st, float scale, cudaStream_t stream) {
   const int n_qt = (S + R - 1) / R;
   const long long bh_count = static_cast<long long>(B) * H;
   const long long blocks = (bh_count * n_qt + kWarps - 1) / kWarps;
@@ -528,7 +528,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
   fwd_rows256_kernel<T, R><<<static_cast<unsigned int>(blocks), kWarps * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), lse, S, H, H / Hkv, n_qt, bh_count, st[0], st[1], st[2], st[3],
-      st[4], st[5], st[6], st[7], st[8], 0.0625f * mm::sm90::kLog2e);  // Dh**-0.5 * log2(e)
+      st[4], st[5], st[6], st[7], st[8], scale * mm::sm90::kLog2e);
   return mm::last_error();
 }
 
@@ -539,25 +539,26 @@ constexpr int kWarpRows = 8;
 }  // namespace rows
 
 int launch_f32(const void* q, const void* k, const void* v, void* out, void* lse, int B, int S,
-               int H, int Hkv, int Dh, const long long* st, void* stream) {
+               int H, int Hkv, int Dh, const long long* st, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (Dh) {
-    case 64: return tf32k::launch(q, k, v, out, l, B, S, H, Hkv, st, s);  // event net
+    case 64: return tf32k::launch(q, k, v, out, l, B, S, H, Hkv, st, scale, s);  // event net
     case 256:  // token net
-      return rows::launch<float, rows::kWarpRows>(q, k, v, out, l, B, S, H, Hkv, st, s);
+      return rows::launch<float, rows::kWarpRows>(q, k, v, out, l, B, S, H, Hkv, st, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int B, int S,
-                int H, int Hkv, int Dh, const long long* st, void* stream) {
+                int H, int Hkv, int Dh, const long long* st, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (Dh) {
-    case 64: return wg::launch(q, k, v, out, l, B, S, H, Hkv, st, s);     // event net
+    case 64: return wg::launch(q, k, v, out, l, B, S, H, Hkv, st, scale, s);  // event net
     case 256:  // token net
-      return rows::launch<__nv_bfloat16, rows::kWarpRows>(q, k, v, out, l, B, S, H, Hkv, st, s);
+      return rows::launch<__nv_bfloat16, rows::kWarpRows>(q, k, v, out, l, B, S, H, Hkv, st,
+                                                          scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -570,15 +571,16 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, void* ls
 // form reads 16 bytes at a time (TMA at bf16 Dh 64, cp.async at f32 Dh 64):
 // the inputs' base addresses are 16-byte aligned and their strides multiples
 // of 16 bytes (8 bf16, 4 f32 elements), non-decreasing from head to position
-// to batch (the wrapper copies an input that is not).
+// to batch (the wrapper copies an input that is not).  scale: the scores'
+// scale (the wrapper's default Dh**-0.5, 0.125 and 0.0625 exactly).
 extern "C" int mm_causal_attention_f32(const void* q, const void* k, const void* v, void* out,
                                        void* lse, int B, int S, int H, int Hkv, int Dh,
-                                       const long long* strides, void* stream) {
-  return launch_f32(q, k, v, out, lse, B, S, H, Hkv, Dh, strides, stream);
+                                       const long long* strides, float scale, void* stream) {
+  return launch_f32(q, k, v, out, lse, B, S, H, Hkv, Dh, strides, scale, stream);
 }
 
 extern "C" int mm_causal_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                         void* lse, int B, int S, int H, int Hkv, int Dh,
-                                        const long long* strides, void* stream) {
-  return launch_bf16(q, k, v, out, lse, B, S, H, Hkv, Dh, strides, stream);
+                                        const long long* strides, float scale, void* stream) {
+  return launch_bf16(q, k, v, out, lse, B, S, H, Hkv, Dh, strides, scale, stream);
 }

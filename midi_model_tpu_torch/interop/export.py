@@ -28,7 +28,7 @@ import os
 import torch
 from torch import nn
 
-from ..models.config import MIDIModelConfig
+from ..models.config import MIDIModelConfig, require_llama
 from ..models.llama import DenseCache
 from ..models.midinet import MIDINet
 
@@ -69,6 +69,7 @@ def export_artifacts(model: MIDINet, config: MIDIModelConfig, out_dir: str,
     ``max_seq`` rows, weights in ``dtype`` on the model's device; write
     them with the model's weights (f32 ``model.safetensors``), the config
     and the manifest.  Returns the manifest."""
+    require_llama(config, "export")
     from .safetensors_io import save_file
     from .torch_ckpt import state_dict_from_params
 

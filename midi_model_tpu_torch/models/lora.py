@@ -26,7 +26,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .config import MIDIModelConfig
+from .config import MIDIModelConfig, require_llama
 
 DEFAULT_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
@@ -102,7 +102,8 @@ def peft_state_dict_to_lora(sd: Dict[str, np.ndarray], config: MIDIModelConfig) 
     """peft's keys (with or without the ``base_model.model.`` prefix and the
     ``default`` adapter name) -> an adapter set; keys of other modules are
     ignored.  Every adapted module must have both factors, for every layer
-    of its net."""
+    of its net.  A hybrid event net takes no adapters."""
+    require_llama(config, "LoRA")
     lora: Params = {}
     modules = set(_PEFT_NAMES.values())
     layers: Dict[tuple, set] = {}

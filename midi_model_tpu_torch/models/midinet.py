@@ -22,7 +22,8 @@ import torch
 from torch import nn
 
 from ..parallel.collectives import copy_to_model, gather_vocab
-from .config import MIDIModelConfig
+from .config import HybridConfig, MIDIModelConfig
+from .hybrid import HybridStack
 from .llama import DenseCache, LlamaStack, resolve_device
 
 
@@ -37,7 +38,10 @@ class MIDINet(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.config = config
-        self.net = LlamaStack(config.net, dtype, device)
+        # the event net: a Llama stack, or Granite 4.0-H's hybrid stack
+        # (``net_config.model_type`` granitemoehybrid)
+        stack = HybridStack if isinstance(config.net, HybridConfig) else LlamaStack
+        self.net = stack(config.net, dtype, device)
         self.net_token = LlamaStack(config.net_token, dtype, device)
         self.lm_head = nn.utils.skip_init(
             nn.Linear, config.n_embd, config.tokenizer.vocab_size, bias=False,

@@ -7,5 +7,7 @@
 - ``fused_step``     : one event-net step over all layers;
 - ``event_loop``     : E whole events per launch, aligned and ragged;
 - ``attention``      : dense reference attention and causal attention;
+- ``ssm``            : the Mamba-2 scan (prefill) and state update (decode);
+- ``hybrid_norm``    : residual add + RMSNorm, and SwiGLU, one launch each;
 - ``_build``         : nvcc build, ctypes binding and launch counters.
 """

@@ -38,7 +38,8 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PAGED = [_P] * 16 + [_I] * 9 + [_P]  # both paged kernels
-_ATTN = [_P] * 5 + [_I] * 5 + [_P, _P]
+_F = ctypes.c_float
+_ATTN = [_P] * 5 + [_I] * 5 + [_P, _F, _P]
 _ATTN_BWD = [_P] * 10 + [_I] * 5 + [_P, _P]
 # the whole-step decode kernels take host arrays of pointers, ints and
 # floats (their parameter structs, filled on the C side) and the stream
@@ -65,6 +66,10 @@ _SIGNATURES = {
     "mm_event_loop_bf16": _PACKED,
     "mm_event_loop_ragged_f32": _PACKED,
     "mm_event_loop_ragged_bf16": _PACKED,
+    "mm_ssm_scan_bf16": [_P] * 9 + [_I] * 9 + [_P],
+    "mm_ssm_step_bf16": [_P] * 12 + [_I] * 3 + [_F, _P],
+    "mm_add_rms_norm_bf16": [_P] * 5 + [_I] * 2 + [_F, _F, _P],
+    "mm_swiglu_bf16": [_P] * 2 + [_I] * 2 + [_P],
 }
 
 

@@ -39,18 +39,19 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _reference_with_lse(q, k, v, mask_bias)[0]
 
 
-def _scores(q, k, h):
-    """f32 scores [B, H, S, T] scaled by ``Dh**-0.5``, k repeated over each
-    kv head's query heads."""
+def _scores(q, k, h, scale=None):
+    """f32 scores [B, H, S, T] scaled by ``scale`` (``Dh**-0.5`` by
+    default), k repeated over each kv head's query heads."""
     dh = q.shape[3]
     k = k.float().repeat_interleave(h // k.shape[2], dim=2)
-    return torch.einsum("bshd,bthd->bhst", q.float(), k) * dh ** -0.5
+    return torch.einsum("bshd,bthd->bhst", q.float(), k) * (dh ** -0.5 if scale is None
+                                                            else scale)
 
 
-def _reference_with_lse(q, k, v, mask_bias):
+def _reference_with_lse(q, k, v, mask_bias, scale=None):
     """:func:`attention_reference` and each row's f32 log-sum-exp [B, H, S]."""
     h = q.shape[2]
-    scores = _scores(q, k, h) + mask_bias
+    scores = _scores(q, k, h, scale) + mask_bias
     lse = torch.logsumexp(scores, dim=-1)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     v = v.float().repeat_interleave(h // v.shape[2], dim=2)
@@ -147,13 +148,13 @@ def _strides(q, k, v):
                                    *_kernel_strides(v))
 
 
-def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool):
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool,
+             scale=None):
     """(out, lse or None): the kernel on CUDA tensors, the plain version on
-    CPU tensors."""
+    CPU tensors; scores scaled by ``scale`` (``Dh**-0.5`` by default)."""
     if _build.on_cpu(q, k, v):
-        if not with_lse:
-            return attention_reference(q, k, v, causal_bias(q.shape[1], q.device)), None
-        return _reference_with_lse(q, k, v, causal_bias(q.shape[1], q.device))
+        out, lse = _reference_with_lse(q, k, v, causal_bias(q.shape[1], q.device), scale)
+        return out, (lse if with_lse else None)
     _check(q, k, v)
     q, k, v = (_vector_operand(x) for x in (q, k, v))
     b, s, h, dh = q.shape
@@ -165,7 +166,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool):
             else "mm_causal_attention_bf16")
     _build.call(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(), b, s, h, k.shape[2], dh,
-                ctypes.cast(strides, ctypes.c_void_p), _build.stream_ptr(q.device))
+                ctypes.cast(strides, ctypes.c_void_p), dh ** -0.5 if scale is None else scale,
+                _build.stream_ptr(q.device))
     _build.LAUNCHES["causal_attention"] += 1
     return out, lse
 
@@ -231,13 +233,16 @@ class _CausalAttention(torch.autograd.Function):
         return causal_attention_backward(q, k, v, out, dout, lse)
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                     ) -> torch.Tensor:
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale=None) -> torch.Tensor:
     """Causal self-attention, q: [B,S,H,Dh], k/v: [B,S,Hkv,Dh] (any strides
-    with a contiguous last dim); returns a contiguous [B,S,H,Dh].  Where
-    autograd records (a gradient enabled and an input that requires it)
-    the forward keeps its log-sum-exp and the backward runs
-    :func:`causal_attention_backward`."""
+    with a contiguous last dim); returns a contiguous [B,S,H,Dh].  Scores
+    are scaled by ``scale``, ``Dh**-0.5`` by default.  Where autograd
+    records (a gradient enabled and an input that requires it) the forward
+    keeps its log-sum-exp and the backward runs
+    :func:`causal_attention_backward`, which takes the default scale only."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if scale is not None:
+            raise ValueError("causal_attention: the backward takes the default scale only")
         return _CausalAttention.apply(q, k, v)
-    return _forward(q, k, v, with_lse=False)[0]
+    return _forward(q, k, v, with_lse=False, scale=scale)[0]

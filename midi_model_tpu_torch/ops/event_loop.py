@@ -38,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from ..models.config import HybridConfig
 from ..models.llama import rms_norm, rope_cos_sin
 from . import _build
 from . import fused_step as fs
@@ -51,6 +52,9 @@ def why_not_fused(config, batch: int, capacity: int) -> Optional[str]:
     take ``config`` at ``batch`` slots of ``capacity`` rows, or None when it
     can — on bf16, f32 and int8 pools alike: the rule behind
     ``decode_events(fused=None)`` and the batcher's ``fused=None``."""
+    if isinstance(config.net, HybridConfig):
+        return (f"fused kernels: the event net is a {HybridConfig.MODEL_TYPE} hybrid "
+                f"(Mamba-2 and attention layers): the split scan serves it")
     problem = (tl.kernel_limits(config, batch)
                or fs.kernel_limits(config.net, batch, capacity))
     if problem is None and config.net.hidden_size != config.net_token.hidden_size:

@@ -37,6 +37,7 @@ from . import _build
 
 LANE = 128
 HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernels are built for
+MAX_HEADS = 16  # query heads a slot: one warp each (csrc/paged_decode.cuh)
 STREAM_ITEM_ROWS = 64  # the streaming kernel's work item: a chunk of up to 64 rows
 CELL_BLOCKS_PER_SM = 2  # the cell grid's size: about this many items per SM
 # the longest slot, in rows, up to which the cell kernel runs (paged_kernel):
@@ -277,9 +278,9 @@ def _launch(entry: str, q, pools, lengths, base_pages, write, *, page_size, kv_h
         raise ValueError(f"pools shape {tuple(pools.k.shape)} does not match "
                          f"page_size={page_size}, kv_heads={kv_heads}, "
                          f"head_dim={head_dim}")
-    if d != head_dim or d not in HEAD_DIMS or h > 16 or h % kv_heads:
+    if d != head_dim or d not in HEAD_DIMS or h > MAX_HEADS or h % kv_heads:
         raise ValueError(f"q shape {tuple(q.shape)}: head_dim one of {HEAD_DIMS}, at most "
-                         f"16 heads, divisible by kv_heads={kv_heads}")
+                         f"{MAX_HEADS} heads, divisible by kv_heads={kv_heads}")
     _build.check(q, "q", torch.float32, (b, h, d))
     _build.check(pools.k, "pools.k", dtype)
     _build.check(pools.v, "pools.v", dtype, pools.k.shape)

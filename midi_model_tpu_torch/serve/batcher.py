@@ -5,10 +5,15 @@ a ``(data, model)`` mesh (``parallel.mesh``; see "Mesh" below).  A fixed
 ``n_slots``-row decode batch lives on the model's device:
 
 - the event-net KV cache is one set of paged pools (``ops.paged_allheads``)
-  with a contiguous page range per (layer, slot), bf16/f32 or int8;
+  with a contiguous page range per (layer, slot), bf16/f32 or int8; a
+  hybrid event net (``models.hybrid``, Granite 4.0-H) has pools for its
+  attention layers only, and per-slot Mamba-2 state beside them
+  (``SlotState``: f32 SSM state and the conv state of every Mamba-2 layer);
 - admission runs the requests of one prompt bucket (``PREFILL_BUCKETS``) as
   one prefill forward through the causal attention kernel and writes their
-  K/V straight into their slots' pages, quantized for int8 pools;
+  K/V straight into their slots' pages, quantized for int8 pools; a hybrid
+  net's prefill (the SSD scan, ``ops.ssm``) also installs each prompt's
+  final states into its slot, over whatever the slot held;
 - one :meth:`ContinuousBatcher.step` decodes a chunk of events for every
   slot (:attr:`ContinuousBatcher.path`): when the fused kernels take the
   model (bf16 weights, ``why_not_fused``), the ragged event-loop kernel
@@ -16,9 +21,12 @@ a ``(data, model)`` mesh (``parallel.mesh``; see "Mesh" below).  A fixed
   token-row kernel, then the whole-step kernel over the int8 pools — one
   event at a time on int8 pools (the JAX package's ``_step_impl`` fused
   branch, ``batcher.py:335-340``); else the split scan — the token-row
-  kernel and ``decode_paged`` with the streaming paged kernel, one event at
-  a time.  An ``alive`` mask on the device retires a slot mid-chunk on its
-  eos row or at capacity;
+  kernel and ``decode_paged`` with the streaming paged kernel (and the
+  state-update kernel on a hybrid's Mamba-2 layers), one event at a time;
+  a hybrid net always takes the split scan, its ``decode_paged`` replayed
+  as one CUDA graph on the card (``models.hybrid.GraphedDecode``).  An
+  ``alive`` mask on the device retires a slot mid-chunk on its eos row or
+  at capacity;
 - the host collects each slot's rows, retires slots on an eos row, budget
   or capacity, and reuses them for queued requests at once.
 
@@ -55,6 +63,12 @@ whole step's attention work items a layer and the slots split over more
 than one, summed over the chunk's events by ``ops.fused_step``'s item rule
 from the host's index mirror) and ``batcher.wait_rows``
 (the host waiting for a chunk's rows, with ``batcher.rows_delivered``).
+A hybrid event net adds ``batcher.state_install`` (one admission's final
+states written into their slots: ``rids``, ``bytes``) with the counters
+``batcher.ssm_scan_rows`` and ``batcher.ssm_scan_pad_rows`` (the rows its
+scan ran, whole chunks up to each prompt's length within the bucket, and
+the pad rows among them), and ``batcher.state_bytes`` at each dispatch (the
+SSM and conv state bytes the chunk's steps read and write).
 """
 
 from __future__ import annotations
@@ -65,7 +79,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..models.config import MIDIModelConfig
+from ..models.config import HybridConfig, MIDIModelConfig
+from ..models.hybrid import GraphedDecode
 from ..models.midinet import MIDINet
 from ..ops import event_loop
 from ..ops import token_loop
@@ -132,6 +147,10 @@ class ContinuousBatcher:
         reading chunk N's rows (default: on for a CUDA device, off on the
         CPU); per-request rows are the same either way."""
         dp, tp = (mesh.dp, mesh.tp) if mesh is not None else (1, 1)
+        self.hybrid = isinstance(config.net, HybridConfig)
+        if self.hybrid and (mesh is not None or kv_int8 or fused):
+            raise ValueError("a hybrid event net is served on one device, bf16/f32 pools and "
+                             "the split scan: no mesh, kv_int8 or fused")
         if n_slots % dp:
             raise ValueError(f"n_slots={n_slots} not divisible by the mesh's "
                              f"data axis size {dp}")
@@ -162,10 +181,20 @@ class ContinuousBatcher:
         self.masks = mask_tensors(
             build_mask_table(config.tokenizer, disable_eos=disable_eos), self.device)
         net = config.net
-        self._pools = alloc_pools(net.kv_heads,
-                                  net.num_layers * local_slots * self.pages_per_slot,
-                                  page_size, net.head_dim, model.dtype, self.device,
-                                  quantized=kv_int8)
+        if self.hybrid:
+            self._pools = model.net.alloc_pools(local_slots, self.pages_per_slot, page_size)
+            self._state = model.net.alloc_state(local_slots)
+            # on the card the event-net step replays as one CUDA graph
+            self._graphed = (GraphedDecode(model.net, self._pools, self._state, local_slots,
+                                           page_size=page_size,
+                                           pages_per_slot=self.pages_per_slot)
+                             if self.device.type == "cuda" else None)
+        else:
+            self._pools = alloc_pools(net.kv_heads,
+                                      net.num_layers * local_slots * self.pages_per_slot,
+                                      page_size, net.head_dim, model.dtype, self.device,
+                                      quantized=kv_int8)
+            self._state = self._graphed = None
         if fused is None:
             fused = (model.dtype == torch.bfloat16
                      and event_loop.why_not_fused(config, local_slots, self.max_seq) is None)
@@ -297,13 +326,37 @@ class ContinuousBatcher:
                 profiling.count("batcher.prefill_bucket_rows", g * bucket)
             slots_t = self._to_device(slots)
             p_lens_t = self._to_device(p_lens)
-            hidden, self._pools = self.model.net.prefill_paged(
-                self.model.embed_events(self._to_device(padded)), self._pools,
-                page_size=self.page_size, pages_per_slot=self.pages_per_slot,
-                slots=slots_t, n_slots=self._index.shape[0], tp_group=self._tp_group)
+            geometry = dict(page_size=self.page_size, pages_per_slot=self.pages_per_slot,
+                            slots=slots_t, n_slots=self._index.shape[0])
+            emb = self.model.embed_events(self._to_device(padded))
+            if self.hybrid:
+                hidden = self._prefill_hybrid(emb, p_lens, p_lens_t, part, bucket, geometry)
+            else:
+                hidden, self._pools = self.model.net.prefill_paged(
+                    emb, self._pools, tp_group=self._tp_group, **geometry)
             rows = torch.arange(g, device=self.device)
             self._hidden[slots_t] = hidden[rows, p_lens_t - 1]
             self._index[slots_t] = p_lens_t.to(torch.int32)
+
+    def _prefill_hybrid(self, emb, p_lens: np.ndarray, p_lens_t, part: list, bucket: int,
+                        geometry: dict):
+        """A hybrid net's admission forward: K/V into the pools, then each
+        prompt's final Mamba-2 states installed into its slot."""
+        if profiling.on():
+            chunk = self.config.net.mamba_chunk_size
+            ran = int(np.minimum(-(-p_lens // chunk) * chunk, bucket).sum())
+            profiling.count("batcher.ssm_scan_rows", ran)
+            profiling.count("batcher.ssm_scan_pad_rows", ran - int(p_lens.sum()))
+        hidden, self._pools, group = self.model.net.prefill_paged(
+            emb, self._pools, lengths=p_lens_t.to(torch.int32), **geometry)
+        with profiling.span("batcher.state_install") as sp:
+            if sp:
+                sp.attrs.update(rids=[item[0] for _slot, item in part],
+                                bytes=group.nbytes())
+            slots = geometry["slots"]
+            self._state.ssm[:, slots] = group.ssm
+            self._state.conv[:, slots] = group.conv
+        return hidden
 
     def _install_host(self, slot: int, item):
         rid, prompt, budget, knobs, allow, seed = item
@@ -389,6 +442,8 @@ class ContinuousBatcher:
             if sp:
                 sp.attrs["live_slots"] = int(self._active.sum())
                 profiling.count("batcher.slot_steps", self.n_slots * self.chunk)
+                if self.hybrid:  # every slot's states, read and written each step
+                    profiling.count("batcher.state_bytes", 2 * self._state.nbytes() * self.chunk)
                 if self.path == "event_loop":
                     items, split = chunk_attention_counts(
                         self._host_index(), self._active[self._mine], self.chunk, self.max_seq)
@@ -460,6 +515,11 @@ class ContinuousBatcher:
             if self.path == "pair":
                 h, self._pools = fused_decode_step(self._weights, config.net, emb,
                                                    self._pools, index, alive, **geometry)
+            elif self._graphed is not None:
+                h = self._graphed(emb, index, alive)
+            elif self.hybrid:
+                h, self._pools = model.net.decode_paged(emb, self._pools, index, alive,
+                                                        state=self._state, **geometry)
             else:
                 h, self._pools = model.net.decode_paged(emb, self._pools, index, alive,
                                                         tp_group=self._tp_group, **geometry)

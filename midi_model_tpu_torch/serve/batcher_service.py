@@ -12,7 +12,11 @@ sliders / instrument bans share one device batch.
 
 Thread discipline: ONE lock guards the batcher (submission mutates device
 state via prefill + splice; step advances it).  ``submit*`` and the step
-thread both take it, so a registration is never racing a delivery.
+thread both take it, so a registration is never racing a delivery.  The
+step thread hands the lock over: between two steps it lets every
+submission already waiting take the lock first (a plain lock let the
+thread that had just released it take it again at once, so a submission
+waited several chunks by chance).
 
 Recorder spans (``utils.profiling``): ``service.lock_wait`` (a submission
 waiting for the lock), ``service.submit`` (the lock held for its
@@ -38,6 +42,9 @@ class BatcherService:
     def __init__(self, batcher: ContinuousBatcher):
         self.batcher = batcher
         self._lock = threading.Lock()
+        # submissions waiting for the lock, under ``_turn``
+        self._waiting = 0
+        self._turn = threading.Condition()
         self._wake = threading.Event()
         self._streams: Dict[int, queue.Queue] = {}
         self.results: Dict[int, Finished] = {}
@@ -119,11 +126,18 @@ class BatcherService:
 
     def _acquire(self, group: int):
         """Take the lock, recorded as ``service.lock_wait`` for a
-        submission of ``group`` requests."""
+        submission of ``group`` requests; counted as waiting meanwhile, so
+        the step thread lets it in before its next step."""
         with profiling.span("service.lock_wait") as sp:
             if sp:
                 sp.attrs["group"] = group
+            with self._turn:
+                self._waiting += 1
             self._lock.acquire()
+            with self._turn:
+                self._waiting -= 1
+                if not self._waiting:
+                    self._turn.notify_all()
 
     def _drain_group(self, gq, idx_of, max_events: int):
         n = len(idx_of)
@@ -188,6 +202,8 @@ class BatcherService:
             if woken:
                 idle.finish()
                 idle = profiling.NULL
+            with self._turn:  # the submissions already waiting go first
+                self._turn.wait_for(lambda: not self._waiting or self._stop, timeout=1.0)
             with self._lock:
                 if not self.batcher.any_active:
                     self._wake.clear()

@@ -29,7 +29,7 @@ from typing import Dict, Optional
 import torch
 import torch.distributed as dist
 
-from ..models.config import MIDIModelConfig
+from ..models.config import MIDIModelConfig, require_llama
 from ..parallel.mesh import Mesh
 from ..sampling.sharded import COLUMN_PARALLEL, ROW_PARALLEL, tp_local_net
 
@@ -58,7 +58,9 @@ def train_local_config(config: MIDIModelConfig, tp: int) -> MIDIModelConfig:
     nets' heads, kv heads and MLP widths divided by ``tp``, the head dims
     pinned.  The vocab's split is the ``lm_head`` weight's shape (the config
     keeps the tokenizer's vocab, which the embeddings and the grammar masks
-    use).  Raises where ``tp`` does not divide a net's heads or the vocab."""
+    use).  Raises where ``tp`` does not divide a net's heads or the vocab,
+    and for a hybrid event net, which no trainer takes."""
+    require_llama(config, "training")
     if tp == 1:
         return config
     nets = {field: tp_local_net(getattr(config, field), tp, field)

@@ -52,7 +52,7 @@ import torch.distributed as dist
 import torch.utils.checkpoint
 from torch import nn
 
-from ..models.config import MIDIModelConfig
+from ..models.config import MIDIModelConfig, require_llama
 from ..models.midinet import MIDINet, init_model
 from ..parallel.mesh import Mesh
 from ..utils import profiling
@@ -365,6 +365,7 @@ def make_lora_train_step(config: MIDIModelConfig, optimizer: Optimizer,
     (``train.sharding.apply_lora_sharded``).  The adapters of split weights
     get partial gradients, summed over the model group after the data
     group's sum; then every adapter gradient is whole on every rank."""
+    require_llama(config, "LoRA fine-tuning")
     train_local_config(config, 1 if mesh is None else mesh.tp)
 
     def train_step(state: TrainState, base_params: Params, batch):

@@ -114,3 +114,54 @@ def test_group_rejects_oversize(setup):
             svc.submit_group([bos_prompt(tok)] * 3, max_events=2)
     finally:
         svc.close()
+
+
+class _SlowBatcher:
+    """A stand-in batcher whose every step keeps the host busy for 20 ms and
+    counts itself."""
+
+    n_slots = 4
+    tokenizer = None
+
+    def __init__(self):
+        self.steps = 0
+        self.any_active = True
+
+    def submit(self, prompt_rows, max_events, **kw):
+        return self.steps
+
+    def step(self, on_rows=None):
+        import time
+
+        end = time.perf_counter() + 0.02
+        while time.perf_counter() < end:  # busy, holding the GIL, as a dispatch does
+            pass
+        self.steps += 1
+        return []
+
+
+def test_lock_handed_to_waiting_submissions():
+    """A submission waiting for the lock takes it before the step thread's
+    next step: while it waits, at most the step in progress and one that
+    began just as it arrived run (one more if the interpreter switches
+    threads between its arrival and its count of waiting)."""
+    import time
+
+    class Recording(BatcherService):
+        def _acquire(self, group):
+            self.arrived = self.batcher.steps
+            super()._acquire(group)
+
+    batcher = _SlowBatcher()
+    svc = Recording(batcher)
+    try:
+        time.sleep(0.1)  # the step thread is stepping
+        waited = []
+        for _ in range(20):
+            rid, _rows = svc.submit_stream(np.zeros((1, 8), np.int64), 4)
+            waited.append(rid - svc.arrived)  # steps run while this one waited
+            time.sleep(0.01)
+        assert max(waited) <= 3, waited
+    finally:
+        batcher.any_active = False
+        svc.close()

@@ -25,6 +25,8 @@ ROOT = Path(__file__).resolve().parent.parent
 KERNELS = ["sampler.cu", "paged_decode.cu", "paged_decode_stream.cu",
            "causal_attention.cu", "causal_attention_bwd.cu", "token_loop.cu",
            "fused_step.cu", "event_loop.cu"]
+# kernels no TPU kernel of the JAX package has: the hybrid event net's
+HYBRID_KERNELS = ["ssm_scan.cu", "ssm_step.cu", "hybrid_norm.cu"]
 # MHA with packed pages (4 heads x 32 = 128 lanes): the fused path's shapes
 SMALL = MIDIModelConfig.get_config("v2", True, n_layer=4, n_head=4, n_embd=128,
                                    n_inner=128)
@@ -175,15 +177,25 @@ def test_kernel_sources_exist_with_note(name):
     assert "torch/extension.h" not in src and "triton" not in src
 
 
+@pytest.mark.parametrize("name", HYBRID_KERNELS)
+def test_hybrid_kernel_sources_exist_with_note(name):
+    src = (_build.CSRC / name).read_text()
+    head = src[:3000]
+    assert "New for the hybrid event net" in head and "ops/" in head
+    assert "What bounds" in head
+    assert 'extern "C"' in src
+    assert "torch/extension.h" not in src and "triton" not in src
+
+
 def test_nvcc_command_targets_sm90a():
     compiles, link = _build.nvcc_commands(Path("/nonexistent/lib.so"))
     for cmd in compiles + [link]:
         assert "arch=compute_90a,code=sm_90a" in cmd
     for cmd in compiles:  # one process per source, each to its own object
         assert "-c" in cmd and "-std=c++17" in cmd and "-O3" in cmd
-    assert sorted(Path(cmd[-1]).name for cmd in compiles) == sorted(KERNELS)
+    assert sorted(Path(cmd[-1]).name for cmd in compiles) == sorted(KERNELS + HYBRID_KERNELS)
     objects = [cmd[cmd.index("-o") + 1] for cmd in compiles]
-    assert len(set(objects)) == len(KERNELS) and set(objects) <= set(link)
+    assert len(set(objects)) == len(KERNELS + HYBRID_KERNELS) and set(objects) <= set(link)
     assert "-shared" in link and link[link.index("-o") + 1] == "/nonexistent/lib.so"
     # the library is keyed by the sources and lives under build/
     lib = _build.library_path()
