@@ -12,8 +12,10 @@ result line.  ``--sampler``: phase 1 with the same report, phase 2's sampler
 checks and timings and its token row check (the sample phase's µs at top_k
 20 and 128), and no result line.  ``--step``: phase 1 with the same report,
 phase 2's whole-step and event-loop checks (the whole step's phase clock
-and its two timed cases, its int8 form, the aligned and ragged loops), and
-no result line.  ``--api``: phase 1, one step of phase 6's
+and its two timed cases, its int8 form, the aligned and ragged loops), the
+token row check (with its case at granite's token-net width), the decode
+kernels' launch shapes and the digests of every decode output (see
+``decode_digests``), and no result line.  ``--api``: phase 1, one step of phase 6's
 CLI to write a run directory, phase 7 on it, and no result line.  ``--app``:
 phase 1, phase 8 on random bf16 weights, and no result line.  ``--mesh``:
 phase 1, phase 9, and no result line.  ``--ssm``: phase 1, the Mamba-2
@@ -49,7 +51,9 @@ one JSON line; any failed check raises, so the script exits non-zero:
              uniform (64-2047 rows) and ragged lengths and with GQA, the
              token row (f32 rows identical; bf16 greedy
              rows identical up to near-ties; one bf16 launch with the phase
-             clock: µs per phase kind and the barriers' wait), the fused
+             clock: µs per phase kind and the barriers' wait; bf16 again at
+             granite-4.0-h-micro's token net, D = W = 2048, where RMSNorm
+             rows are wider than one staged segment), the fused
              event-net step (f32 within 1e-4; bf16 within 3e-2 after one
              layer, 0.125 after 12; rows outside the append bit-identical;
              one bf16 launch with the phase clock) and its int8-pool form
@@ -68,7 +72,11 @@ one JSON line; any failed check raises, so the script exits non-zero:
              per-event kernel pair) and the ragged event loop (f32 against
              its plain version; bf16 bit-identical to the per-event
              composition of the kernels, with eos mid-block, capacity and
-             an inactive slot);
+             an inactive slot); then the cluster size and grid each decode
+             kernel last launched with, and a digest of every decode
+             wrapper's outputs, call by call (``decode_digests``: the same
+             script run on two trees shows whether their kernels give the
+             same bits);
 3. oracle  — fp32 tv2o-medium weights rebuilt from
              ``tests/golden/reference_oracle.pkl``: logits within atol 2e-4 /
              rtol 2e-3 and greedy rows token-identical to the golden (the
@@ -225,6 +233,13 @@ def time_ms(fn, iters: int) -> float:
     calls that read different memory time a cold cache."""
     import torch
 
+    with _untimed_digests_paused():
+        return _time_ms(fn, iters)
+
+
+def _time_ms(fn, iters: int) -> float:
+    import torch
+
     calls = list(fn) if isinstance(fn, (list, tuple)) else [fn]
     for call in calls:
         call()
@@ -242,6 +257,89 @@ def time_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+# decode_digests: {wrapper: [digest of each call's outputs]} while recording
+_DIGESTS = None
+_DIGEST_PAUSED = [0]
+
+
+@contextlib.contextmanager
+def _untimed_digests_paused():
+    _DIGEST_PAUSED[0] += 1
+    try:
+        yield
+    finally:
+        _DIGEST_PAUSED[0] -= 1
+
+
+def _tensor_digest(out) -> str:
+    """sha256 (16 hex digits) of the tensors in ``out`` (a tensor or nested
+    tuples and lists; anything else is left out), their shapes, dtypes and
+    bytes."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+
+    def add(x):
+        if isinstance(x, torch.Tensor):
+            t = x.detach().contiguous().cpu()
+            h.update(f"{tuple(t.shape)} {t.dtype}".encode())
+            h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                add(y)
+
+    add(out)
+    return h.hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def decode_digests():
+    """Record a digest of the outputs of every call of the decode wrappers
+    (``token_loop.decode_token_row``, ``fused_step.fused_decode_step``,
+    ``event_loop.decode_event_block`` and ``decode_event_block_ragged``) on
+    the card, in call order, leaving out the calls ``time_ms`` times; at the
+    end emit them with the shape each decode kernel last launched with
+    (``_build.SHAPES``).  The checks draw their inputs from seeded
+    generators, so this script run against two trees of the port gives the
+    same digests where their kernels give the same bits."""
+    global _DIGESTS
+    import torch
+
+    from midi_model_tpu_torch.ops import _build
+    from midi_model_tpu_torch.ops import event_loop as el
+    from midi_model_tpu_torch.ops import fused_step as fs
+    from midi_model_tpu_torch.ops import token_loop as tl
+
+    wrapped = [(tl, "decode_token_row"), (fs, "fused_decode_step"),
+               (el, "decode_event_block"), (el, "decode_event_block_ragged")]
+    saved = [getattr(mod, name) for mod, name in wrapped]
+    _DIGESTS = {name: [] for _, name in wrapped}
+
+    def recorded(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if not _DIGEST_PAUSED[0]:
+                torch.cuda.synchronize()
+                _DIGESTS[name].append(_tensor_digest(out))
+            return out
+        return call
+
+    for (mod, name), fn in zip(wrapped, saved):
+        setattr(mod, name, recorded(name, fn))
+    try:
+        yield
+        shapes = {k: dict(zip(("cluster", "blocks"), v))
+                  for k, v in sorted(getattr(_build, "SHAPES", {}).items())}
+        emit({"phase": "decode_digests", "launch_shapes": shapes,
+              "calls": {k: len(v) for k, v in _DIGESTS.items()}, "digests": _DIGESTS})
+    finally:
+        for (mod, name), fn in zip(wrapped, saved):
+            setattr(mod, name, fn)
+        _DIGESTS = None
 
 
 def check_rows(rows, table, tokenizer, what: str) -> None:
@@ -351,12 +449,13 @@ def phase_kernels(card: str) -> dict:
     worst = check_paged_cell(card, gen)
     results.update(check_attention(card, gen))
     worst.update(check_paged_stream(card, gen))
-    results["token_row"] = check_token_row(card, gen)
-    results["fused_step"] = check_fused_step(card, gen)
-    results["fused_step_int8"] = check_fused_step_int8(card, gen)
-    results.update(check_attention_bwd(card, gen))
-    results["event_loop"] = check_event_loop(card, gen)
-    results["event_loop_ragged"] = check_event_loop_ragged(card, gen)
+    with decode_digests():
+        results["token_row"] = check_token_row(card, gen)
+        results["fused_step"] = check_fused_step(card, gen)
+        results["fused_step_int8"] = check_fused_step_int8(card, gen)
+        results.update(check_attention_bwd(card, gen))
+        results["event_loop"] = check_event_loop(card, gen)
+        results["event_loop_ragged"] = check_event_loop_ragged(card, gen)
     results.update(paged_kernel_rows(time_paged_cell_vs_stream(card), worst))
     return results
 
@@ -942,11 +1041,15 @@ def paged_kernel_rows(by_case: dict, worst: dict) -> dict:
 def check_token_row(card: str, gen) -> dict:
     """The token-row kernel against its plain version at tv2o-medium, B=32:
     f32 rows identical (greedy and sampled, over per-row knobs, allow-plane
-    and forced-pad rows); bf16 greedy rows identical, sampled share printed."""
+    and forced-pad rows); bf16 greedy rows identical up to near-ties, sampled
+    share printed.  Then bf16 at granite-4.0-h-micro's token net (D = W = F =
+    2048, 3 layers, heads of 256; ``bench_h100/configs/tv2o-granite-h-
+    micro.json``), B=32, where each RMSNorm row is wider than one staged
+    segment: the same cases and rule, and one launch with the phase clock."""
     import numpy as np
     import torch
 
-    from midi_model_tpu_torch.models import MIDIModelConfig
+    from midi_model_tpu_torch.models import MIDIModelConfig, TransformerConfig
     from midi_model_tpu_torch.models.midinet import init_model
     from midi_model_tpu_torch.ops import token_loop as tl
     from midi_model_tpu_torch.sampling import (build_allow_vector, build_mask_table,
@@ -1040,6 +1143,39 @@ def check_token_row(card: str, gen) -> dict:
           "sample_us": {"top_k_20": clocked["us_per_phase"]["sample"],
                         "top_k_128": clocked_128["us_per_phase"]["sample"]},
           "card": card})
+
+    # granite's token net (the event net, never run here, a one-layer stand-in)
+    wide = MIDIModelConfig(tok, TransformerConfig(tok.vocab_size, 2048, 1, 16, 2048),
+                           TransformerConfig(tok.vocab_size, 2048, 3, 8, 2048))
+    model = init_model(wide, seed=0, dtype=torch.bfloat16, device=dev)
+    hidden = torch.randn((b, wide.n_embd), generator=gen, device=dev)
+    same, gaps = {}, {}
+    for name, kw in cases.items():
+        g = gumbel_rows(b, t_max, gen)
+        args = (model, wide, hidden, masks, temp, top_p, top_k, g)
+        row, _ = tl.decode_token_row(*args, **kw)
+        row_r, _ = tl.decode_token_row_reference(*args, **kw)
+        torch.cuda.synchronize()
+        same[name] = float((row == row_r).all(dim=1).float().mean())
+        if kw.get("forced_pad") is not None:
+            require(bool((row[forced] == tok.pad_id).all()),
+                    f"token row D=2048 {name}: forced rows not all pad")
+        if kw["greedy"]:  # the near-tie rule of tv2o-medium's bf16 rows
+            gaps[name] = tie_gaps(model, hidden, row, row_r, temp)
+            require(same[name] >= 0.9 and all(abs(x) <= 0.0625 for x in gaps[name]),
+                    f"token row D=2048 {name}: identical share {same[name]}, "
+                    f"logit gaps of the differing picks {gaps[name]}")
+    g = gumbel_rows(b, t_max, gen)
+    args = (model, wide, hidden, masks, 1.0, 0.98, 20, g)
+    wide_ms = time_ms(lambda: tl.decode_token_row(*args, greedy=False), 20)
+    kinds = tl.phase_kinds(wide.net_token.num_layers, t_max)
+    clock = tl.phase_clock(len(kinds) - 1, dev)
+    tl.decode_token_row(*args, greedy=False, clock=clock)
+    emit({"phase": "kernel", "name": "token_row_d2048", "batch": b,
+          "identical_row_share": same, "bf16_greedy_tie_logit_gaps": gaps, "ms": wide_ms,
+          "bf16_phase_clock": phase_clock_summary(clock, kinds), "card": card})
+    del model
+    torch.cuda.empty_cache()
     return result
 
 
@@ -4653,10 +4789,11 @@ def main(argv=()) -> int:
                         "decode checks of phase 2 and their cold-cache timings, and stop "
                         "(no result line)")
     parser.add_argument("--step", action="store_true",
-                        help="build with ptxas' register and spill report, run the whole-step "
-                        "and event-loop checks of phase 2 (the whole step with its phase "
+                        help="build with ptxas' register and spill report, run the token-row, "
+                        "whole-step and event-loop checks of phase 2 (the token row at "
+                        "tv2o-medium's and granite's widths, the whole step with its phase "
                         "clock and timed cases, its int8 form, the aligned and ragged "
-                        "loops), and stop (no result line)")
+                        "loops) with the digests of their outputs, and stop (no result line)")
     parser.add_argument("--api", action="store_true",
                         help="build, write a run directory with one step of phase 6's CLI, "
                         "run phase 7 (the MIDIModel facade, LoRA, remat policies, publish, "
@@ -4721,10 +4858,12 @@ def main(argv=()) -> int:
     if args.step:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(1234)
-        check_fused_step(card, gen)
-        check_fused_step_int8(card, gen)
-        check_event_loop(card, gen)
-        check_event_loop_ragged(card, gen)
+        with decode_digests():
+            check_token_row(card, gen)
+            check_fused_step(card, gen)
+            check_fused_step_int8(card, gen)
+            check_event_loop(card, gen)
+            check_event_loop_ragged(card, gen)
         return 0
     if args.paged:
         gen = torch.Generator(device="cuda")

@@ -24,8 +24,11 @@
 //   phase, so each block issues its first chunks of the NEXT phase
 //   (tc_begin) before it arrives at the grid barrier: HBM streams while the
 //   grid synchronises.  The activation segment (32 rows x 1024 k, normed
-//   where the phase starts with an RMSNorm) is staged once per block per
-//   pass, with a 16-byte XOR swizzle so ldmatrix reads are conflict-free.
+//   where the phase starts with an RMSNorm) is staged once per cluster of
+//   kDecCluster blocks per pass: each block loads and norms 32 / kDecCluster
+//   of the rows and writes them into every block's segment (distributed
+//   shared memory), with a 16-byte XOR swizzle so ldmatrix reads are
+//   conflict-free.  Every staged value is the same whatever the cluster.
 // * f32 (gemv2): CUDA cores, unchanged from the first version (tensor cores
 //   would mean TF32 and break the f32 checks).  Every warp of the grid takes
 //   a unit of two output columns, streams their two weight rows once
@@ -218,12 +221,18 @@ __device__ void gemv2(int rows, int K, int n_units, RowFn row, LoadFn load, EpiF
 }
 
 // rs[b] = rsqrt(mean(x[b]^2) + eps) for the rows of x [rows, D] (one warp per
-// row, 16-byte loads); the caller's next block barrier publishes it.
+// row, 16-byte loads); the caller's next block barrier publishes it.  With
+// ranks > 1, only the rows block `rank` of a cluster stages (stage_segment):
+// rows rank * 32 / ranks .. of each pass of 32.
 template <typename T>
-__device__ void row_scales(const T* __restrict__ x, int rows, int D, float eps, float* rs) {
+__device__ void row_scales(const T* __restrict__ x, int rows, int D, float eps, float* rs,
+                           int rank = 0, int ranks = 1) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  for (int b = warp; b < rows; b += kDecWarps) {
+  const int per = kRowTile / ranks;
+  for (int i = warp;; i += kDecWarps) {
+    const int b = i / per * kRowTile + rank * per + i % per;
+    if (b >= rows) break;
     const T* xr = x + static_cast<size_t>(b) * D;
     float s = 0.f;
 #pragma unroll 4
@@ -288,6 +297,7 @@ template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 
 constexpr int kTcRows = 32;                      // activation rows a pass (N)
+static_assert(kTcRows == kRowTile, "row_scales splits passes of kRowTile rows");
 constexpr int kTcNTiles = kTcRows / 8;           // mma n-tiles a pass
 constexpr int kTcBoxK = 64;                      // k of a TMA box: one 128-byte swizzle row
 constexpr int kTcBoxRows = 16;                   // weight rows of a box: one m-tile
@@ -297,6 +307,14 @@ constexpr uint32_t kTcChunkBytes = kTcBoxBytes * kDecWarps;  // one ring slot
 constexpr int kTcStages = 8;                     // ring slots
 constexpr int kTcSegK = 1024;                    // k of a staged activation segment
 constexpr int kTcMaxMT = 2;                      // m-tiles an item (gate and up)
+// Blocks a cluster of the bf16 decode launches, which stage each activation
+// segment together (stage_segment): at most 4, so every warp of a block
+// norms whole rows.  Where the card cannot hold a cooperative grid of such
+// clusters (or refuses the launch) they run in clusters of 1.
+constexpr int kDecCluster = 2;
+constexpr int kTcMaxCluster = 4;
+static_assert(kDecCluster >= 1 && kDecCluster <= kTcMaxCluster && kTcRows % kDecCluster == 0,
+              "a cluster's blocks stage whole rows");
 constexpr size_t kTcRingBytes = static_cast<size_t>(kTcChunkBytes) * kTcStages;
 constexpr size_t kTcActBytes = static_cast<size_t>(kTcRows) * kTcSegK * 2;
 constexpr size_t kTcRedBytes = static_cast<size_t>(kDecWarps) * kTcBoxRows * kTcRows * 4;
@@ -314,6 +332,13 @@ static_assert(kTcRows % kDecWarps == 0 && kTcRows / kDecWarps <= 32, "rows a war
 template <typename T>
 constexpr size_t decode_smem() {
   return kTensorCores<T> ? kTcSmem : kGemvSmem;
+}
+
+// Blocks a cluster of a decode kernel over weights of type T (the f32
+// forms stage nothing to share).
+template <typename T>
+constexpr int decode_cluster() {
+  return kTensorCores<T> ? kDecCluster : 1;
 }
 
 // Rows [row0, row0 + n) of a weight [rows, K]: a pointer at row0 (CUDA
@@ -357,11 +382,10 @@ __device__ __forceinline__ Plan<T> plan_of(int K, int n_cols, int mt, const T* n
   return p;
 }
 
-// This block's items of a phase with n_items items (item i: block i % grid).
-__device__ __forceinline__ int block_items(int n_items) {
-  return n_items > static_cast<int>(blockIdx.x)
-             ? (n_items - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1
-             : 0;
+// Block `block`'s items of a phase with n_items items (item i: block i %
+// grid).
+__device__ __forceinline__ int block_items(int n_items, int block = blockIdx.x) {
+  return n_items > block ? (n_items - 1 - block) / static_cast<int>(gridDim.x) + 1 : 0;
 }
 
 __device__ __forceinline__ int tc_items(int n_cols) {
@@ -387,10 +411,13 @@ struct Tc {
   bool primed;  // the ring holds (the first chunks of) the next phase
   Plan<T> plan;
   int rows;
+  int rank, ranks;  // the block's rank in its cluster, the cluster's blocks
 
   __device__ void init(uint8_t* smem) {
     head = tail = base = n = norm_uses = 0;
     primed = false;
+    rank = 0;
+    ranks = 1;
     if constexpr (kTensorCores<T>) {
       const uint32_t raw = sm90::smem_u32(smem);
       const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
@@ -402,11 +429,15 @@ struct Tc {
       norm = reinterpret_cast<uint8_t*>(res) + kTcResBytes;
       bars = sm90::smem_u32(norm + kTcNormBytes);
       norm_bar = bars + 8u * kTcStages;
+      rank = static_cast<int>(sm90::cluster_rank());
+      ranks = static_cast<int>(sm90::cluster_blocks());
       if (threadIdx.x == 0) {
         for (int s = 0; s <= kTcStages; ++s) sm90::mbar_init(bars + 8u * s, 1);
         sm90::fence_barrier_init();
       }
-      __syncthreads();
+      // every block of the cluster runs before any writes into its segment
+      if (ranks > 1) sm90::cluster_sync();
+      else __syncthreads();
     } else {
       act = smem;
     }
@@ -471,114 +502,115 @@ __device__ __forceinline__ int act_offset(int n, int u) {
 }
 
 // Stage rows r0 .. r0+31, k = k0 .. of the segment of x [B, K] (rows past
-// B and k past K are zeros), as bf16 in the swizzled layout.  Every
-// thread's 16-byte loads are all in flight before the first store.  With the
-// plan's norm: when the segment holds whole rows (K <= kTcSegK), the rows'
-// sums of squares are taken from the staged values here — per 8-vector
-// partial sums (in tc.red) added per row in a fixed order — and the norm
+// B and k past K are zeros), as bf16 in the swizzled layout, with the other
+// blocks of the cluster: this block takes rows rank * 32 / ranks .. of the
+// pass (every row in a cluster of 1), in rounds of the whole rows whose
+// 16-byte units fit kIn a thread; a round's units e = tid, tid +
+// kDecThreads, .. are all in flight at once and kept in registers.  With
+// the plan's norm: when the segment holds whole rows (K <= kTcSegK), the
+// rows' sums of squares are taken from the loaded values — per 8-vector
+// partial sums (in tc.red) added per row in a fixed order: lane l of the
+// row's warp adds units l, l + 32, .., then the butterfly — and the norm
 // weight is the copy tc_begin started (tc.norm); else rs[] comes from
-// row_scales and the weight from global memory.  Then the staged values are
-// normed in place.
-__device__ inline void stage_segment(Tc<__nv_bfloat16>& tc, const __nv_bfloat16* x, int B,
-                                     int r0, int k0, float* rs) {
+// row_scales (this rank's rows) and the weight from global memory.  The
+// units are normed in registers, then each is written once into every
+// block's segment at the same offset (its own included; in a cluster of 1
+// a plain store).  Every block ends with the same bits whatever the
+// cluster.  Not inlined: one copy a kernel (an inlined copy in every phase
+// made the phases slower: the kernels' code overflows the instruction
+// cache); kIn stays at 8, as more registers here spill in the callers.
+static __device__ __noinline__ void stage_segment(Tc<__nv_bfloat16>& tc,
+                                                  const __nv_bfloat16* x, int B, int r0, int k0,
+                                                  float* rs) {
   using bf16 = __nv_bfloat16;
-  constexpr int kIn = 8;  // 16-byte loads in flight a thread
+  constexpr int kIn = 8;
   const Plan<bf16>& pl = tc.plan;
   const int K = pl.K;
   const int kn = min(kTcSegK, (K + kTcBoxK - 1) / kTcBoxK * kTcBoxK - k0);
   const int units = kn / 8;  // 8-vectors a row
-  const bool whole = pl.norm != nullptr && K <= kTcSegK;
-  uint8_t* act = tc.act;
-  // this thread's 8-vectors e = tid, tid + kDecThreads, ..: (row n, unit u),
-  // stepped without divisions
-  const int sn = kDecThreads / units, su = kDecThreads % units;
-  int n = threadIdx.x / units, u = threadIdx.x % units;
-  auto step = [&](int& nn, int& uu) {
-    uu += su;
-    nn += sn;
-    if (uu >= units) {
-      uu -= units;
-      ++nn;
-    }
-  };
+  const bool norm = pl.norm != nullptr;
+  const bool whole = norm && K <= kTcSegK;
+  const int per = kTcRows / tc.ranks, n_end = (tc.rank + 1) * per;
+  const int round_rows = min(per, kIn * kDecThreads / units);
+  const uint32_t act = sm90::smem_u32(tc.act);
+  float* red = tc.red;
 #pragma unroll 1
-  while (n < kTcRows) {
-    uint4 raw[kIn];
-    int ns[kIn], us[kIn];
+  for (int n0 = tc.rank * per; n0 < n_end; n0 += round_rows) {
+    const int rows = min(round_rows, n_end - n0), owned = rows * units;
+    uint4 v[kIn];
 #pragma unroll
     for (int i = 0; i < kIn; ++i) {
-      ns[i] = n;
-      us[i] = u;
-      raw[i] = make_uint4(0, 0, 0, 0);
-      if (n < kTcRows && r0 + n < B && k0 + 8 * u < K)
-        raw[i] = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(r0 + n) * K + k0 + 8 * u);
-      step(n, u);
+      const int e = static_cast<int>(threadIdx.x) + kDecThreads * i;
+      const int n = n0 + e / units, u = e % units;
+      v[i] = e < owned && r0 + n < B && k0 + 8 * u < K
+                 ? *reinterpret_cast<const uint4*>(x + static_cast<size_t>(r0 + n) * K + k0 +
+                                                   8 * u)
+                 : make_uint4(0, 0, 0, 0);
     }
+    if (norm) {
+      if (whole) {
 #pragma unroll
-    for (int i = 0; i < kIn; ++i) {
-      if (ns[i] < kTcRows) {
-        *reinterpret_cast<uint4*>(act + act_offset(ns[i], us[i])) = raw[i];
-        if (whole) {
-          float v[8];
-          sm90::unpack8(raw[i], v);
+        for (int i = 0; i < kIn; ++i) {
+          const int e = static_cast<int>(threadIdx.x) + kDecThreads * i;
+          if (e < owned) {
+            float f[8];
+            sm90::unpack8(v[i], f);
+            float ss = 0.f;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) ss += f[j] * f[j];
+            red[(n0 + e / units) * units + e % units] = ss;
+          }
+        }
+        __syncthreads();
+        const int lane = threadIdx.x & 31;
+        for (int n = n0 + (threadIdx.x >> 5); n < n0 + rows; n += kDecWarps) {
           float ss = 0.f;
+          for (int k = lane; k < units; k += 32) ss += red[n * units + k];
+          ss = warp_sum(ss);
+          if (lane == 0) rs[r0 + n] = rsqrtf(ss / static_cast<float>(K) + pl.eps);
+        }
+        sm90::mbar_wait(tc.norm_bar, (tc.norm_uses - 1) & 1u);
+      }
+      __syncthreads();  // rs[]; every read of red above
+      const bf16* w = whole ? reinterpret_cast<const bf16*>(tc.norm) : pl.norm + k0;
 #pragma unroll
-          for (int j = 0; j < 8; ++j) ss += v[j] * v[j];
-          tc.red[ns[i] * units + us[i]] = ss;
+      for (int i = 0; i < kIn; ++i) {
+        const int e = static_cast<int>(threadIdx.x) + kDecThreads * i;
+        const int n = n0 + e / units, u = e % units;
+        if (e < owned && r0 + n < B && k0 + 8 * u < K) {
+          const uint4 wr = *reinterpret_cast<const uint4*>(w + 8 * u);
+          __nv_bfloat162* xh = reinterpret_cast<__nv_bfloat162*>(&v[i]);
+          const __nv_bfloat162* wh = reinterpret_cast<const __nv_bfloat162*>(&wr);
+          const float r = rs[r0 + n];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            // T(x * rs), then the weight multiply in T: the bf16 product of
+            // two bf16 values is their exact product rounded once, as in f32
+            const float2 f = __bfloat1622float2(xh[j]);
+            xh[j] = __hmul2(wh[j], __floats2bfloat162_rn(f.x * r, f.y * r));
+          }
         }
       }
     }
-  }
-  if (pl.norm == nullptr) return;
-  __syncthreads();
-  if (whole) {  // a warp per 4 rows: lane l adds units l, l+32, .. in order, then the butterfly
-    constexpr int kPer = kTcRows / kDecWarps;
-    const int lane = threadIdx.x & 31, n0 = (threadIdx.x >> 5) * kPer;
-    float ss[kPer];
 #pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      ss[r] = 0.f;
-      for (int v = lane; v < units; v += 32) ss[r] += tc.red[(n0 + r) * units + v];
-    }
-#pragma unroll
-    for (int r = 0; r < kPer; ++r) ss[r] = warp_sum(ss[r]);
-    if (lane < kPer) {
-      float mine = ss[0];
-#pragma unroll
-      for (int r = 1; r < kPer; ++r) mine = lane == r ? ss[r] : mine;
-      rs[r0 + n0 + lane] = rsqrtf(mine / static_cast<float>(K) + pl.eps);
-    }
-    sm90::mbar_wait(tc.norm_bar, (tc.norm_uses - 1) & 1u);
-    __syncthreads();
-  }
-  const bf16* w = whole ? reinterpret_cast<const bf16*>(tc.norm) : pl.norm + k0;
-  n = threadIdx.x / units;
-  u = threadIdx.x % units;
-#pragma unroll 2
-  for (; n < kTcRows; step(n, u)) {
-    if (r0 + n < B && k0 + 8 * u < K) {
-      uint4* p = reinterpret_cast<uint4*>(act + act_offset(n, u));
-      uint4 xw = *p;
-      const uint4 wr = *reinterpret_cast<const uint4*>(w + 8 * u);
-      __nv_bfloat162* xh = reinterpret_cast<__nv_bfloat162*>(&xw);
-      const __nv_bfloat162* wh = reinterpret_cast<const __nv_bfloat162*>(&wr);
-      const float r = rs[r0 + n];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // T(x * rs), then the weight multiply in T: the bf16 product of two
-        // bf16 values is their exact product rounded once, as in f32
-        const float2 f = __bfloat1622float2(xh[j]);
-        xh[j] = __hmul2(wh[j], __floats2bfloat162_rn(f.x * r, f.y * r));
+    for (int i = 0; i < kIn; ++i) {
+      const int e = static_cast<int>(threadIdx.x) + kDecThreads * i;
+      if (e < owned) {
+        const uint32_t at = act + act_offset(n0 + e / units, e % units);
+#pragma unroll 1
+        for (int p = 0; p < tc.ranks; ++p) sm90::st_cluster(sm90::map_shared(at, p), v[i]);
       }
-      *p = xw;
     }
   }
 }
 
 // The queued phase (tc_begin) on tensor cores.  stage(r0, k0, act) stages
-// the segment of pass r0 that starts at k0; epi(col, b, v) gets output
-// column col of row b, v[m] from the item's m-tile m.  Every thread of every
-// block calls it (it holds block barriers).
+// the segment of pass r0 that starts at k0 (its share of it, into every
+// block of the cluster); epi(col, b, v) gets output column col of row b,
+// v[m] from the item's m-tile m.  Every thread of every block calls it (it
+// holds block and cluster barriers).  The blocks of a cluster stage
+// together: each runs as many items as the cluster's first block (the
+// most), staging in every one, and multiplies in its own.
 template <int MT, class StageFn, class EpiFn>
 __device__ void tc_phase(Tc<__nv_bfloat16>& tc, StageFn stage, EpiFn epi) {
   using namespace sm90;
@@ -586,15 +618,19 @@ __device__ void tc_phase(Tc<__nv_bfloat16>& tc, StageFn stage, EpiFn epi) {
   const int B = tc.rows, K = pl.K;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int my = block_items(tc_items(pl.n_cols));
+  const int cluster_my =  // the cluster's first block's: the most
+      block_items(tc_items(pl.n_cols), static_cast<int>(blockIdx.x) - tc.rank);
   const int nkc = tc_kchunks(K);
   const uint32_t act = smem_u32(tc.act);
   // ldmatrix lane roles: matrix i = lane / 8, its row lane % 8
   const int mi = lane >> 3, mr = lane & 7;
+  const bool clustered = tc.ranks > 1;
   int staged = -1;
   for (int pass = 0; pass < tc_passes(B); ++pass) {
     const int r0 = pass * kTcRows;
     const int nt = min(kTcNTiles, (B - r0 + 7) / 8);
-    for (int il = 0; il < my; ++il) {
+    for (int il = 0; il < cluster_my; ++il) {
+      const bool mine = il < my;  // else: staging for the cluster only
       float acc[MT][kTcNTiles][4];
 #pragma unroll
       for (int m = 0; m < MT; ++m)
@@ -606,11 +642,19 @@ __device__ void tc_phase(Tc<__nv_bfloat16>& tc, StageFn stage, EpiFn epi) {
       for (int kc = 0; kc < nkc; ++kc) {
         const int seg = kc * kTcChunkK / kTcSegK;
         if (pass * 4096 + seg != staged) {
-          __syncthreads();  // every warp is done with the previous segment
+          // Every warp (of the cluster) is done with the previous segment
+          // before any block writes the next, and every write has landed
+          // before a block reads.  A cluster's first staging in a phase
+          // follows the caller's grid barrier (or Tc::init's cluster
+          // barrier), which orders it after every peer's last use.
+          if (!clustered) __syncthreads();
+          else if (staged >= 0) cluster_sync();
           stage(r0, seg * kTcSegK, tc.act);
-          __syncthreads();
+          if (clustered) cluster_sync();
+          else __syncthreads();
           staged = pass * 4096 + seg;
         }
+        if (!mine) continue;
         const int k0 = kc * kTcChunkK + warp * kTcBoxK;  // this warp's box
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
@@ -645,6 +689,7 @@ __device__ void tc_phase(Tc<__nv_bfloat16>& tc, StageFn stage, EpiFn epi) {
           }
         }
       }
+      if (!mine) continue;
       // the warps' partial sums, in warp order; then the epilogue
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
@@ -690,7 +735,7 @@ template <int MT, typename T, class EpiFn>
 __device__ void matmul(Tc<T>& tc, const Plan<T>& pl, int rows, const T* x, float* rs, EpiFn epi) {
   const int K = pl.K;
   if (pl.norm != nullptr && (!kTensorCores<T> || K > kTcSegK))
-    row_scales<T>(x, rows, K, pl.eps, rs);
+    row_scales<T>(x, rows, K, pl.eps, rs, tc.rank, tc.ranks);
   if constexpr (kTensorCores<T>) {
     tc_phase<MT>(
         tc, [&](int r0, int k0, uint8_t*) { stage_segment(tc, x, rows, r0, k0, rs); }, epi);

@@ -113,8 +113,8 @@ __global__ void __launch_bounds__(mm::kDecThreads, 1)
 // row's, the step's, then n_events; floats: the token row's, then the
 // step's.
 template <typename T>
-int launch(const void* const* ptrs, const int* ints, const float* floats, void* stream,
-           bool ragged) {
+int launch(const void* const* ptrs, const int* ints, const float* floats, int* launched,
+           void* stream, bool ragged) {
   LoopParams<T> p;
   bool ok = mm::fill_token_params(p.tok, ptrs, ints, floats);
   p.tok.emb_net = static_cast<const T*>(*ptrs++);
@@ -132,27 +132,28 @@ int launch(const void* const* ptrs, const int* ints, const float* floats, void* 
   void* args[] = {&p};
   // no slot has more attention items than blocks (fused_step.cuh)
   return mm::launch_cooperative(event_loop_kernel<T>, mm::kDecThreads, mm::decode_smem<T>(),
-                                1 << 20, args, stream, mm::kAttnItems);
+                                1 << 20, mm::decode_cluster<T>(), args, stream, launched,
+                                mm::kAttnItems);
 }
 
 }  // namespace
 
-extern "C" int mm_event_loop_f32(const void* const* ptrs, const int* ints, const float* floats,
-                                 void* stream) {
-  return launch<float>(ptrs, ints, floats, stream, false);
+extern "C" int mm_event_loop_f32(const void* const* ptrs, const int* ints,
+                                 const float* floats, int* launched, void* stream) {
+  return launch<float>(ptrs, ints, floats, launched, stream, false);
 }
 
-extern "C" int mm_event_loop_bf16(const void* const* ptrs, const int* ints, const float* floats,
-                                  void* stream) {
-  return launch<__nv_bfloat16>(ptrs, ints, floats, stream, false);
+extern "C" int mm_event_loop_bf16(const void* const* ptrs, const int* ints,
+                                  const float* floats, int* launched, void* stream) {
+  return launch<__nv_bfloat16>(ptrs, ints, floats, launched, stream, false);
 }
 
 extern "C" int mm_event_loop_ragged_f32(const void* const* ptrs, const int* ints,
-                                        const float* floats, void* stream) {
-  return launch<float>(ptrs, ints, floats, stream, true);
+                                        const float* floats, int* launched, void* stream) {
+  return launch<float>(ptrs, ints, floats, launched, stream, true);
 }
 
 extern "C" int mm_event_loop_ragged_bf16(const void* const* ptrs, const int* ints,
-                                         const float* floats, void* stream) {
-  return launch<__nv_bfloat16>(ptrs, ints, floats, stream, true);
+                                         const float* floats, int* launched, void* stream) {
+  return launch<__nv_bfloat16>(ptrs, ints, floats, launched, stream, true);
 }

@@ -45,34 +45,36 @@ __global__ void __launch_bounds__(mm::kDecThreads, 1)
 
 // The packed host arrays of mm::fill_step_params.
 template <typename T, typename KV>
-int launch(const void* const* ptrs, const int* ints, const float* floats, void* stream) {
+int launch(const void* const* ptrs, const int* ints, const float* floats, int* launched,
+           void* stream) {
   mm::StepParams<T, KV> p;
   if (!mm::fill_step_params(p, ptrs, ints, floats))
     return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&p};
   // no slot has more attention items than blocks (fused_step.cuh)
   return mm::launch_cooperative(fused_step_kernel<T, KV>, mm::kDecThreads,
-                                mm::decode_smem<T>(), 1 << 20, args, stream, mm::kAttnItems);
+                                mm::decode_smem<T>(), 1 << 20, mm::decode_cluster<T>(), args,
+                                stream, launched, mm::kAttnItems);
 }
 
 }  // namespace
 
-extern "C" int mm_fused_step_f32(const void* const* ptrs, const int* ints, const float* floats,
-                                 void* stream) {
-  return launch<float, float>(ptrs, ints, floats, stream);
+extern "C" int mm_fused_step_f32(const void* const* ptrs, const int* ints,
+                                 const float* floats, int* launched, void* stream) {
+  return launch<float, float>(ptrs, ints, floats, launched, stream);
 }
 
-extern "C" int mm_fused_step_bf16(const void* const* ptrs, const int* ints, const float* floats,
-                                  void* stream) {
-  return launch<__nv_bfloat16, __nv_bfloat16>(ptrs, ints, floats, stream);
+extern "C" int mm_fused_step_bf16(const void* const* ptrs, const int* ints,
+                                  const float* floats, int* launched, void* stream) {
+  return launch<__nv_bfloat16, __nv_bfloat16>(ptrs, ints, floats, launched, stream);
 }
 
 extern "C" int mm_fused_step_f32_int8(const void* const* ptrs, const int* ints,
-                                      const float* floats, void* stream) {
-  return launch<float, signed char>(ptrs, ints, floats, stream);
+                                      const float* floats, int* launched, void* stream) {
+  return launch<float, signed char>(ptrs, ints, floats, launched, stream);
 }
 
 extern "C" int mm_fused_step_bf16_int8(const void* const* ptrs, const int* ints,
-                                       const float* floats, void* stream) {
-  return launch<__nv_bfloat16, signed char>(ptrs, ints, floats, stream);
+                                       const float* floats, int* launched, void* stream) {
+  return launch<__nv_bfloat16, signed char>(ptrs, ints, floats, launched, stream);
 }

@@ -28,6 +28,45 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// ---- thread-block clusters ---------------------------------------------------
+//
+// A launch without a cluster dimension is a grid of one-block clusters:
+// rank 0 of 1.
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// the shared::cluster address of the byte at this block's shared address
+// `addr` in block `rank` of the cluster
+__device__ __forceinline__ uint32_t map_shared(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// 16 bytes into (a peer block's) shared memory at a shared::cluster address
+__device__ __forceinline__ void st_cluster(uint32_t addr, const uint4& v) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x),
+               "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// Every thread of every block of the cluster: the arrival releases this
+// thread's writes (to its own and to peers' shared memory), the wait
+// acquires every other thread's.  Subsumes __syncthreads().
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
 // ---- mbarriers -------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {

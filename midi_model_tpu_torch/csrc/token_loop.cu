@@ -42,23 +42,24 @@ __global__ void __launch_bounds__(mm::kDecThreads, 1)
 
 // The packed host arrays of mm::fill_token_params.
 template <typename T>
-int launch(const void* const* ptrs, const int* ints, const float* floats, void* stream) {
+int launch(const void* const* ptrs, const int* ints, const float* floats, int* launched,
+           void* stream) {
   mm::TokenParams<T> p;
   if (!mm::fill_token_params(p, ptrs, ints, floats))
     return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&p};
   return mm::launch_cooperative(token_row_kernel<T>, mm::kDecThreads, mm::decode_smem<T>(),
-                                1 << 20, args, stream);
+                                1 << 20, mm::decode_cluster<T>(), args, stream, launched);
 }
 
 }  // namespace
 
-extern "C" int mm_token_row_f32(const void* const* ptrs, const int* ints, const float* floats,
-                                void* stream) {
-  return launch<float>(ptrs, ints, floats, stream);
+extern "C" int mm_token_row_f32(const void* const* ptrs, const int* ints,
+                                const float* floats, int* launched, void* stream) {
+  return launch<float>(ptrs, ints, floats, launched, stream);
 }
 
-extern "C" int mm_token_row_bf16(const void* const* ptrs, const int* ints, const float* floats,
-                                 void* stream) {
-  return launch<__nv_bfloat16>(ptrs, ints, floats, stream);
+extern "C" int mm_token_row_bf16(const void* const* ptrs, const int* ints,
+                                 const float* floats, int* launched, void* stream) {
+  return launch<__nv_bfloat16>(ptrs, ints, floats, launched, stream);
 }

@@ -10,7 +10,10 @@ of the sources, and is built at first use — never at import.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`call` raises if that is not 0.  Each kernel wrapper counts its own
 launches in :data:`LAUNCHES` (one per launch, nowhere else), so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels; the decode kernels'
+wrappers also count, under ``<name>.clustered``, the launches that ran in
+thread-block clusters, and keep each kernel's last launch shape in
+:data:`SHAPES` (:func:`count_launch`).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -35,6 +38,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # kernel name -> launches since the caller last cleared it
 LAUNCHES: collections.Counter = collections.Counter()
+# a decode kernel's last launch: (cluster size, blocks)
+SHAPES: Dict[str, Tuple[int, int]] = {}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PAGED = [_P] * 16 + [_I] * 9 + [_P]  # both paged kernels
@@ -42,8 +47,10 @@ _F = ctypes.c_float
 _ATTN = [_P] * 5 + [_I] * 5 + [_P, _F, _P]
 _ATTN_BWD = [_P] * 10 + [_I] * 5 + [_P, _P]
 # the whole-step decode kernels take host arrays of pointers, ints and
-# floats (their parameter structs, filled on the C side) and the stream
-_PACKED = [_P] * 4
+# floats (their parameter structs, filled on the C side), an int[2] they
+# fill with the cluster size and the blocks they launched with, and the
+# stream
+_PACKED = [_P] * 5
 _SIGNATURES = {
     "mm_sampler": [_P] * 5 + [_I] * 3 + [_P],
     "mm_paged_decode_f32": _PAGED,
@@ -159,14 +166,27 @@ def call(name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
-def call_packed(name: str, ptrs, ints, floats, device: torch.device) -> None:
+def call_packed(name: str, ptrs, ints, floats, device: torch.device) -> Tuple[int, int]:
     """Launch a kernel that takes its parameters as three host arrays
-    (pointers — a tensor's data pointer, or None for null — ints, floats)."""
+    (pointers — a tensor's data pointer, or None for null — ints, floats);
+    return the cluster size and the blocks it launched with."""
+    launched = (ctypes.c_int * 2)()
     arrays = ((ctypes.c_void_p * len(ptrs))(*[p or None for p in ptrs]),
               (ctypes.c_int * len(ints))(*ints),
-              (ctypes.c_float * len(floats))(*floats))
+              (ctypes.c_float * len(floats))(*floats), launched)
     call(name, *[ctypes.cast(a, ctypes.c_void_p) for a in arrays],
          stream_ptr(device))
+    return launched[0], launched[1]
+
+
+def count_launch(kernel: str, shape: Tuple[int, int]) -> None:
+    """Count one launch of ``kernel`` of ``shape`` (cluster size, blocks) in
+    :data:`LAUNCHES`, and under ``<kernel>.clustered`` when it ran in
+    clusters of more than one block; keep the shape in :data:`SHAPES`."""
+    LAUNCHES[kernel] += 1
+    if shape[0] > 1:
+        LAUNCHES[kernel + ".clustered"] += 1
+    SHAPES[kernel] = shape
 
 
 def stream_ptr(device: torch.device) -> int:

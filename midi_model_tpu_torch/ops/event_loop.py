@@ -168,8 +168,9 @@ def decode_event_block(model, config, fused: fs.FusedWeights,
     ptrs = (tptrs + [emb_net.data_ptr(), ev_acc.data_ptr()] + sptrs
             + [fused.final_norm.data_ptr()])
     name = "mm_event_loop_f32" if dtype == torch.float32 else "mm_event_loop_bf16"
-    _build.call_packed(name, ptrs, tints + sints + [n_events], tfloats + sfloats, device)
-    _build.LAUNCHES["event_loop"] += 1
+    shape = _build.call_packed(name, ptrs, tints + sints + [n_events], tfloats + sfloats,
+                               device)
+    _build.count_launch("event_loop", shape)
     del tkeep, skeep
     return rows, rms_norm(xs, fused.final_norm, config.net.rms_norm_eps), pools
 
@@ -287,7 +288,8 @@ def decode_event_block_ragged(model, config, fused: fs.FusedWeights,
             + [fused.final_norm.data_ptr(), alive.data_ptr()])
     name = ("mm_event_loop_ragged_f32" if dtype == torch.float32
             else "mm_event_loop_ragged_bf16")
-    _build.call_packed(name, ptrs, tints + sints + [n_events], tfloats + sfloats, device)
-    _build.LAUNCHES["event_loop_ragged"] += 1
+    shape = _build.call_packed(name, ptrs, tints + sints + [n_events], tfloats + sfloats,
+                               device)
+    _build.count_launch("event_loop_ragged", shape)
     del tkeep, skeep
     return rows, rms_norm(xs, fused.final_norm, config.net.rms_norm_eps), pools

@@ -320,8 +320,8 @@ def fused_decode_step(fused: FusedWeights, cfg, x: torch.Tensor,
     name = "mm_fused_step_" + ("f32" if fused.wqkv.dtype == torch.float32 else "bf16")
     if pools.quantized:
         name += "_int8"
-    _build.call_packed(name, ptrs, ints, floats, x.device)
-    _build.LAUNCHES["fused_step_int8" if pools.quantized else "fused_step"] += 1
+    shape = _build.call_packed(name, ptrs, ints, floats, x.device)
+    _build.count_launch("fused_step_int8" if pools.quantized else "fused_step", shape)
     if pools.quantized:
         _append_int8(pools, *fresh, wpos, active, cfg, page_size=page_size,
                      pages_per_slot=pages_per_slot)

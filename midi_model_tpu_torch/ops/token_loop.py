@@ -258,7 +258,6 @@ def decode_token_row(model, config, hidden: torch.Tensor, masks, temp, top_p,
         forced_pad=forced_pad, allow=allow, n_events=1, bar=bar, clock=clock)
     name = ("mm_token_row_f32" if model.dtype == torch.float32
             else "mm_token_row_bf16")
-    _build.call_packed(name, ptrs, ints, floats, device)
-    _build.LAUNCHES["token_row"] += 1
+    _build.count_launch("token_row", _build.call_packed(name, ptrs, ints, floats, device))
     del keep
     return row[0], ended

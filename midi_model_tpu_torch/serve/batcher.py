@@ -61,7 +61,9 @@ of its group's prefill), ``batcher.admit`` (one prefill forward, with the
 also ``batcher.attention_items`` and ``batcher.attention_split_slots``, the
 whole step's attention work items a layer and the slots split over more
 than one, summed over the chunk's events by ``ops.fused_step``'s item rule
-from the host's index mirror) and ``batcher.wait_rows``
+from the host's index mirror; and ``batcher.clustered_launches``, the
+chunk's decode-kernel launches that ran in thread-block clusters, counted
+when there are any) and ``batcher.wait_rows``
 (the host waiting for a chunk's rows, with ``batcher.rows_delivered``).
 A hybrid event net adds ``batcher.state_install`` (one admission's final
 states written into their slots: ``rids``, ``bytes``) with the counters
@@ -82,6 +84,7 @@ import torch
 from ..models.config import HybridConfig, MIDIModelConfig
 from ..models.hybrid import GraphedDecode
 from ..models.midinet import MIDINet
+from ..ops import _build
 from ..ops import event_loop
 from ..ops import token_loop
 from ..ops.fused_step import chunk_attention_counts, fused_decode_step, prepare_fused
@@ -113,6 +116,11 @@ class Finished:
     request_id: int
     rows: np.ndarray  # [n, T] generated rows (prompt excluded)
     reason: str  # "eos" | "budget"
+
+
+def _clustered_launches() -> int:
+    """Decode-kernel launches so far that ran in thread-block clusters."""
+    return sum(n for name, n in _build.LAUNCHES.items() if name.endswith(".clustered"))
 
 
 class ContinuousBatcher:
@@ -449,6 +457,7 @@ class ContinuousBatcher:
                         self._host_index(), self._active[self._mine], self.chunk, self.max_seq)
                     profiling.count("batcher.attention_items", items)
                     profiling.count("batcher.attention_split_slots", split)
+            clustered = _clustered_launches() if sp else 0
             snap = (self._active.copy(), np.asarray([s.request_id for s in self.slots]))
             kn = self._device_knobs()
             t_max = self.tokenizer.max_token_seq
@@ -468,6 +477,8 @@ class ContinuousBatcher:
                     0, dtype=torch.int32)
             else:
                 rows = self._per_event_chunk(kn, knobs, gumbel)
+            if sp and _clustered_launches() > clustered:
+                profiling.count("batcher.clustered_launches", _clustered_launches() - clustered)
             rows = rows.transpose(0, 1)
             if self.device.type != "cuda":
                 return rows.numpy(), None, snap

@@ -10,6 +10,10 @@ the constants in the CUDA source:
   layout of the PTX ISA, which together must reproduce W @ x;
 - the tile plan (which block takes which item, which warp which k) and the
   order of the reduction, which must give the same bits for any grid size;
+- the staging of an activation segment by a thread-block cluster
+  (``stage_segment``, ``row_scales``): each block loads and norms its share
+  of the rows and writes each unit once into every block, which must end
+  with the bits one block staging every row holds;
 - the host-side helpers the phase clock added (``phase_kinds``,
   ``phase_clock``, and ``chip_smoke.phase_clock_summary``).
 """
@@ -31,7 +35,8 @@ CSRC = ROOT / "midi_model_tpu_torch" / "csrc"
 def _constants() -> dict:
     src = (CSRC / "decode.cuh").read_text() + (CSRC / "common.cuh").read_text()
     found = {}
-    for name in ("kDecThreads", "kTcRows", "kTcBoxK", "kTcBoxRows", "kTcSegK"):
+    for name in ("kDecThreads", "kTcRows", "kTcBoxK", "kTcBoxRows", "kTcSegK", "kDecCluster",
+                 "kTcMaxCluster"):
         m = re.search(rf"constexpr (?:int|size_t) {name} = (\d+);", src)
         assert m, f"{name} not found in decode.cuh"
         found[name] = int(m.group(1))
@@ -43,6 +48,7 @@ WARPS = C["kDecThreads"] // 32
 ROWS, BOX_K, BOX_ROWS, SEG_K = C["kTcRows"], C["kTcBoxK"], C["kTcBoxRows"], C["kTcSegK"]
 CHUNK_K = BOX_K * WARPS
 LANES = np.arange(32)
+CLUSTERS = (1, 2, 4)  # the cluster sizes stage_segment takes (kTcMaxCluster)
 
 
 def bf16_values(rng, shape) -> np.ndarray:
@@ -193,6 +199,225 @@ def emulate_phase(ws, x: np.ndarray, grid: int) -> np.ndarray:
                             if col < n_cols and b < rows:
                                 out[b, col, mm] = total[mcol, n]
     return out
+
+
+# ---- staging by a cluster ------------------------------------------------------
+
+def bf16_round(a) -> np.ndarray:
+    """f32 values rounded to bf16 (to nearest, ties to even), as f32."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def fma_chain(values: np.ndarray) -> np.ndarray:
+    """sum of v * v over the last axis in order, one rounding to f32 a term
+    (the kernels' fused multiply-adds)."""
+    s = np.zeros(values.shape[:-1], np.float32)
+    for j in range(values.shape[-1]):
+        s = (s.astype(np.float64) + values[..., j].astype(np.float64) ** 2).astype(np.float32)
+    return s
+
+
+def butterfly(lanes: np.ndarray) -> np.ndarray:
+    """warp_sum over the last axis (32 lanes): xor-shuffle adds in f32; every
+    lane ends with the same value (a + b == b + a), lane 0's returned."""
+    x = lanes.astype(np.float32)
+    for off in (16, 8, 4, 2, 1):
+        x = (x + x[..., LANES ^ off]).astype(np.float32)
+    assert (x == x[..., :1]).all()
+    return x[..., 0]
+
+
+def rsqrt_mean(s: np.ndarray, k_total: int, eps: float) -> np.ndarray:
+    return (1.0 / np.sqrt((s / np.float32(k_total)).astype(np.float32) + np.float32(eps))
+            ).astype(np.float32)
+
+
+def whole_row_scales(x: np.ndarray, eps: float) -> np.ndarray:
+    """stage_segment's rs of each row of x [B, K <= kTcSegK]: each unit's
+    sum of squares, lane l adds units l, l + 32, .. in order, the butterfly."""
+    units_ss = fma_chain(x.reshape(x.shape[0], -1, 8))  # [B, units]
+    lanes = np.zeros((x.shape[0], 32), np.float32)
+    for v in range(units_ss.shape[1]):
+        lanes[:, v % 32] = (lanes[:, v % 32] + units_ss[:, v]).astype(np.float32)
+    return rsqrt_mean(butterfly(lanes), x.shape[1], eps)
+
+
+def wide_row_scales(x: np.ndarray, eps: float) -> np.ndarray:
+    """row_scales' rs of each row of x [B, K]: lane l takes k = 8l + 256j ..
+    8l + 256j + 7 for j = 0, 1, .. in order; the butterfly."""
+    b, k_total = x.shape
+    per_lane = x.reshape(b, k_total // 256, 32, 8).transpose(0, 2, 1, 3).reshape(b, 32, -1)
+    return rsqrt_mean(butterfly(fma_chain(per_lane)), k_total, eps)
+
+
+def block_units(rank: int, ranks: int, units: int) -> list:
+    """The units (row, unit) each thread of block `rank` of a cluster of
+    `ranks` stages (stage_segment), in order: its rows rank * 32 / ranks ..
+    in rounds of the whole rows whose units fit 8 a thread, units e = tid +
+    256 i of a round's rows."""
+    threads = C["kDecThreads"]
+    per = ROWS // ranks
+    round_rows = min(per, 8 * threads // units)
+    out = []
+    for n0 in range(rank * per, (rank + 1) * per, round_rows):
+        owned = min(round_rows, (rank + 1) * per - n0) * units
+        for t in range(threads):
+            for i in range(8):
+                e = t + threads * i
+                if e < owned:
+                    out.append((n0 + e // units, e % units))
+    assert len(out) == per * units  # every unit of the block's rows, once
+    return out
+
+
+def row_scales_rows(rows: int, rank: int, ranks: int) -> list:
+    """decode.cuh row_scales: the rows the warps of block `rank` take."""
+    per = ROWS // ranks
+    got = []
+    for warp in range(WARPS):
+        i = warp
+        while (b := i // per * ROWS + rank * per + i % per) < rows:
+            got.append(b)
+            i += WARPS
+    return got
+
+
+def slots(n: np.ndarray, u: np.ndarray) -> np.ndarray:
+    """The bf16 slots of units (n, u) of the staged segment: [..., 8]."""
+    return (n * SEG_K * 2 + ((u ^ (n & 7)) << 4))[..., None] // 2 + np.arange(8)
+
+
+def stage_by_cluster(x: np.ndarray, w, eps: float, r0: int, k0: int, ranks: int):
+    """Every block of a cluster of `ranks` running stage_segment for the pass
+    at r0 and the segment at k0 of x [B, K] (norm weight w, or None), with
+    the row scales of row_scales (rows wider than a segment) or of its own
+    staged sums.  Returns each block's segment (bf16 slots; NaN where
+    nothing was written), the writes of finished units [block written to,
+    row, unit] and the blocks that took each row's scale {row: [block]}."""
+    b, k_total = x.shape
+    kn = min(SEG_K, -(-k_total // BOX_K) * BOX_K - k0)
+    units = kn // 8
+    whole = w is not None and k_total <= SEG_K
+    per = ROWS // ranks
+    # the loads: zeros past B and past K
+    raw = np.zeros((ROWS, kn), np.float32)
+    rows_in = max(0, min(ROWS, b - r0))
+    k_in = max(0, min(kn, k_total - k0))
+    raw[:rows_in, :k_in] = x[r0:r0 + rows_in, k0:k0 + k_in]
+    raw = raw.reshape(ROWS, units, 8)
+    segs = np.full((ranks, ROWS * SEG_K), np.nan, np.float32)
+    writes = np.zeros((ranks, ROWS, units), np.int64)
+    scaled = {}
+    if w is not None and not whole:
+        for rank in range(ranks):
+            for row in row_scales_rows(b, rank, ranks):
+                scaled.setdefault(row, []).append(rank)
+        rs = wide_row_scales(x, eps)
+    for rank in range(ranks):
+        walk = np.array(block_units(rank, ranks, units))
+        n, u = walk[:, 0], walk[:, 1]
+        vals = raw[n, u]
+        if w is not None:
+            if whole:  # a warp per per / 8 rows, from this block's own sums
+                got = sorted({(nn, uu) for nn, uu in zip(n, u)})
+                assert got == [(nn, uu) for nn in range(rank * per, rank * per + per)
+                               for uu in range(units)], "a row's units staged elsewhere"
+                for warp in range(WARPS):
+                    for r in range(per // WARPS):
+                        row = r0 + rank * per + warp * (per // WARPS) + r
+                        if row < b:
+                            scaled.setdefault(row, []).append(rank)
+                rs = np.zeros(r0 + ROWS, np.float32)
+                rs[r0:r0 + rows_in] = whole_row_scales(raw[:rows_in].reshape(rows_in, -1)[
+                    :, :k_total], eps)
+            live = (r0 + n < b) & (k0 + 8 * u < k_total)
+            r = rs[np.minimum(r0 + n, len(rs) - 1)][:, None]
+            wk = (w if whole else w[k0:])[np.minimum(8 * u, k_total - k0 - 8)[:, None]
+                                          + np.arange(8)]
+            normed = bf16_round(bf16_round(vals * r).astype(np.float64) * wk)
+            vals = np.where(live[:, None], normed, vals)
+        for dest in range(ranks):
+            segs[dest][slots(n, u)] = vals
+            np.add.at(writes[dest], (n, u), 1)
+    return segs, writes, scaled
+
+
+def one_block_segment(x: np.ndarray, w, eps: float, r0: int, k0: int) -> np.ndarray:
+    """The segment one block stages, from the plain RMSNorm rounding points
+    (T(w * T(x * rs))) and each row's scale taken over the whole row."""
+    b, k_total = x.shape
+    kn = min(SEG_K, -(-k_total // BOX_K) * BOX_K - k0)
+    units = kn // 8
+    seg = np.full(ROWS * SEG_K, np.nan, np.float32)
+    n, u = np.meshgrid(np.arange(ROWS), np.arange(units), indexing="ij")
+    vals = np.zeros((ROWS, kn), np.float32)
+    rows_in = max(0, min(ROWS, b - r0))
+    k_in = max(0, min(kn, k_total - k0))
+    vals[:rows_in, :k_in] = x[r0:r0 + rows_in, k0:k0 + k_in]
+    if w is not None and rows_in:
+        rs = (whole_row_scales if k_total <= SEG_K else wide_row_scales)(x, eps)
+        normed = bf16_round(bf16_round(vals[:rows_in, :k_in] * rs[r0:r0 + rows_in, None])
+                            .astype(np.float64) * w[k0:k0 + k_in])
+        vals[:rows_in, :k_in] = normed
+    seg[slots(n, u)] = vals.reshape(ROWS, units, 8)
+    return seg
+
+
+def test_cluster_constants():
+    assert C["kDecCluster"] in CLUSTERS and C["kTcMaxCluster"] == max(CLUSTERS)
+    assert all(ROWS % c == 0 and ROWS // c % WARPS == 0 for c in CLUSTERS)
+
+
+@pytest.mark.parametrize("norm", [False, True], ids=["raw", "normed"])
+@pytest.mark.parametrize("k_total", [1024, 2048, 4096])
+@pytest.mark.parametrize("b", [1, 7, 32, 33, 64])
+@pytest.mark.parametrize("ranks", CLUSTERS)
+def test_cluster_staging_matches_one_block(ranks, b, k_total, norm):
+    """Every block of a cluster ends each pass holding the segment one block
+    stages, bit for bit; each (row, unit) lands once in each block; every
+    row's scale is taken once in the cluster, by the block that stages the
+    row, in the order one block takes it (so the scales are the same)."""
+    rng = np.random.default_rng(b * 7919 + k_total + ranks)
+    x = bf16_values(rng, (b, k_total))
+    w = bf16_values(rng, (k_total,)) + 1.0 if norm else None
+    eps = 1e-5
+    # the whole-row path stages one segment; a wider row's every segment
+    segments = [0] if norm and k_total <= SEG_K else range(0, k_total, SEG_K)
+    for r0 in range(0, b, ROWS):
+        for k0 in segments:
+            want = one_block_segment(x, w, eps, r0, k0)
+            segs, writes, scales = stage_by_cluster(x, w, eps, r0, k0, ranks)
+            written = ~np.isnan(want)
+            for blk in range(ranks):
+                assert (~np.isnan(segs[blk]) == written).all()
+                assert segs[blk][written].tobytes() == want[written].tobytes()
+            assert (writes == 1).all()
+            if not norm:
+                assert not scales
+                continue
+            # whole rows: this pass's rows; row_scales: every row, once a phase
+            want_rows = range(r0, min(b, r0 + ROWS)) if k_total <= SEG_K else range(b)
+            assert sorted(scales) == list(want_rows)
+            for row, blocks in scales.items():
+                assert blocks == [row % ROWS // (ROWS // ranks)]
+
+
+@pytest.mark.parametrize("ranks", CLUSTERS)
+@pytest.mark.parametrize("n_items,grid", [(192, 132), (64, 132), (64, 128), (256, 132),
+                                          (5, 8)])
+def test_cluster_blocks_stage_in_step(ranks, n_items, grid):
+    """tc_phase: every block of a cluster runs the items of the cluster's
+    first block (the most in the cluster), so they stage the same segments
+    in the same order, and no block has more items than that."""
+    grid -= grid % ranks
+    for lead in range(0, grid, ranks):
+        steps = len(block_items(n_items, lead, grid))
+        for block in range(lead, lead + ranks):
+            assert len(block_items(n_items, block, grid)) <= steps
+    # the cluster's blocks together own every item once
+    owned = sorted(i for blk in range(grid) for i in block_items(n_items, blk, grid))
+    assert owned == list(range(n_items))
 
 
 @pytest.mark.parametrize("n_cols,k_total,rows,mt", [

@@ -271,6 +271,44 @@ def test_event_loop_attention_counters(packed, pipeline, monkeypatch):
     assert counters["batcher.slot_steps"] == 2 * 3 * len(seen)
 
 
+
+@pytest.mark.parametrize("cluster", [1, 2], ids=["unclustered", "clustered"])
+def test_clustered_launches_counter(packed, cluster, monkeypatch):
+    """``batcher.clustered_launches``: the decode-kernel launches of each
+    chunk that ran in thread-block clusters (``_build.count_launch``), one a
+    chunk on the ragged event loop; absent where none did (the CPU's plain
+    versions launch nothing)."""
+    from midi_model_tpu_torch.ops import _build
+    from midi_model_tpu_torch.ops import event_loop as el
+
+    cfg, model = packed
+    ragged = el.decode_event_block_ragged
+
+    def launched(*args, **kw):  # as the CUDA wrapper counts its launch
+        _build.count_launch("event_loop_ragged", (cluster, 132))
+        return ragged(*args, **kw)
+
+    monkeypatch.setattr(el, "decode_event_block_ragged", launched)
+    monkeypatch.setattr(_build, "LAUNCHES", type(_build.LAUNCHES)())
+    monkeypatch.setattr(_build, "SHAPES", {})
+    b = ContinuousBatcher(model, cfg, n_slots=2, max_seq=64, chunk=3, greedy=True,
+                          disable_eos=True, fused=True)
+    assert b.path == "event_loop"
+    with profiling.recording():
+        for n, budget in PLAN:
+            b.submit(bos_prompt(cfg.tokenizer, n - 1), max_events=budget)
+        b.run_all()
+    spans, counters = profiling.snapshot()
+    chunks = len(named(spans, "batcher.dispatch"))
+    assert chunks == _build.LAUNCHES["event_loop_ragged"] > 0
+    if cluster > 1:
+        assert counters["batcher.clustered_launches"] == chunks
+        assert _build.LAUNCHES["event_loop_ragged.clustered"] == chunks
+    else:
+        assert "batcher.clustered_launches" not in counters
+        assert "event_loop_ragged.clustered" not in _build.LAUNCHES
+
+
 def test_submit_group_spans(tiny):
     cfg, model = tiny
     tok = cfg.tokenizer
