@@ -247,10 +247,10 @@ class HybridConfig(TransformerConfig):
 
 def require_llama(config: "MIDIModelConfig", what: str) -> None:
     """Raise where ``config``'s event net is a hybrid, which ``what`` does
-    not take (a hybrid is served by the continuous batcher alone)."""
+    not take (a hybrid is served by the continuous batcher on one device)."""
     if isinstance(config.net, HybridConfig):
         raise ValueError(f"{what} does not take a hybrid event net "
-                         f"({HybridConfig.MODEL_TYPE}): only the continuous batcher serves one")
+                         f"({HybridConfig.MODEL_TYPE}): the batcher serves one on one device")
 
 
 @dataclass(eq=False)

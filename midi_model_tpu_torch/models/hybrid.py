@@ -28,11 +28,13 @@ Three ways through the stack, as :class:`models.llama.LlamaStack`'s:
   the scan over whole rows);
 - :meth:`HybridStack.prefill_paged`, a bucket of prompts of their own
   lengths: the attention layers' K/V into paged pools, and each prompt's
-  final SSM and conv states returned (:class:`SlotState`) for the caller
-  to install into the prompt's slot;
+  final SSM and conv states installed into the prompt's slot;
 - :meth:`HybridStack.decode_paged`, one row per slot: the streaming paged
   kernel on the attention layers, :func:`ops.ssm.ssm_step` on the Mamba-2
   layers.
+
+The paged paths take and return the stack's per-slot storage
+(:class:`HybridStorage`), as ``LlamaStack``'s take its pools.
 
 Paged pools hold the attention layers only.  The paged kernels take at
 most 16 query heads a slot, so a slot's kv heads are split over
@@ -61,6 +63,7 @@ from ..ops import paged_allheads as pa
 from ..ops import ssm
 from ..ops.attention import causal_attention
 from ..ops.hybrid_norm import add_rms_norm, swiglu
+from ..utils import profiling
 from .config import HybridConfig
 from .llama import Attention, RMSNorm, _linear, resolve_device
 
@@ -74,11 +77,19 @@ class SlotState(NamedTuple):
     ssm: torch.Tensor
     conv: torch.Tensor
 
-    def nbytes(self, slots: Optional[int] = None) -> int:
-        """Bytes of ``slots`` slots' state (every slot by default)."""
-        n = self.ssm.element_size() * self.ssm[:, 0].numel() + (
-            self.conv.element_size() * self.conv[:, 0].numel())
-        return n * (self.ssm.shape[1] if slots is None else slots)
+    def nbytes(self) -> int:
+        """Bytes of every slot's state."""
+        return self.ssm.element_size() * self.ssm.numel() + (
+            self.conv.element_size() * self.conv.numel())
+
+
+class HybridStorage(NamedTuple):
+    """A hybrid net's per-slot storage: the attention layers' pools, the
+    Mamba-2 layers' states, on the card the decode step captured over both."""
+
+    pools: pa.PagedPools
+    state: SlotState
+    graph: Optional["GraphedDecode"] = None
 
 
 class MambaMixer(nn.Module):
@@ -191,21 +202,27 @@ class HybridStack(nn.Module):
         """(virtual layers, kv heads each) of the paged pools."""
         return len(self.cfg.attention_layers) * self.kv_split, self.cfg.kv_heads // self.kv_split
 
-    def alloc_pools(self, slots: int, pages_per_slot: int, page_size: int) -> pa.PagedPools:
-        """Zeroed pools of the model dtype for the attention layers."""
+    def alloc_storage(self, slots: int, pages_per_slot: int, page_size: int,
+                      kv_int8: bool = False) -> HybridStorage:
+        """Zeroed storage for ``slots`` slots (no int8 pools); on the card
+        the step is captured over it before any prompt is admitted."""
+        if kv_int8:
+            raise ValueError("a hybrid event net keeps its pools in the model dtype: no kv_int8")
+        cfg, weight = self.cfg, self.norm.weight
         layers, kv = self.pool_geometry()
-        return pa.alloc_pools(kv, layers * slots * pages_per_slot, page_size, self.cfg.head_dim,
-                              self.norm.weight.dtype, self.norm.weight.device)
-
-    def alloc_state(self, slots: int) -> SlotState:
-        cfg = self.cfg
+        pools = pa.alloc_pools(kv, layers * slots * pages_per_slot, page_size, cfg.head_dim,
+                               weight.dtype, weight.device)
         m = len(cfg.mamba_layers)
-        device = self.norm.weight.device
-        return SlotState(
+        state = SlotState(
             torch.zeros((m, slots, cfg.mamba_n_heads, cfg.mamba_d_head, cfg.mamba_d_state),
-                        dtype=torch.float32, device=device),
+                        dtype=torch.float32, device=weight.device),
             torch.zeros((m, slots, cfg.mamba_d_conv - 1, cfg.conv_dim),
-                        dtype=self.norm.weight.dtype, device=device))
+                        dtype=weight.dtype, device=weight.device))
+        storage = HybridStorage(pools, state)
+        if weight.device.type == "cuda":
+            storage = storage._replace(graph=GraphedDecode(
+                self, storage, slots, page_size=page_size, pages_per_slot=pages_per_slot))
+        return storage
 
     # ---- the three paths -------------------------------------------------
 
@@ -235,17 +252,19 @@ class HybridStack(nn.Module):
             mixed, states = layer.self_attn.o_proj(attn.reshape(b, s, -1)), (k, v)
         return layer.finish(x, mixed), states
 
-    def prefill_paged(self, emb: torch.Tensor, pools: pa.PagedPools, *, page_size: int,
+    def prefill_paged(self, emb: torch.Tensor, storage: HybridStorage, *, page_size: int,
                       pages_per_slot: int, slots: Optional[torch.Tensor] = None,
-                      n_slots: Optional[int] = None, lengths: Optional[torch.Tensor] = None,
-                      tp_group=None) -> Tuple[torch.Tensor, pa.PagedPools, SlotState]:
-        """Prompts ``emb [G, S, D]`` of ``lengths`` rows (all S by default),
-        rows past a prompt's length padding: each attention layer's K/V are
-        written into the prompt's slot's pages (whole pages, as
-        ``LlamaStack.prefill_paged``).  Returns (hidden [G, S, D] after the
-        final norm, pools, the prompts' states after their last rows: a
-        :class:`SlotState` of G slots, which the caller installs into the
-        prompts' slots)."""
+                      n_slots: Optional[int] = None, lengths=None, tp_group=None
+                      ) -> Tuple[torch.Tensor, HybridStorage]:
+        """Prompts ``emb [G, S, D]`` of ``lengths`` rows (int [G], all S by
+        default), rows past a prompt's length padding: each attention
+        layer's K/V go to the prompt's slot's pages (whole pages, as
+        ``LlamaStack.prefill_paged``), and its states after its last row
+        into its slot (span ``batcher.state_install``: the enclosing span's
+        ``rids``, ``bytes``).  Counters ``batcher.ssm_scan_rows`` and
+        ``_pad_rows``: the scan's whole chunks up to each prompt's length
+        within the bucket, and their pad rows (host ``lengths`` spare a
+        wait for the device).  Returns (hidden [G, S, D], storage)."""
         if tp_group is not None:
             raise ValueError("a hybrid event net takes no model axis")
         g_n, s, _ = emb.shape
@@ -253,8 +272,14 @@ class HybridStack(nn.Module):
         if slots is None:
             slots = torch.arange(g_n, device=emb.device)
             n_slots = g_n
-        if lengths is None:
-            lengths = torch.full((g_n,), s, dtype=torch.int32, device=emb.device)
+        lengths = torch.as_tensor([s] * g_n if lengths is None else lengths, dtype=torch.int32)
+        if profiling.on():  # whole chunks up to each prompt's length, within the bucket
+            host = lengths.tolist()
+            ran = sum(min(-(-n // cfg.mamba_chunk_size) * cfg.mamba_chunk_size, s) for n in host)
+            profiling.count("batcher.ssm_scan_rows", ran)
+            profiling.count("batcher.ssm_scan_pad_rows", ran - sum(host))
+        lengths = lengths.to(emb.device, non_blocking=True)
+        pools = storage.pools
         layers, kv = self.pool_geometry()
         if pools.k.shape[0] != layers * n_slots * pages_per_slot:
             raise ValueError(f"pools hold {pools.k.shape[0]} pages, expected "
@@ -286,12 +311,19 @@ class HybridStack(nn.Module):
                 write(pools.k, pa.pack_heads(k[:, :, heads], kv, cfg.head_dim), vl)
                 write(pools.v, pa.pack_heads(v[:, :, heads], kv, cfg.head_dim), vl)
             ai += 1
-        return self.norm(x), pools, SlotState(torch.stack(ssm_states), torch.stack(conv_states))
+        hidden = self.norm(x)
+        group = SlotState(torch.stack(ssm_states), torch.stack(conv_states))
+        with profiling.span("batcher.state_install", inherit=("rids",)) as sp:
+            if sp:
+                sp.attrs["bytes"] = group.nbytes()
+            storage.state.ssm[:, slots] = group.ssm
+            storage.state.conv[:, slots] = group.conv
+        return hidden, storage
 
-    def decode_paged(self, x: torch.Tensor, pools: pa.PagedPools,
+    def decode_paged(self, x: torch.Tensor, storage: HybridStorage,
                      index: Union[int, torch.Tensor], active: Optional[torch.Tensor] = None,
-                     *, page_size: int, pages_per_slot: int, state: SlotState, tp_group=None
-                     ) -> Tuple[torch.Tensor, pa.PagedPools]:
+                     *, page_size: int, pages_per_slot: int, tp_group=None
+                     ) -> Tuple[torch.Tensor, HybridStorage]:
         """One row per slot, ``x [B, D]`` (input embeddings), ``index`` each
         slot's rows before it (int [B] or one int), ``active`` bool [B]: an
         inactive slot attends over nothing and its output is garbage the
@@ -300,9 +332,14 @@ class HybridStack(nn.Module):
         q pre-scaled by ``attention_multiplier``); the Mamba-2 layers advance
         every slot's state in place.  Each residual add runs fused with the
         norm after it, and the MLP's SwiGLU in one launch
-        (``ops.hybrid_norm``).  Returns (hidden [B, D], pools)."""
+        (``ops.hybrid_norm``).  A captured step replays (index and active
+        tensors; its hidden is overwritten by the next call).  Returns
+        (hidden [B, D], storage)."""
         if tp_group is not None:
             raise ValueError("a hybrid event net takes no model axis")
+        if storage.graph is not None:
+            return storage.graph(x, index, active), storage
+        pools, state = storage.pools, storage.state
         b, _ = x.shape
         cfg = self.cfg
         capacity = pages_per_slot * page_size
@@ -333,7 +370,7 @@ class HybridStack(nn.Module):
             mlp = layer.shared_mlp
             x, hn = add_rms_norm(x, mlp.output_linear(swiglu(mlp.input_linear(h))), next_norm,
                                  eps, rm)
-        return hn, pools
+        return hn, storage
 
     def _attend(self, layer: HybridLayer, ai: int, hn: torch.Tensor, pools: pa.PagedPools, *,
                 write_pos: torch.Tensor, lengths: torch.Tensor, max_length: Optional[int],
@@ -379,15 +416,15 @@ class HybridStack(nn.Module):
 
 
 class GraphedDecode:
-    """:meth:`HybridStack.decode_paged` over fixed pools and state for a
-    fixed batch, captured once as a CUDA graph and replayed: a call copies
-    its inputs into the graph's own and returns the graph's output tensor,
+    """:meth:`HybridStack.decode_paged` over a fixed storage for a fixed
+    batch, captured once as a CUDA graph and replayed: a call copies its
+    inputs into the graph's own and returns the graph's output tensor,
     which the next call overwrites.  Capturing runs the step on its inputs
     twice first (zeros, every slot inactive): that appends a row at position
-    0 of every slot's pages and advances every slot's state, so capture
-    before any prompt is admitted."""
+    0 of every slot's pages and advances every slot's state, so
+    :meth:`HybridStack.alloc_storage` captures before any admission."""
 
-    def __init__(self, net: HybridStack, pools: pa.PagedPools, state: SlotState, batch: int, *,
+    def __init__(self, net: HybridStack, storage: HybridStorage, batch: int, *,
                  page_size: int, pages_per_slot: int):
         weight = net.norm.weight
         self.x = torch.zeros((batch, net.cfg.hidden_size), dtype=weight.dtype,
@@ -395,8 +432,8 @@ class GraphedDecode:
         self.index = torch.zeros((batch,), dtype=torch.int32, device=weight.device)
         self.active = torch.zeros((batch,), dtype=torch.bool, device=weight.device)
 
-        def step():
-            return net.decode_paged(self.x, pools, self.index, self.active, state=state,
+        def step():  # (the storage holds no graph yet)
+            return net.decode_paged(self.x, storage, self.index, self.active,
                                     page_size=page_size, pages_per_slot=pages_per_slot)[0]
 
         side = torch.cuda.Stream(weight.device)

@@ -310,10 +310,18 @@ class LlamaStack(nn.Module):
                                torch.stack(vs) if vs else cache.v, start + s)
         return self.norm(x), cache
 
+    def alloc_storage(self, slots: int, pages_per_slot: int, page_size: int,
+                      kv_int8: bool = False) -> pa.PagedPools:
+        """The stack's per-slot storage, as ``HybridStack``'s: zeroed pools
+        for ``slots`` slots, of the model dtype or int8."""
+        cfg, weight = self.cfg, self.norm.weight
+        return pa.alloc_pools(cfg.kv_heads, cfg.num_layers * slots * pages_per_slot, page_size,
+                              cfg.head_dim, weight.dtype, weight.device, quantized=kv_int8)
+
     def prefill_paged(self, emb: torch.Tensor, pools: pa.PagedPools, *,
                       page_size: int, pages_per_slot: int,
                       slots: Optional[torch.Tensor] = None,
-                      n_slots: Optional[int] = None, tp_group=None
+                      n_slots: Optional[int] = None, lengths=None, tp_group=None
                       ) -> Tuple[torch.Tensor, pa.PagedPools]:
         """Run the stack over whole prompts ``emb [G, S, D]``, writing each
         layer's packed K/V straight into its pages of the pools (in place;
@@ -321,8 +329,9 @@ class LlamaStack(nn.Module):
         slot ``slots[g]`` of a pool laid out for ``n_slots`` slots (page
         ``(li*n_slots + slot) * pages_per_slot``); by default slot ``g`` of
         ``G``.  Rows past S in the written pages are zero, and at most
-        ``pages_per_slot`` pages are written.  Returns (hidden [G, S, D]
-        after the final norm, pools)."""
+        ``pages_per_slot`` pages are written; ``lengths`` goes unread (pad
+        rows follow their prompt's).  Returns (hidden [G, S, D] after the
+        final norm, pools)."""
         g_n, s, _ = emb.shape
         cfg = self.cfg
         n_layers, ps = cfg.num_layers, page_size

@@ -50,8 +50,8 @@ EVENTS_PER_LAUNCH = 8  # the JAX package's EVENTS_PER_DISPATCH
 def why_not_fused(config, batch: int, capacity: int) -> Optional[str]:
     """Why the per-event kernel pair (token row, then the whole step) cannot
     take ``config`` at ``batch`` slots of ``capacity`` rows, or None when it
-    can — on bf16, f32 and int8 pools alike: the rule behind
-    ``decode_events(fused=None)`` and the batcher's ``fused=None``."""
+    can — on bf16, f32 and int8 pools alike (:func:`decode_path`'s
+    ``fused=None``)."""
     if isinstance(config.net, HybridConfig):
         return (f"fused kernels: the event net is a {HybridConfig.MODEL_TYPE} hybrid "
                 f"(Mamba-2 and attention layers): the split scan serves it")
@@ -63,16 +63,44 @@ def why_not_fused(config, batch: int, capacity: int) -> Optional[str]:
     return problem
 
 
+def decode_path(config, dtype: torch.dtype, batch: int, capacity: int, kv_int8: bool,
+                fused: Optional[bool] = None, tp_group=None) -> str:
+    """The decode path of ``ContinuousBatcher`` and ``decode_events``:
+    "event_loop" (whole events a launch, pools of the weights' dtype, as the
+    JAX package's event loop), "pair" (token row, then whole step, an event
+    at a time: int8 pools) or "split" (token row, then the stack's
+    ``decode_paged``).  ``fused`` None takes the fused kernels for bf16
+    weights when :func:`why_not_fused` finds nothing in the way, int8 pools
+    included (there the JAX package keeps them off after a v5e measurement;
+    on the H100 the pair decoded faster than the split scan, ``chip_smoke.py``
+    phase 5).  True under a model shard's ``tp_group`` or on a hybrid
+    raises."""
+    if tp_group is not None:
+        if fused:
+            raise ValueError("the fused kernels cannot all-reduce between layers: "
+                             "a model axis takes the split scan")
+        fused = False
+    if fused and isinstance(config.net, HybridConfig):
+        raise ValueError("the fused kernels do not take a hybrid event net: "
+                         "the split scan serves it")
+    if fused is None:
+        fused = dtype == torch.bfloat16 and why_not_fused(config, batch, capacity) is None
+    if not fused:
+        return "split"
+    return "pair" if kv_int8 else "event_loop"
+
+
 def why_not_event_loop(config, batch: int, capacity: int,
                        pool_dtype: torch.dtype) -> Optional[str]:
     """Why the event-loop kernel (whole events per launch, aligned or
     ragged) cannot take ``config`` at ``batch`` slots of ``capacity`` rows
-    with pools of ``pool_dtype``, or None when it can.  Pools of the weights'
-    dtype only, as the JAX package's event loop (``event_loop.py:921``,
-    ``:1099``, ``:1327``): int8 pools take the per-event pair."""
-    if pool_dtype == torch.int8:
-        return "event loop: bf16/f32 pools only (int8 pools take the per-event pair)"
-    return why_not_fused(config, batch, capacity)
+    with pools of ``pool_dtype``, or None when it can: the fused kernels'
+    limits, and pools that :func:`decode_path` gives the per-event pair."""
+    problem = why_not_fused(config, batch, capacity)
+    if not problem and decode_path(config, pool_dtype, batch, capacity,
+                                   kv_int8=pool_dtype == torch.int8, fused=True) == "pair":
+        problem = "event loop: bf16/f32 pools only (int8 pools take the per-event pair)"
+    return problem
 
 
 def event_embedding(model, row: torch.Tensor) -> torch.Tensor:

@@ -7,19 +7,16 @@ Counterpart of ``midi_model_tpu/sampling/generate.py``:
 - :func:`decode_events` loops over events.  Each event samples an 8-token
   row (token net, shared head, grammar mask tables, top-p/top-k), embeds
   it, and runs one event-net step that attends over the pools and appends
-  the new row.  Two paths compute that step:
-
-  * the **fused** path — taken by default for bf16 weights when the fused
-    kernels take the model's shapes (``ops.event_loop.why_not_fused``: an
-    MHA event net with packed pages, ``head_stride == head_dim``, as in the
-    JAX package's ``usable`` rules without their TPU clauses, and the CUDA
-    kernels' own limits).  On bf16 pools whole blocks of
-    ``EVENTS_PER_LAUNCH`` (8) events run as one launch each
-    (``ops.event_loop``); the rest of a chunk (its remainder, the rows near
-    capacity) — and every event on int8 pools, whose event loop the JAX
-    package does not have either — runs one token-row launch
-    (``ops.token_loop``) and one whole-step launch over all event-net layers
-    (``ops.fused_step``) per event, with the same semantics;
+  the new row.  ``ops.event_loop.decode_path`` picks how (by default the
+  fused kernels for bf16 weights whose shapes they take, as the JAX
+  package's ``usable`` rules without their TPU clauses):
+  * the **event loop** — whole blocks of ``EVENTS_PER_LAUNCH`` (8) events as
+    one launch each on bf16/f32 pools, and the pair for the rest of a chunk
+    (its remainder, the rows near capacity);
+  * the **pair** — one token-row launch (``ops.token_loop``) and one
+    whole-step launch over all event-net layers (``ops.fused_step``) per
+    event: every event on int8 pools, whose event loop the JAX package
+    lacks too;
   * the **split** path — the token net step by step with the sampler
     kernel, then the per-layer ``decode_paged`` with the per-slot paged
     decode kernel — for everything else (fp32, GQA), and on request;
@@ -52,11 +49,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..models.config import MIDIModelConfig
+from ..models.config import MIDIModelConfig, require_llama
 from ..models.midinet import MIDINet
 from ..ops import event_loop, token_loop
 from ..ops.fused_step import FusedWeights, fused_decode_step, prepare_fused
-from ..ops.paged_allheads import PagedPools, alloc_pools
+from ..ops.paged_allheads import PagedPools
 from ..ops.sampler import per_row, sample_top_p_k
 from ..ops.token_loop import decode_token_row, decode_token_row_reference
 from .masks import MaskTable, build_mask_table
@@ -72,10 +69,6 @@ class GenState(NamedTuple):
     hidden: torch.Tensor  # [B, D] hidden of the last consumed event row
     cur_len: int  # rows consumed so far (prompt + generated)
     all_eos: bool  # every row emitted eos in the same event
-
-    def capacity(self, config: MIDIModelConfig, batch: int) -> int:
-        n_pages, ps, _ = self.pools.k.shape
-        return (n_pages // (config.net.num_layers * batch)) * ps
 
 
 class Masks(NamedTuple):
@@ -116,14 +109,13 @@ def prefill(model: MIDINet, config: MIDIModelConfig, prompt, max_seq: int,
     to whole pages; int8 pages and scales with ``kv_int8``).  The JAX
     package embeds long prompts in 16-event chunks to bound TPU memory; the
     values are the same in one pass.  Under ``tp_group`` the pools hold
-    this model shard's heads only."""
+    this model shard's heads only.  A hybrid event net raises."""
+    require_llama(config, "generate")
     device = _device(model, device)
     prompt = torch.as_tensor(np.asarray(prompt), device=device).long()
     b, p_len, _ = prompt.shape
-    net = config.net
     pps = pages_per_slot(max_seq)
-    pools = alloc_pools(net.kv_heads, net.num_layers * b * pps, PAGE_SIZE,
-                        net.head_dim, model.dtype, device, quantized=kv_int8)
+    pools = model.net.alloc_storage(b, pps, PAGE_SIZE, kv_int8)
     hidden, pools = model.net.prefill_paged(
         model.embed_events(prompt), pools, page_size=PAGE_SIZE,
         pages_per_slot=pps, tp_group=tp_group)
@@ -212,27 +204,18 @@ def decode_events(model: MIDINet, config: MIDIModelConfig, state: GenState,
     (state, rows [B, n_events_chunk, T] int32, n_done); rows beyond n_done
     are pad.  The pools are updated in place.
 
-    ``fused``: True takes the fused path, False the split path, None the
-    fused path for bf16 weights when ``why_not_fused`` finds nothing in the
-    way.  With True the kernels raise on shapes they cannot take, and the
-    plain versions (CPU tensors) need an MHA event net with packed pages.
-    On bf16/f32 pools the fused path decodes whole blocks of
-    ``event_loop.EVENTS_PER_LAUNCH`` events in one launch each, the rest one
-    event at a time; on int8 pools every event runs the per-event pair.
-    Under ``tp_group`` only the split path runs (``fused`` True raises)."""
+    ``fused`` and ``tp_group`` pick the path as ``ops.event_loop.
+    decode_path`` does: True the fused kernels (which raise on shapes they
+    cannot take; their plain versions, on CPU tensors, need an MHA event net
+    with packed pages), False the split path, None by the rule."""
     b = state.hidden.shape[0]
     tokenizer = config.tokenizer
     device = state.hidden.device
-    max_seq = state.capacity(config, b)
-    if tp_group is not None:
-        if fused:
-            raise ValueError("the fused kernels cannot all-reduce between layers: "
-                             "a tp group takes the split path")
-        fused = False
-    if fused is None:
-        fused = (model.dtype == torch.bfloat16
-                 and event_loop.why_not_fused(config, b, max_seq) is None)
-    weights = prepare_fused(model.net) if fused else None
+    page_size, pps = _geometry(config, state)
+    max_seq = page_size * pps
+    path = event_loop.decode_path(config, model.dtype, b, max_seq, state.pools.quantized,
+                                  fused, tp_group)
+    weights = None if path == "split" else prepare_fused(model.net)
     temp = per_row(temp, b, torch.float32, device)
     top_p = per_row(top_p, b, torch.float32, device)
     top_k = per_row(top_k, b, torch.int32, device)
@@ -240,12 +223,11 @@ def decode_events(model: MIDINet, config: MIDIModelConfig, state: GenState,
                       tokenizer.pad_id, dtype=torch.int32, device=device)
     eos_possible = bool(masks.first[tokenizer.eos_id])
     knobs = (temp, top_p, top_k, generator, greedy, eos_possible, weights)
-    # the event loop reads pools of the weights' dtype only
-    e = 1 if state.pools.quantized else event_loop.EVENTS_PER_LAUNCH
+    e = event_loop.EVENTS_PER_LAUNCH if path == "event_loop" else 1
     step = 0
     while (step < n_events_chunk and not state.all_eos
            and state.cur_len < max_seq):
-        if (fused and e > 1 and step + e <= n_events_chunk
+        if (e > 1 and step + e <= n_events_chunk
                 and state.cur_len + e <= max_seq):
             state, block = _decode_event_block(model, config, state, masks,
                                                *knobs, e)

@@ -4,29 +4,26 @@ Counterpart of ``midi_model_tpu/serve/batcher.py``, on one device or over
 a ``(data, model)`` mesh (``parallel.mesh``; see "Mesh" below).  A fixed
 ``n_slots``-row decode batch lives on the model's device:
 
-- the event-net KV cache is one set of paged pools (``ops.paged_allheads``)
-  with a contiguous page range per (layer, slot), bf16/f32 or int8; a
-  hybrid event net (``models.hybrid``, Granite 4.0-H) has pools for its
-  attention layers only, and per-slot Mamba-2 state beside them
-  (``SlotState``: f32 SSM state and the conv state of every Mamba-2 layer);
+- the event net's per-slot storage is what its stack allocates
+  (``alloc_storage``): paged pools (``ops.paged_allheads``) with a
+  contiguous page range per (layer, slot), bf16/f32 or int8; a hybrid event
+  net (``models.hybrid``, Granite 4.0-H) adds its Mamba-2 layers' states
+  and, on the card, its decode step captured as a CUDA graph;
 - admission runs the requests of one prompt bucket (``PREFILL_BUCKETS``) as
-  one prefill forward through the causal attention kernel and writes their
-  K/V straight into their slots' pages, quantized for int8 pools; a hybrid
-  net's prefill (the SSD scan, ``ops.ssm``) also installs each prompt's
-  final states into its slot, over whatever the slot held;
+  one prefill forward (the stack's ``prefill_paged``) through the causal
+  attention kernel and writes their K/V straight into their slots' pages,
+  quantized for int8 pools; a hybrid net's prefill (the SSD scan,
+  ``ops.ssm``) also installs each prompt's final states into its slot;
 - one :meth:`ContinuousBatcher.step` decodes a chunk of events for every
-  slot (:attr:`ContinuousBatcher.path`): when the fused kernels take the
-  model (bf16 weights, ``why_not_fused``), the ragged event-loop kernel
-  (one launch per chunk) on bf16 pools, or the per-event pair — the
-  token-row kernel, then the whole-step kernel over the int8 pools — one
-  event at a time on int8 pools (the JAX package's ``_step_impl`` fused
-  branch, ``batcher.py:335-340``); else the split scan — the token-row
-  kernel and ``decode_paged`` with the streaming paged kernel (and the
-  state-update kernel on a hybrid's Mamba-2 layers), one event at a time;
-  a hybrid net always takes the split scan, its ``decode_paged`` replayed
-  as one CUDA graph on the card (``models.hybrid.GraphedDecode``).  An
-  ``alive`` mask on the device retires a slot mid-chunk on its eos row or
-  at capacity;
+  slot on :attr:`ContinuousBatcher.path` (``ops.event_loop.decode_path``):
+  the ragged event-loop kernel (one launch per chunk) on bf16 pools, or the
+  per-event pair — the token-row kernel, then the whole-step kernel over
+  the int8 pools — one event at a time on int8 pools (the JAX package's
+  ``_step_impl`` fused branch, ``batcher.py:335-340``); else the split
+  scan — the token-row kernel and the stack's ``decode_paged`` with the
+  streaming paged kernel (and the state-update kernel on a hybrid's
+  Mamba-2 layers), one event at a time.  An ``alive`` mask on the device
+  retires a slot mid-chunk on its eos row or at capacity;
 - the host collects each slot's rows, retires slots on an eos row, budget
   or capacity, and reuses them for queued requests at once.
 
@@ -65,12 +62,8 @@ from the host's index mirror; and ``batcher.clustered_launches``, the
 chunk's decode-kernel launches that ran in thread-block clusters, counted
 when there are any) and ``batcher.wait_rows``
 (the host waiting for a chunk's rows, with ``batcher.rows_delivered``).
-A hybrid event net adds ``batcher.state_install`` (one admission's final
-states written into their slots: ``rids``, ``bytes``) with the counters
-``batcher.ssm_scan_rows`` and ``batcher.ssm_scan_pad_rows`` (the rows its
-scan ran, whole chunks up to each prompt's length within the bucket, and
-the pad rows among them), and ``batcher.state_bytes`` at each dispatch (the
-SSM and conv state bytes the chunk's steps read and write).
+A hybrid event net's prefill adds ``batcher.state_install`` and its scan
+counters (``models.hybrid``).
 """
 
 from __future__ import annotations
@@ -81,14 +74,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..models.config import HybridConfig, MIDIModelConfig
-from ..models.hybrid import GraphedDecode
+from ..models.config import MIDIModelConfig, require_llama
 from ..models.midinet import MIDINet
 from ..ops import _build
 from ..ops import event_loop
 from ..ops import token_loop
 from ..ops.fused_step import chunk_attention_counts, fused_decode_step, prepare_fused
-from ..ops.paged_allheads import alloc_pools
 from ..ops.sampler import sample_top_p_k
 from ..parallel.mesh import Mesh, gather_shards
 from ..sampling.generate import mask_tensors
@@ -140,37 +131,33 @@ class ContinuousBatcher:
         divisible by its data size, and each data shard decodes its share of
         the slots.  Under a model axis, ``model`` is the full model: the
         batcher keeps this rank's shard of it (``tp_shard_params``), and
-        ``fused`` True raises (the split scan is the only path).
+        ``fused`` True raises (the split scan is the only path).  A hybrid
+        event net takes no mesh.
 
         ``max_seq`` is rounded up to a multiple of 4 pages: the capacity at
         which slots retire.  ``fused``: True runs each chunk through the
         fused kernels — the ragged event loop on bf16/f32 pools, the
-        per-event pair (token row, whole step) on int8 pools —, False
-        through the split scan, None the former for bf16 weights when
-        ``ops.event_loop.why_not_fused`` finds nothing in the way.  On int8
-        pools the JAX package keeps its fused branch off after a v5e
-        measurement (``batcher.py:590-604``); on the H100 the pair decoded
-        faster than the split scan (``chip_smoke.py`` phase 5, PERF.md), so
-        None takes it there too.  ``pipeline``: dispatch chunk N+1 before
-        reading chunk N's rows (default: on for a CUDA device, off on the
-        CPU); per-request rows are the same either way."""
+        per-event pair on int8 pools —, False through the split scan, None
+        by ``ops.event_loop.decode_path``'s rule.  ``pipeline``: dispatch
+        chunk N+1 before reading chunk N's rows (default: on for a CUDA
+        device, off on the CPU); per-request rows are the same either way."""
         dp, tp = (mesh.dp, mesh.tp) if mesh is not None else (1, 1)
-        self.hybrid = isinstance(config.net, HybridConfig)
-        if self.hybrid and (mesh is not None or kv_int8 or fused):
-            raise ValueError("a hybrid event net is served on one device, bf16/f32 pools and "
-                             "the split scan: no mesh, kv_int8 or fused")
+        if mesh is not None:
+            require_llama(config, "the continuous batcher on a mesh")
         if n_slots % dp:
             raise ValueError(f"n_slots={n_slots} not divisible by the mesh's "
                              f"data axis size {dp}")
-        if tp > 1:
-            if fused:
-                raise ValueError("the fused kernels cannot all-reduce between layers: "
-                                 "a model axis takes the split scan")
-            fused = False
-            model, config = tp_shard_params(model, mesh), tp_local_config(config, tp)
         self.mesh = mesh
         self._tp_group = mesh.model_group if tp > 1 else None
         local_slots = n_slots // dp
+        block = 4 * page_size
+        self.max_seq = -(-max_seq // block) * block
+        # a chunk's decode: "event_loop" (one launch), "pair" or "split" (per event)
+        self.path = event_loop.decode_path(config, model.dtype, local_slots, self.max_seq,
+                                           kv_int8, fused, self._tp_group)
+        self.fused = self.path != "split"
+        if tp > 1:
+            model, config = tp_shard_params(model, mesh), tp_local_config(config, tp)
         data_rank = mesh.data_rank if mesh is not None else 0
         # this rank's slots of the global table
         self._mine = slice(data_rank * local_slots, (data_rank + 1) * local_slots)
@@ -181,34 +168,14 @@ class ContinuousBatcher:
         self.n_slots = n_slots
         self.page_size = page_size
         self.greedy = greedy
-        block = 4 * page_size
-        self.max_seq = -(-max_seq // block) * block
         self.pages_per_slot = self.max_seq // page_size
         self.chunk = chunk
         self.temp, self.top_p, self.top_k = temp, top_p, top_k
         self.masks = mask_tensors(
             build_mask_table(config.tokenizer, disable_eos=disable_eos), self.device)
-        net = config.net
-        if self.hybrid:
-            self._pools = model.net.alloc_pools(local_slots, self.pages_per_slot, page_size)
-            self._state = model.net.alloc_state(local_slots)
-            # on the card the event-net step replays as one CUDA graph
-            self._graphed = (GraphedDecode(model.net, self._pools, self._state, local_slots,
-                                           page_size=page_size,
-                                           pages_per_slot=self.pages_per_slot)
-                             if self.device.type == "cuda" else None)
-        else:
-            self._pools = alloc_pools(net.kv_heads,
-                                      net.num_layers * local_slots * self.pages_per_slot,
-                                      page_size, net.head_dim, model.dtype, self.device,
-                                      quantized=kv_int8)
-            self._state = self._graphed = None
-        if fused is None:
-            fused = (model.dtype == torch.bfloat16
-                     and event_loop.why_not_fused(config, local_slots, self.max_seq) is None)
-        self.fused = bool(fused)
-        # a chunk's decode: "event_loop" (one launch), "pair" or "split" (per event)
-        self.path = ("split" if not self.fused else "pair" if kv_int8 else "event_loop")
+        # the event net's per-slot storage (pools; a hybrid's states and graph)
+        self._storage = model.net.alloc_storage(local_slots, self.pages_per_slot, page_size,
+                                                kv_int8)
         self._weights = prepare_fused(model.net) if self.fused else None
         # the split scan's token row: the kernel where it takes the token net
         self._token_kernel = token_loop.kernel_limits(config, local_slots) is None
@@ -334,37 +301,14 @@ class ContinuousBatcher:
                 profiling.count("batcher.prefill_bucket_rows", g * bucket)
             slots_t = self._to_device(slots)
             p_lens_t = self._to_device(p_lens)
-            geometry = dict(page_size=self.page_size, pages_per_slot=self.pages_per_slot,
-                            slots=slots_t, n_slots=self._index.shape[0])
-            emb = self.model.embed_events(self._to_device(padded))
-            if self.hybrid:
-                hidden = self._prefill_hybrid(emb, p_lens, p_lens_t, part, bucket, geometry)
-            else:
-                hidden, self._pools = self.model.net.prefill_paged(
-                    emb, self._pools, tp_group=self._tp_group, **geometry)
+            hidden, self._storage = self.model.net.prefill_paged(
+                self.model.embed_events(self._to_device(padded)), self._storage,
+                slots=slots_t, n_slots=self._index.shape[0], lengths=p_lens,
+                page_size=self.page_size, pages_per_slot=self.pages_per_slot,
+                tp_group=self._tp_group)
             rows = torch.arange(g, device=self.device)
             self._hidden[slots_t] = hidden[rows, p_lens_t - 1]
             self._index[slots_t] = p_lens_t.to(torch.int32)
-
-    def _prefill_hybrid(self, emb, p_lens: np.ndarray, p_lens_t, part: list, bucket: int,
-                        geometry: dict):
-        """A hybrid net's admission forward: K/V into the pools, then each
-        prompt's final Mamba-2 states installed into its slot."""
-        if profiling.on():
-            chunk = self.config.net.mamba_chunk_size
-            ran = int(np.minimum(-(-p_lens // chunk) * chunk, bucket).sum())
-            profiling.count("batcher.ssm_scan_rows", ran)
-            profiling.count("batcher.ssm_scan_pad_rows", ran - int(p_lens.sum()))
-        hidden, self._pools, group = self.model.net.prefill_paged(
-            emb, self._pools, lengths=p_lens_t.to(torch.int32), **geometry)
-        with profiling.span("batcher.state_install") as sp:
-            if sp:
-                sp.attrs.update(rids=[item[0] for _slot, item in part],
-                                bytes=group.nbytes())
-            slots = geometry["slots"]
-            self._state.ssm[:, slots] = group.ssm
-            self._state.conv[:, slots] = group.conv
-        return hidden
 
     def _install_host(self, slot: int, item):
         rid, prompt, budget, knobs, allow, seed = item
@@ -450,8 +394,6 @@ class ContinuousBatcher:
             if sp:
                 sp.attrs["live_slots"] = int(self._active.sum())
                 profiling.count("batcher.slot_steps", self.n_slots * self.chunk)
-                if self.hybrid:  # every slot's states, read and written each step
-                    profiling.count("batcher.state_bytes", 2 * self._state.nbytes() * self.chunk)
                 if self.path == "event_loop":
                     items, split = chunk_attention_counts(
                         self._host_index(), self._active[self._mine], self.chunk, self.max_seq)
@@ -466,8 +408,8 @@ class ContinuousBatcher:
             gumbel = None if self.greedy else slot_gumbel(kn["seed"], positions, t_max)
             knobs = (kn["temp"], kn["top_p"], kn["top_k"])
             if self.path == "event_loop":
-                rows, self._hidden, self._pools = event_loop.decode_event_block_ragged(
-                    self.model, self.config, self._weights, self._hidden, self._pools,
+                rows, self._hidden, self._storage = event_loop.decode_event_block_ragged(
+                    self.model, self.config, self._weights, self._hidden, self._storage,
                     self._index, kn["active"], self.masks, *knobs, gumbel, kn["allow"],
                     n_events=self.chunk, greedy=self.greedy, page_size=self.page_size,
                     pages_per_slot=self.pages_per_slot)
@@ -524,16 +466,11 @@ class ContinuousBatcher:
                     forced_pad=~alive, allow=kn["allow"], sample=sample_top_p_k)
             emb = model.embed_events(row[:, None, :])[:, 0]
             if self.path == "pair":
-                h, self._pools = fused_decode_step(self._weights, config.net, emb,
-                                                   self._pools, index, alive, **geometry)
-            elif self._graphed is not None:
-                h = self._graphed(emb, index, alive)
-            elif self.hybrid:
-                h, self._pools = model.net.decode_paged(emb, self._pools, index, alive,
-                                                        state=self._state, **geometry)
+                h, self._storage = fused_decode_step(self._weights, config.net, emb,
+                                                     self._storage, index, alive, **geometry)
             else:
-                h, self._pools = model.net.decode_paged(emb, self._pools, index, alive,
-                                                        tp_group=self._tp_group, **geometry)
+                h, self._storage = model.net.decode_paged(emb, self._storage, index, alive,
+                                                          tp_group=self._tp_group, **geometry)
             new_index = torch.where(alive, (index + 1).clamp(max=capacity), index)
             hidden = torch.where(alive[:, None], h, hidden)
             # mid-chunk retirement: the eos row went through the event net,

@@ -93,7 +93,7 @@ def _stack() -> list:
 def current() -> Optional[int]:
     """The id of the innermost span open on this thread, or None."""
     stack = _stack() if on() else None
-    return stack[-1] if stack else None
+    return stack[-1].id if stack else None
 
 
 class Span:
@@ -117,7 +117,7 @@ class Span:
         return True
 
     def __enter__(self) -> "Span":
-        _stack().append(self.id)
+        _stack().append(self)
         if _depth:
             from torch.profiler import record_function
 
@@ -131,7 +131,7 @@ class Span:
             self._range.__exit__(*exc)
             self._range = None
         stack = _stack()
-        if stack and stack[-1] == self.id:
+        if stack and stack[-1] is self:
             stack.pop()
         self.finish()
 
@@ -173,16 +173,20 @@ class _Null:
 NULL = _Null()
 
 
-def span(name: str, parent: Optional[int] = None):
+def span(name: str, parent: Optional[int] = None, inherit: Tuple[str, ...] = ()):
     """While the recorder is on, a new :class:`Span` started now: ``with
     span("layer.part") as sp:`` records the block (set attributes under
     ``if sp:``); a span kept and ended by ``sp.finish()``, on any thread,
     records a wait that no block holds (a request in a queue, a thread's
     idle time), and is neither this thread's innermost span nor a
-    ``record_function``.  :data:`NULL` while the recorder is off."""
+    ``record_function``.  ``inherit`` names attributes copied from the
+    innermost span open on this thread.  :data:`NULL` while it is off."""
     if not on():
         return NULL
-    return Span(name, parent)
+    sp = Span(name, parent)
+    for outer in _stack()[-1:] if inherit else ():
+        sp.attrs.update((k, outer.attrs[k]) for k in inherit if k in outer.attrs)
+    return sp
 
 
 def count(name: str, n: int = 1) -> None:

@@ -2,8 +2,10 @@
 on the CPU at a tiny size, held to the benchmark's plain reference
 (``bench_h100/reference/granite_hybrid.py``) and the reference to
 ``transformers``' ``GraniteMoeHybridModel``: the stack's three paths, the
-Mamba-2 kernels' plain versions, the continuous batcher on the hybrid, the
-config round trip, and the paths that do not take a hybrid."""
+Mamba-2 kernels' plain versions, the per-slot storage calls the hybrid and
+the Llama stacks share, the continuous batcher on the hybrid, the config
+round trip, the decode-path rule, and the paths that do not take a
+hybrid."""
 
 import copy
 
@@ -16,8 +18,8 @@ from bench_h100 import spec, weights
 from bench_h100.reference import granite_hybrid as ref
 from midi_model_tpu_torch.models.config import (HybridConfig, MIDIModelConfig,
                                                 TransformerConfig)
-from midi_model_tpu_torch.models.midinet import MIDINet
-from midi_model_tpu_torch.ops import ssm
+from midi_model_tpu_torch.models.midinet import MIDINet, init_model
+from midi_model_tpu_torch.ops import event_loop, ssm
 from midi_model_tpu_torch.ops.attention import attention_reference, causal_attention, causal_bias
 from midi_model_tpu_torch.serve.batcher import ContinuousBatcher
 from midi_model_tpu_torch.utils import profiling
@@ -172,10 +174,10 @@ def test_plain_step_continues_the_scan():
 def test_stack_paths_match_the_reference(tiny, kv_split, monkeypatch):
     """``HybridStack.forward``; ``prefill_paged`` of one bucket holding
     prompts of 1, 2, 5 and 20 rows (shorter than the convolution, across
-    chunks of 8) with the states installed into their slots; then
-    ``decode_paged`` of 6 rows through both caches: each against the
-    reference's full forward of the prompt and its rows so far.  With
-    ``kv_split`` 2 each slot's kv heads lie in two virtual slots of the
+    chunks of 8), which installs the states into their slots over what
+    they held; then ``decode_paged`` of 6 rows through both caches: each
+    against the reference's full forward of the prompt and its rows so far.
+    With ``kv_split`` 2 each slot's kv heads lie in two virtual slots of the
     pools, as granite's 32 query heads do on the card."""
     _, _, _, model, reference = tiny
     net = model.net
@@ -186,20 +188,17 @@ def test_stack_paths_match_the_reference(tiny, kv_split, monkeypatch):
     with torch.no_grad():
         torch.testing.assert_close(net(emb[:, :s])[0], reference.net(emb[:, :s]), **F32_TOL)
         ps, pps = 4, 8
-        pools = net.alloc_pools(4, pps, ps)
-        state = net.alloc_state(4)
-        state.ssm.normal_()  # whatever the slots held before
-        state.conv.normal_()
+        storage = net.alloc_storage(4, pps, ps)
+        assert storage.graph is None  # the CPU runs the step op by op
+        storage.state.ssm.normal_()  # whatever the slots held before
+        storage.state.conv.normal_()
         slots = torch.tensor([2, 0, 3, 1])
         lens = torch.tensor(lengths, dtype=torch.int32)
         # prompt g's rows, then its decoded rows: the rows of emb after its length
         seqs = [torch.cat([emb[i, :L], emb[i, s:]]) for i, L in enumerate(lengths)]
         padded = torch.stack([F.pad(q[:L], (0, 0, 0, s - L)) for q, L in zip(seqs, lengths)])
-        hidden, pools, group = net.prefill_paged(padded, pools, page_size=ps,
-                                                 pages_per_slot=pps, slots=slots, n_slots=4,
-                                                 lengths=lens)
-        state.ssm[:, slots] = group.ssm
-        state.conv[:, slots] = group.conv
+        hidden, storage = net.prefill_paged(padded, storage, page_size=ps, pages_per_slot=pps,
+                                            slots=slots, n_slots=4, lengths=lens)
         for i, L in enumerate(lengths):
             torch.testing.assert_close(hidden[i, :L], reference.net(seqs[i][None, :L])[0],
                                        **F32_TOL)
@@ -208,12 +207,105 @@ def test_stack_paths_match_the_reference(tiny, kv_split, monkeypatch):
         for t in range(steps):
             x = torch.zeros(4, 64)
             x[slots] = torch.stack([q[L + t] for q, L in zip(seqs, lengths)])
-            out, pools = net.decode_paged(x, pools, index, torch.ones(4, dtype=torch.bool),
-                                          page_size=ps, pages_per_slot=pps, state=state)
+            out, storage = net.decode_paged(x, storage, index, torch.ones(4, dtype=torch.bool),
+                                            page_size=ps, pages_per_slot=pps)
             for i, L in enumerate(lengths):
                 want = reference.net(seqs[i][None, :L + t + 1])[0, -1]
                 torch.testing.assert_close(out[slots[i]], want, **F32_TOL)
             index = index + 1
+
+
+@pytest.mark.parametrize("stack", ["llama", "hybrid"])
+def test_stacks_share_the_storage_calls(tiny, stack):
+    """Both event nets through the three calls a caller makes: storage for
+    4 slots, one prefill of prompts of 1, 2, 5 and 20 rows into shuffled
+    slots, then 3 decoded rows per slot.  Each slot's hidden rows equal
+    those of its prompt admitted alone into storage of its own."""
+    if stack == "hybrid":
+        model = tiny[3]
+    else:
+        model = init_model(MIDIModelConfig.get_config("v2", True, n_layer=2, n_head=4,
+                                                      n_embd=64, n_inner=128),
+                           seed=3, device="cpu")
+    net = model.net
+    g = torch.Generator().manual_seed(17)
+    lengths, s, steps, ps, pps = [1, 2, 5, 20], 24, 3, 4, 8
+    seqs = [torch.randn(L + steps, 64, generator=g) for L in lengths]
+
+    def run(prompts, slots, n_slots):
+        """(each prompt's prefill rows, its decoded rows [steps, D])."""
+        storage = net.alloc_storage(n_slots, pps, ps)
+        lens = [len(q) - steps for q in prompts]
+        bucket = max(lens) if n_slots == 1 else s
+        padded = torch.stack([F.pad(q[:L], (0, 0, 0, bucket - L)) for q, L in zip(prompts, lens)])
+        slots_t = torch.tensor(slots)
+        hidden, storage = net.prefill_paged(padded, storage, slots=slots_t, n_slots=n_slots,
+                                            lengths=np.asarray(lens), page_size=ps,
+                                            pages_per_slot=pps)
+        index = torch.zeros(n_slots, dtype=torch.int32)
+        index[slots_t] = torch.tensor(lens, dtype=torch.int32)
+        decoded = []
+        for t in range(steps):
+            x = torch.zeros(n_slots, 64)
+            x[slots_t] = torch.stack([q[L + t] for q, L in zip(prompts, lens)])
+            out, storage = net.decode_paged(x, storage, index,
+                                            torch.ones(n_slots, dtype=torch.bool),
+                                            page_size=ps, pages_per_slot=pps)
+            decoded.append(out[slots_t].clone())
+            index = index + 1
+        return ([hidden[i, :L] for i, L in enumerate(lens)],
+                torch.stack(decoded, dim=1))
+
+    with torch.no_grad():
+        together, decoded = run(seqs, [2, 0, 3, 1], 4)
+        for i, q in enumerate(seqs):
+            alone, alone_decoded = run([q], [0], 1)
+            torch.testing.assert_close(together[i], alone[0], **F32_TOL)
+            torch.testing.assert_close(decoded[i], alone_decoded[0], **F32_TOL)
+
+
+CASES = {  # (event net, weights, kv_int8, fused, model axis) -> path or the error raised
+    ("wide", "bfloat16", False, None, False): "event_loop",
+    ("wide", "bfloat16", True, None, False): "pair",
+    ("wide", "float32", False, None, False): "split",
+    ("wide", "float32", False, True, False): "event_loop",
+    ("wide", "float32", True, True, False): "pair",
+    ("wide", "bfloat16", False, False, False): "split",
+    ("wide", "bfloat16", True, False, False): "split",
+    ("wide", "bfloat16", False, None, True): "split",
+    ("wide", "bfloat16", True, False, True): "split",
+    ("wide", "bfloat16", False, True, True): "all-reduce",
+    ("narrow", "bfloat16", False, None, False): "split",
+    ("narrow", "bfloat16", True, True, False): "pair",
+    ("hybrid", "bfloat16", False, None, False): "split",
+    ("hybrid", "float32", False, False, False): "split",
+    ("hybrid", "bfloat16", True, None, False): "split",
+    ("hybrid", "float32", False, True, False): "hybrid event net",
+}
+
+
+@pytest.mark.parametrize("case", list(CASES), ids=lambda case: "-".join(map(str, case)))
+def test_decode_path_rule(tiny, case):
+    """``ops.event_loop.decode_path``, the batcher's and ``generate``'s one
+    rule, at 2 slots of 64 rows: ``fused=None`` takes the fused kernels for
+    bf16 weights where they take the model (the ragged event loop, or the
+    pair on int8 pools), never for f32 weights, a packed-MHA miss
+    (``narrow``: 4 heads of 16) or a hybrid; a model axis takes the split
+    scan; ``fused`` True forces the kernels, and raises under a model axis
+    or on a hybrid (whose int8 pools its storage refuses)."""
+    net, dtype, kv_int8, fused, sharded = case
+    config = {"wide": MIDIModelConfig.get_config("v2", True, n_layer=1, n_head=8, n_embd=512,
+                                                 n_inner=64),
+              "narrow": MIDIModelConfig.get_config("v2", True, n_layer=4, n_head=4, n_embd=64,
+                                                   n_inner=128),
+              "hybrid": tiny[1]}[net]
+    args = (config, getattr(torch, dtype), 2, 64, kv_int8, fused, object() if sharded else None)
+    want = CASES[case]
+    if want in ("event_loop", "pair", "split"):
+        assert event_loop.decode_path(*args) == want
+    else:
+        with pytest.raises(ValueError, match=want):
+            event_loop.decode_path(*args)
 
 
 def test_batcher_serves_the_hybrid_on_the_split_scan(tiny):
@@ -228,10 +320,11 @@ def test_batcher_serves_the_hybrid_on_the_split_scan(tiny):
     prompt[1:, 0] = 3  # grammar does not matter to the model: any rows
     alone = ContinuousBatcher(model, cfg, n_slots=4, max_seq=64, chunk=3, greedy=True,
                               page_size=4, disable_eos=True)
-    assert alone.path == "split" and alone.hybrid
-    assert alone._pools.k.shape[0] == 1 * 4 * alone.pages_per_slot  # 1 attention layer
-    assert alone._state.ssm.shape == (3, 4, 4, 16, 16)
-    assert alone._state.conv.shape == (3, 4, 3, 64 + 2 * 16)
+    assert alone.path == "split" and alone._storage.graph is None
+    pools, state = alone._storage.pools, alone._storage.state
+    assert pools.k.shape[0] == 1 * 4 * alone.pages_per_slot  # 1 attention layer
+    assert state.ssm.shape == (3, 4, 4, 16, 16)
+    assert state.conv.shape == (3, 4, 3, 64 + 2 * 16)
     rid = alone.submit(prompt, 7, seed=5)
     rows = alone.run_all()[rid].rows
     mixed = ContinuousBatcher(model, cfg, n_slots=4, max_seq=64, chunk=3, greedy=True,
@@ -250,8 +343,8 @@ def test_batcher_serves_the_hybrid_on_the_split_scan(tiny):
 
 def test_batcher_records_state_install_and_scan_counters(tiny):
     """The recorder's ``batcher.state_install`` span (rids, bytes) and the
-    ``batcher.ssm_scan_rows`` / ``_pad_rows`` and ``batcher.state_bytes``
-    counters on the hybrid."""
+    ``batcher.ssm_scan_rows`` / ``_pad_rows`` counters on the hybrid,
+    recorded by its prefill inside the batcher's admission."""
     c, cfg, _, model, _ = tiny
     tok = c["tokenizer"]
     b = ContinuousBatcher(model, cfg, n_slots=4, max_seq=64, chunk=2, greedy=True,
@@ -262,13 +355,11 @@ def test_batcher_records_state_install_and_scan_counters(tiny):
         spans, counters = profiling.snapshot()
     installs = [sp for sp in spans if sp.name == "batcher.state_install"]
     assert sorted(r for sp in installs for r in sp.attrs["rids"]) == sorted(rids)
-    per_slot = b._state.nbytes(1)
+    per_slot = b._storage.state.nbytes() // 4
     assert sum(sp.attrs["bytes"] for sp in installs) == 2 * per_slot
     # buckets of 16 rows (one prompt each); chunks of 8: 8 and 16 rows ran
     assert counters["batcher.ssm_scan_rows"] == 8 + 16
     assert counters["batcher.ssm_scan_pad_rows"] == 8 + 16 - 3 - 10
-    dispatches = sum(1 for sp in spans if sp.name == "batcher.dispatch")
-    assert counters["batcher.state_bytes"] == dispatches * 2 * b._state.nbytes() * 2
 
 
 def test_config_round_trip_and_unknown_model_type():
@@ -310,10 +401,11 @@ def test_attention_scale_leaves_the_default_bit_identical():
 
 
 @pytest.mark.parametrize("path", ["kv_int8", "mesh", "fused", "train", "lora", "lora_load",
-                                  "export"])
+                                  "export", "generate"])
 def test_paths_left_out_raise(tiny, path, tmp_path):
-    """Int8 pools, a mesh, the fused kernels, training, LoRA and export do
-    not take a hybrid event net: each raises a clear error."""
+    """Int8 pools, a mesh, the fused kernels, training, LoRA, export and
+    ``generate`` do not take a hybrid event net: each raises a clear
+    error."""
     _, cfg, _, model, _ = tiny
     if path in ("kv_int8", "mesh", "fused"):
         from midi_model_tpu_torch.parallel.mesh import Mesh
@@ -336,6 +428,10 @@ def test_paths_left_out_raise(tiny, path, tmp_path):
             from midi_model_tpu_torch.models.lora import peft_state_dict_to_lora
 
             peft_state_dict_to_lora({}, cfg)
+        elif path == "generate":
+            from midi_model_tpu_torch.sampling import generate
+
+            generate(model, cfg, max_len=4)
         else:
             from midi_model_tpu_torch.interop.export import export_artifacts
 
